@@ -6,21 +6,36 @@
 Phases, each of which fails the run (non-zero exit) when it fails:
 
 1. card: name and power limit from ``nvidia-smi``, torch and CUDA versions;
-2. build kernel K1 (``rise_sdf_tpu_torch/csrc/scatter_add.cu``) with nvcc;
-3. K1 against a float64 ``index_add_`` reference at the JAX test shapes
-   and at the main-path shape (16 levels x 2^19 x 2, 8,388,608 rows per
-   level), per entry ``|K1 - ref| <= 1e-5 * S + 1e-7`` with ``S`` the sum
-   of ``|v|`` landing on that entry; median-of-10 times of K1 and of the
-   float32 ``index_add_``;
-4. small-input reference: the tiny NeuS config's loss and gradients on the
-   card (through K1) against the same on the CPU (plain scatter);
-5. slice: the NeuS system at ``neus_sphere_full`` widths (hash grid 16 x
-   2^19 x 2, 4096 rays x 1024 samples into a 1,048,576-sample buffer) on
-   the synthetic sphere at 800x800, trained through ``datasets.make`` /
-   ``systems.make`` / ``fit`` for ``--steps`` steps, then ``validate`` on
-   one view.  K1's launch count is zeroed just before and read just
-   after; at step 0 the table gradient is recomputed with the plain
-   scatter on the same cotangent.
+2. build the kernels K1 (``rise_sdf_tpu_torch/csrc/scatter_add.cu``) and
+   G1 (``csrc/gather_rows.cu``) with nvcc, one process per source, both
+   at once;
+3. K1 against a float64 ``index_add_`` reference at the JAX test shapes,
+   at S1's shape (12,582,912 rows into 2^19 x 2) and at the main-path
+   shape (16 levels x 2^19 x 2, 8,388,608 rows per level), per entry
+   ``|K1 - ref| <= 1e-5 * S + 1e-7`` with ``S`` the sum of ``|v|``
+   landing on that entry; median-of-10 times (each over 10 back-to-back
+   calls) of K1, of its plain version and of ``index_add_``;
+4. G1 bit-equal to ``index_select`` at S2/S3's shape (8,388,608 rows from
+   2^19 x 2), at S4's (4,194,304 rows from 2^19 x w, w = 2, 8, 32), at
+   the render's (one chunk's hash encode and baked-SDF probe) and at the
+   main-path shape (134,217,728 rows from 8,388,608 x 2); median-of-10
+   times of G1, of its plain version and of ``index_select``;
+5. small-input references, card against CPU: the tiny NeuS config's loss
+   and gradients (K1 against the plain scatter), and the tiny split
+   config's eval render with prefilter, bands and the full bake (G1
+   against the plain gather), both in float64;
+6. render slice: ``rise_sdf_tpu_torch.bench`` at 800x800 (the flagship
+   ``split_mixed_occ_full`` at full width, the headline protocol of the
+   JAX package's ``bench.py``), G1 and K1 counts zeroed just before and
+   read just after: the image must be finite, G1 must launch and K1 must
+   not;
+7. training slice: the NeuS system at ``neus_sphere_full`` widths (hash
+   grid 16 x 2^19 x 2, 4096 rays x 1024 samples into a 1,048,576-sample
+   buffer) on the synthetic sphere at 800x800, trained through
+   ``datasets.make`` / ``systems.make`` / ``fit`` for ``--steps`` steps,
+   then ``validate`` on one view.  The counts are zeroed just before and
+   read just after; at steps 0 and 1 the table gradient is recomputed
+   with the plain scatter on the same cotangent.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
@@ -37,9 +52,18 @@ import time
 
 import numpy as np
 
-SRC = "rise_sdf_tpu_torch/csrc/scatter_add.cu"
-REPLACES = "rise_sdf_tpu/ops/scatter_pallas.py:49"
+SRC_K1 = "rise_sdf_tpu_torch/csrc/scatter_add.cu"
+SRC_G1 = "rise_sdf_tpu_torch/csrc/gather_rows.cu"
+REPLACES_K1 = "rise_sdf_tpu/ops/scatter_pallas.py:49"
+REPLACES_S1 = "scripts/scatter_kernel_bench.py:33"
+REPLACES_G1 = ("scripts/pallas_gather_bench.py:79 (S2), "
+               "scripts/pallas_gather_bench.py:128 (S3), "
+               "scripts/r5_gather_width_bench.py:52 (S4)")
 LEVELS, LOG2_T, F, ROWS_PER_LEVEL = 16, 19, 2, 8 * 1048576
+S1_ROWS = 12582912
+# the card's memory rate for the bounds (H100 SXM, 3.35 TB/s); scatter
+# adds count against float32 outside the tensor cores (67 TFLOP/s)
+HBM_BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12
 
 
 def fail(msg):
@@ -60,8 +84,11 @@ def card_line():
     return res.stdout.strip().splitlines()[0]
 
 
-def median_ms(torch, fn, reps=10):
-    """Median device time of ``fn`` over ``reps`` runs (CUDA events)."""
+def median_ms(torch, fn, reps=10, inner=10):
+    """Median over ``reps`` samples of the device time per call of
+    ``fn``, each sample a run of ``inner`` back-to-back calls between two
+    CUDA events, so the host's launch overhead overlaps the device's
+    work (CUDA events)."""
     fn()
     torch.cuda.synchronize()
     times = []
@@ -69,11 +96,25 @@ def median_ms(torch, fn, reps=10):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(inner):
+            fn()
         end.record()
         torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / inner)
     return float(np.median(times))
+
+
+def scatter_bound_ms(m, f, table_size):
+    """Least time of ``zeros[T, F].at[idx].add(vals)``: idx and vals read
+    once, the table written once; or m * f adds at the float32 rate."""
+    moved = m * 4 + m * f * 4 + table_size * f * 4
+    return max(moved / HBM_BYTES_PER_S, m * f / F32_OPS_PER_S) * 1e3
+
+
+def gather_bound_ms(m, w, n):
+    """Least time of ``table[idx]``: idx and the table read once, the
+    output written once (a gather does no arithmetic)."""
+    return (m * 4 + n * w * 4 + m * w * 4) / HBM_BYTES_PER_S * 1e3
 
 
 def check_scatter(torch, got, idx, vals, table_size, what):
@@ -107,6 +148,20 @@ def main_path_inputs(torch, gen):
     return idx, vals, LEVELS * t
 
 
+def time_scatter(torch, scatter, idx, vals, t, what):
+    """Median-of-10 times of K1, its plain version and ``index_add_``."""
+    ms = median_ms(torch, lambda: scatter.scatter_add(idx, vals, t))
+    plain_ms = median_ms(torch,
+                         lambda: scatter.scatter_add_plain(idx, vals, t))
+    lib_ms = median_ms(torch, lambda: torch.zeros(
+        (t, vals.shape[1]), device="cuda").index_add_(0, idx, vals))
+    bound = scatter_bound_ms(idx.shape[0], vals.shape[1], t)
+    log(f"  {what}: K1 {ms:.3f} ms, plain {plain_ms:.3f} ms, index_add_ "
+        f"{lib_ms:.3f} ms, bound {bound:.4f} ms (bytes; median of 10)")
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": bound, "bound_by": "bytes"}
+
+
 def kernel_phase(torch, scatter):
     gen = torch.Generator(device="cuda").manual_seed(0)
     for m, t in ((3 * 8192 + 100, 4096), (8192, 35937)):
@@ -116,20 +171,79 @@ def kernel_phase(torch, scatter):
         got = scatter.scatter_add(idx, vals, t)
         torch.cuda.synchronize()
         check_scatter(torch, got, idx, vals, t, f"{m} rows into {t}")
+    # S1's shape: uniform rows into one 2^19 x 2 level
+    t = 2 ** LOG2_T
+    idx = torch.randint(0, t, (S1_ROWS,), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    vals = torch.randn((S1_ROWS, F), generator=gen, device="cuda")
+    got = scatter.scatter_add(idx, vals, t)
+    torch.cuda.synchronize()
+    s1 = {"max_abs_err": check_scatter(
+        torch, got, idx, vals, t, f"S1 shape: {S1_ROWS} rows into {t} x {F}")}
+    s1.update(time_scatter(torch, scatter, idx, vals, t, "S1 shape"))
+    del idx, vals, got
     idx, vals, t = main_path_inputs(torch, gen)
     got = scatter.scatter_add(idx, vals, t)
     torch.cuda.synchronize()
-    max_err = check_scatter(torch, got, idx, vals, t,
-                            f"main path: {idx.shape[0]} rows into {t} x {F}")
+    k1 = {"max_abs_err": check_scatter(
+        torch, got, idx, vals, t,
+        f"main path: {idx.shape[0]} rows into {t} x {F}")}
     del got
-    ms = median_ms(torch, lambda: scatter.scatter_add(idx, vals, t))
-    plain_ms = median_ms(torch,
-                         lambda: scatter.scatter_add_plain(idx, vals, t))
-    log(f"  main path: K1 {ms:.3f} ms, float32 index_add_ {plain_ms:.3f} ms "
-        f"(median of 10)")
+    k1.update(time_scatter(torch, scatter, idx, vals, t, "main path"))
     del idx, vals
     torch.cuda.empty_cache()
-    return max_err, ms, plain_ms
+    return k1, s1
+
+
+def check_gather(torch, gather, table, idx, what):
+    """G1 bit-equal to ``index_select``; median-of-10 times of G1, of its
+    plain version and of ``index_select`` on the int32 rows."""
+    got = gather.gather_rows(table, idx)
+    torch.cuda.synchronize()
+    want = table.index_select(0, idx.long())
+    equal = torch.equal(got.view(torch.int32), want.view(torch.int32))
+    del got, want
+    ms = median_ms(torch, lambda: gather.gather_rows(table, idx))
+    plain_ms = median_ms(torch, lambda: gather.gather_rows_plain(table, idx))
+    lib_ms = median_ms(torch, lambda: torch.index_select(table, 0, idx))
+    (n, w), m = table.shape, idx.shape[0]
+    bound = gather_bound_ms(m, w, n)
+    log(f"  {what}: {m} rows from {n} x {w}: bit-equal {equal}; G1 "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, index_select "
+        f"{lib_ms:.4f} ms, bound {bound:.4f} ms (bytes; median of 10)")
+    if not equal:
+        fail(f"G1 differs from index_select at {what}")
+    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "bound_ms": bound, "bound_by": "bytes"}
+
+
+def gather_phase(torch, gather):
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    t = 2 ** LOG2_T
+
+    def uniform(n, w, m):
+        table = torch.randn((n, w), generator=gen, device="cuda")
+        idx = torch.randint(0, n, (m,), generator=gen, device="cuda",
+                            dtype=torch.int32)
+        return table, idx
+
+    check_gather(torch, gather, *uniform(t, 2, 8388608), "S2/S3 shape")
+    for w in (2, 8, 32):
+        check_gather(torch, gather, *uniform(t, w, 4194304),
+                     f"S4 shape, w={w}")
+    # one render chunk: the hash encode (49,152 samples x 16 levels x 8
+    # corners into the 16 x 2^19 x 2 table) and the baked-SDF probe
+    # (4096 rays x 64 probes into the 129^3 x 8 corner table)
+    check_gather(torch, gather, *uniform(LEVELS * t, 2, 49152 * 16 * 8),
+                 "render chunk, hash encode")
+    check_gather(torch, gather, *uniform(129 ** 3, 8, 4096 * 64),
+                 "render chunk, baked-SDF probe")
+    idx, _, n = main_path_inputs(torch, gen)
+    table = torch.randn((n, F), generator=gen, device="cuda")
+    res = check_gather(torch, gather, table, idx, "main path")
+    del table, idx
+    torch.cuda.empty_cache()
+    return res
 
 
 def small_reference_phase(torch):
@@ -180,9 +294,92 @@ def small_reference_phase(torch):
         fail("card and CPU disagree on the tiny config's loss or gradients")
 
 
+def render_reference_phase(torch, gather):
+    """The tiny split config's eval render with prefilter, bands and the
+    full bake (set up as ``tests/test_sdf_bake.py`` does): card (G1)
+    against CPU (plain gather), both in float64 on the same params."""
+    import copy
+
+    from rise_sdf_tpu_torch import models
+    from rise_sdf_tpu_torch.presets import tiny_split_config
+
+    cfg = tiny_split_config()["model"]
+    cfg["variance"]["init_val"] = 0.7  # inv_s ~ 1097
+    cfg.update({"num_samples_per_ray": 256, "visibility_prefilter": True,
+                "prefilter_stride": 4, "prefilter_margin_intervals": 1.0,
+                "eval_sdf_bake": "full", "eval_sdf_bake_cells": 96})
+    model = models.make(cfg["name"], cfg)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    b = torch.linspace(-0.45, 0.45, 32, dtype=torch.float64)
+    d = torch.stack([torch.zeros_like(b), b / 4.0, torch.ones_like(b)], -1)
+    d = d / torch.linalg.vector_norm(d, dim=-1, keepdim=True)
+    rays = torch.cat([torch.tensor([[0.0, 0.0, -4.0]],
+                                   dtype=torch.float64).expand(32, 3), d], -1)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        m = copy.deepcopy(model).double().to(dev).requires_grad_(False)
+        before = gather.gather_rows.launches
+        mips = m.emitter.build_mips()
+        bake = m.bake_eval_sdf(20)
+        out = m(rays.to(dev), occ_binary=torch.ones(
+            m.grid_resolution ** 3, dtype=torch.bool, device=dev),
+            mips=mips, step=20, stage=1, capacity=768,
+            background_color=torch.ones(3, dtype=torch.float64, device=dev),
+            prefilter=True, banded=True, bake=bake)
+        runs[dev] = ({k: v.cpu() for k, v in out.items()},
+                     gather.gather_rows.launches - before)
+    (cpu, _), (gpu, launches) = runs["cpu"], runs["cuda"]
+    worst = max(float((gpu[k] - cpu[k]).abs().max())
+                for k in ("comp_rgb_full", "opacity", "depth"))
+    same = all(torch.equal(gpu[k], cpu[k]) for k in (
+        "ray_included", "stat_live", "stat_vis", "stat_secondary_live"))
+    log(f"  tiny split render in float64: max |card - CPU| over "
+        f"comp_rgb_full, opacity, depth = {worst:.2e}; ray_included and "
+        f"stats equal: {same}; rays included "
+        f"{int(cpu['ray_included'].sum())}/32; G1 launches {launches}")
+    if not (worst <= 1e-9 and same and launches > 0
+            and bool(cpu["ray_included"].all())):
+        fail("card and CPU disagree on the tiny split render")
+
+
+def render_phase(torch, gather, scatter):
+    """The flagship render through its entry point, at 800x800."""
+    from rise_sdf_tpu_torch import bench
+
+    gather.gather_rows.launches = 0
+    scatter.scatter_add.launches = 0
+    res = bench.run("full", 800, "cuda", profile_chunks=8,
+                    log=lambda msg: log(f"  {msg}"))
+    g1, k1 = gather.gather_rows.launches, scatter.scatter_add.launches
+    img = res.pop("image")
+    res.pop("included")
+    log(f"  bench: {json.dumps(res)}")
+    log(f"  prefilter bank {res['prefilter_bank_s']:.2f} s, mip build "
+        f"{res['mip_build_s'] * 1e3:.1f} ms, bake {res['bake_s'] * 1e3:.1f} "
+        f"ms, render {res['render_s']:.3f} s: {res['rays_per_s']:.0f} "
+        f"rays/s, {res['dropped_rays']} rays dropped "
+        f"({res.get('dropped_rays_zero_padded')} counted as the JAX bench "
+        f"counts, last chunk padded with zero rays); peak device memory "
+        f"{res['peak_memory_gib']:.2f} GiB")
+    log(f"  G1 launches {g1}, K1 launches {k1} (the whole run); G1 "
+        f"{res['g1_device_ms']:.2f} of {res['profile_device_ms']:.2f} ms of "
+        f"device time over {res['profile_chunks']} chunks "
+        f"(share {res['g1_share']}), device busy "
+        f"{res['device_busy_share']}")
+    if tuple(img.shape) != (800, 800, 3) or not bool(
+            torch.isfinite(img).all()):
+        fail("the 800x800 render is not a finite 800x800x3 image")
+    if g1 == 0 or res["g1_launches"] == 0:
+        fail("G1 never launched during the render")
+    if k1 != 0:
+        fail(f"K1 launched {k1} times during the render")
+    return g1
+
+
 def slice_phase(torch, scatter, steps, cfg, device="cuda"):
     from rise_sdf_tpu_torch import datasets, systems
     from rise_sdf_tpu_torch.ops import hashgrid
+    from rise_sdf_tpu_torch.ops.gather import gather_rows
 
     seed = int(cfg.get("seed", 42))
     t0 = time.perf_counter()
@@ -236,6 +433,7 @@ def slice_phase(torch, scatter, steps, cfg, device="cuda"):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     scatter.scatter_add.launches = 0
+    gather_rows.launches = 0
     t_fit = time.perf_counter()
     state = system.fit(max_steps=steps, seed=seed, state=state, log_every=1,
                        on_log=on_log)
@@ -247,6 +445,7 @@ def slice_phase(torch, scatter, steps, cfg, device="cuda"):
     torch.cuda.synchronize()
     val_s = time.perf_counter() - t_val
     launches = scatter.scatter_add.launches
+    g1 = gather_rows.launches
     hashgrid.table_grad_lookup = lookup
 
     losses = [m["loss"] for m in metrics]
@@ -262,8 +461,8 @@ def slice_phase(torch, scatter, steps, cfg, device="cuda"):
     w, h = cfg["dataset"]["img_wh"]
     log(f"  validate 1 view {w}x{h} in {val_s:.1f} s: "
         f"PSNR {res['psnr']:.3f} dB")
-    log(f"  K1 launches during the slice: {launches}; skipped updates "
-        f"{system.skipped_updates}")
+    log(f"  K1 launches during the slice: {launches}, G1 launches {g1}; "
+        f"skipped updates {system.skipped_updates}")
     if len(losses) != steps or not np.all(np.isfinite(losses)):
         fail("non-finite or missing losses")
     if state["step"] != steps or system.skipped_updates:
@@ -273,6 +472,8 @@ def slice_phase(torch, scatter, steps, cfg, device="cuda"):
         fail("non-finite parameters after training")
     if launches < steps:
         fail(f"K1 launched {launches} times in {steps} steps")
+    if g1 < steps:
+        fail(f"G1 launched {g1} times in {steps} steps")
     if not (np.isfinite(res["psnr"]) and res["psnr"] > 5.0):
         fail(f"validation PSNR {res['psnr']}")
     shutil.rmtree(save_dir, ignore_errors=True)  # the 64 MiB checkpoint
@@ -293,28 +494,47 @@ def main():
     card = card_line()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
-    from rise_sdf_tpu_torch.ops import cuda_build, scatter
+    from rise_sdf_tpu_torch.ops import cuda_build, gather, scatter
 
-    log("build K1:")
+    log("build K1 and G1:")
     t0 = time.perf_counter()
+    cuda_build.build_libraries(["scatter_add", "gather_rows"])
     scatter._lib()
+    gather._lib()
     log(f"  built and loaded in {time.perf_counter() - t0:.1f} s")
-    for line in cuda_build.build_logs.get("scatter_add", "").splitlines():
-        log(f"  nvcc: {line}")
+    for name in ("scatter_add", "gather_rows"):
+        for line in cuda_build.build_logs.get(name, "").splitlines():
+            log(f"  nvcc {name}: {line}")
     log("K1 vs float64 index_add_:")
-    max_err, ms, plain_ms = kernel_phase(torch, scatter)
+    k1, s1 = kernel_phase(torch, scatter)
+    log("G1 vs index_select:")
+    g1 = gather_phase(torch, gather)
     log("small-input reference (card vs CPU):")
     small_reference_phase(torch)
+    render_reference_phase(torch, gather)
+    log("render slice: rise_sdf_tpu_torch.bench, split_mixed_occ_full, "
+        "800x800:")
+    g1["launches"] = render_phase(torch, gather, scatter)
     from rise_sdf_tpu_torch.presets import neus_sphere_full
 
-    log(f"slice: NeuS neus_sphere_full, {args.steps} steps + 1 view:")
-    launches = slice_phase(torch, scatter, args.steps, neus_sphere_full())
+    log(f"training slice: NeuS neus_sphere_full, {args.steps} steps + 1 "
+        f"view:")
+    k1["launches"] = slice_phase(torch, scatter, args.steps,
+                                 neus_sphere_full())
+    s1["launches"] = k1["launches"]
 
     log(card)
-    log(json.dumps({"kernels": [{
-        "name": "scatter_add", "route": "cuda", "source": SRC,
-        "replaces": REPLACES, "launches": launches, "max_abs_err": max_err,
-        "ms": ms, "plain_ms": plain_ms}]}))
+    keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")
+    log(json.dumps({"kernels": [
+        {"name": "scatter_add (K1)", "route": "cuda", "source": SRC_K1,
+         "replaces": REPLACES_K1, **{k: k1[k] for k in keys}},
+        {"name": "gather_rows (G1)", "route": "cuda", "source": SRC_G1,
+         "replaces": REPLACES_G1, **{k: g1[k] for k in keys}},
+        {"name": "scatter_add at S1's shape (K1)", "route": "cuda",
+         "source": SRC_K1, "replaces": REPLACES_S1,
+         **{k: s1[k] for k in keys}},
+    ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -3,4 +3,5 @@ from ..registry import models as _registry
 make = _registry.make
 register = _registry.register
 
-from . import geometry, neus, texture, variance  # noqa: E402,F401
+from . import (geometry, light, neus, split_mixed_occ,  # noqa: E402,F401
+               texture, variance)

@@ -1,0 +1,105 @@
+"""Mip-cubemap environment light for split-sum shading (counterpart of
+``rise_sdf_tpu/models/light.py:EnvLightMipCube``).
+
+The learnable base cubemap ``base`` [6, R, R, 3] is the module's one
+parameter.  ``build_mips`` makes the filtered pyramid from it: an
+avg-pool chain down to 16^2, the cosine-filtered 16^2 diffuse map and
+one GGX-filtered map per level (``ops/prefilter.py``, whose filter bank
+is built on the host when the module is made).  ``eval_mip`` is a
+bilinear lookup in the diffuse map, or a trilinear lookup over the
+specular levels through their flattened atlas.
+"""
+
+from __future__ import annotations
+
+from typing import List, NamedTuple, Optional, Tuple
+
+import torch
+from torch import nn
+
+from . import register
+from ..ops import prefilter
+from ..ops.cubemap import avg_pool_cubemap, mips_atlas, sample_cubemap, \
+    sample_cubemap_mips_atlas
+
+MIN_ROUGHNESS = prefilter.MIN_ROUGHNESS
+MAX_ROUGHNESS = prefilter.MAX_ROUGHNESS
+LIGHT_MIN_RES = prefilter.LIGHT_MIN_RES
+
+
+class EnvMips(NamedTuple):
+    diffuse: torch.Tensor                      # [6, 16, 16, 3]
+    specular: List[torch.Tensor]               # per level [6, N_l, N_l, 3]
+    atlas: Tuple[torch.Tensor, torch.Tensor]   # mips_atlas(specular)
+
+
+@register("envlight-mip-cube")
+class EnvLightMipCube(nn.Module):
+    def __init__(self, config):
+        super().__init__()
+        self.config = config
+        ec = config["envlight_config"]
+        self.base_res = int(ec.get("base_res", 512))
+        self.scale = float(ec.get("scale", 0.5))
+        self.bias = float(ec.get("bias", 0.25))
+        if ec.get("hdr_filepath") is not None:
+            raise NotImplementedError("HDR environment files are not ported")
+        self.n_levels = 1
+        r = self.base_res
+        while r > LIGHT_MIN_RES:
+            r //= 2
+            self.n_levels += 1
+        self.base = nn.Parameter(torch.empty(6, self.base_res, self.base_res,
+                                             3))
+        # numpy, on the host, once (cached on disk by ops/prefilter.py)
+        self.filters = prefilter.build_specular_filter_bank(self.base_res)
+        self._on_device = {}
+        self.reset_parameters()
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        self.base.copy_(torch.rand(self.base.shape, generator=generator)
+                        * self.scale + self.bias)
+
+    def _device_filters(self, device, dtype):
+        """The diffuse matrix and the specular filters as tensors on
+        ``device`` in ``dtype`` (copied once per device and type)."""
+        key = (str(device), dtype)
+        if key not in self._on_device:
+            self._on_device[key] = (
+                torch.as_tensor(prefilter.diffuse_filter_matrix(LIGHT_MIN_RES),
+                                dtype=dtype, device=device),
+                [prefilter.to_torch(f, device, dtype) for f in self.filters])
+        return self._on_device[key]
+
+    def build_mips(self) -> EnvMips:
+        """Differentiable mip build (reference ``light.py:169-180``)."""
+        chain = [self.base]
+        while chain[-1].shape[1] > LIGHT_MIN_RES:
+            chain.append(avg_pool_cubemap(chain[-1]))
+        matrix, filters = self._device_filters(self.base.device,
+                                               self.base.dtype)
+        diffuse = prefilter.apply_diffuse_filter(chain[-1], matrix)
+        specular = [prefilter.apply_specular_level_filter(f, chain)
+                    for f in filters]
+        return EnvMips(diffuse, specular, mips_atlas(specular))
+
+    def get_mip(self, roughness):
+        """Roughness -> fractional mip level (reference ``light.py:182-185``)."""
+        n = self.n_levels
+        lo = (torch.clamp(roughness, MIN_ROUGHNESS, MAX_ROUGHNESS)
+              - MIN_ROUGHNESS) / (MAX_ROUGHNESS - MIN_ROUGHNESS) * (n - 2)
+        hi = (torch.clamp(roughness, MAX_ROUGHNESS, 1.0) - MAX_ROUGHNESS) \
+            / (1.0 - MAX_ROUGHNESS) + n - 2
+        return torch.where(roughness < MAX_ROUGHNESS, lo, hi)
+
+    def eval_mip(self, mips: EnvMips, directions, specular: bool = False,
+                 roughness=None):
+        """[N, 3] directions -> [N, 3] radiance."""
+        if specular:
+            mip = self.get_mip(roughness)
+            if mip.dim() == directions.dim():
+                mip = mip[..., 0]
+            return sample_cubemap_mips_atlas(mips.specular, directions, mip,
+                                             atlas=mips.atlas)
+        return sample_cubemap(mips.diffuse, directions)

@@ -1,5 +1,12 @@
-"""Radiance head (counterpart of ``rise_sdf_tpu/models/texture.py:
-VolumeRadiance``): features, SH(dirs) and extras -> rgb."""
+"""Appearance heads (counterpart of ``rise_sdf_tpu/models/texture.py``).
+
+* ``VolumeRadiance``: features, SH(dirs) and extras -> rgb (NeuS).
+* ``VolumeMixedMipSplitOcc``: the flagship's five heads (albedo +
+  diffuse, roughness, blend + metallic, NN specular, secondary
+  radiance) with split-sum shading against the mip-cubemap emitter and
+  the FG table (``ops/fg_lut.py``).  ``apply`` is ``material_cache``
+  (everything that does not depend on the light) then ``shade_cached``.
+"""
 
 from __future__ import annotations
 
@@ -8,6 +15,13 @@ from torch import nn
 
 from . import register
 from ..nn import get_activation, get_encoding, get_mlp
+from ..ops.cubemap import sample_texture2d
+from ..ops.fg_lut import fg_lut
+
+
+def _reflect(wi, n):
+    """Mirror ``wi`` about ``n`` (both [..., 3])."""
+    return 2.0 * torch.sum(wi * n, -1, keepdim=True) * n - wi
 
 
 @register("volume-radiance")
@@ -31,3 +45,106 @@ class VolumeRadiance(nn.Module):
         enc = self.encoding((dirs + 1.0) / 2.0, step)
         inp = torch.cat([features, enc] + list(args), dim=-1)
         return self.color_activation(self.mlp(inp))
+
+
+@register("volume-mixed-mip-split-occ")
+class VolumeMixedMipSplitOcc(nn.Module):
+    """Five-head appearance model with split-sum PBR.  Stage 0 gives the
+    NN radiance split (diffuse, specular, blend); stage 1 adds the
+    physically based branch.  Head names follow the JAX params tree
+    (``secondary``, ``albedo``, ``roughness``, ``metallic``, ``env``)."""
+
+    def __init__(self, config):
+        super().__init__()
+        self.config = config
+        self.n_dir_dims = int(config.get("n_dir_dims", 3))
+        self.n_pos_dims = int(config.get("n_pos_dims", 3))
+        self.dir_encoding = get_encoding(self.n_dir_dims,
+                                         config["dir_encoding_config"])
+        self.xyz_encoding = get_encoding(self.n_pos_dims,
+                                         config["xyz_encoding_config"])
+        fdim = int(config["input_feature_dim"])
+        other = int(config.get("other_dim", 3))
+        xdim = self.xyz_encoding.n_output_dims
+        ddim = self.dir_encoding.n_output_dims
+        self.secondary = get_mlp(fdim + other + ddim, 3,
+                                 config["secondary_mlp_network_config"])
+        self.albedo = get_mlp(fdim + xdim, 6,
+                              config["albedo_mlp_network_config"])
+        self.roughness = get_mlp(fdim + xdim, 1,
+                                 config["roughness_mlp_network_config"])
+        self.metallic = get_mlp(fdim + xdim, 2,
+                                config["metallic_mlp_network_config"])
+        self.env = get_mlp(fdim + ddim, 3, config["spec_mlp_network_config"])
+        self.color_activation = get_activation(
+            config.get("color_activation", None))
+        self.register_buffer("fg", torch.from_numpy(fg_lut(256)),
+                             persistent=False)
+
+    def _material_heads(self, features, positions, step=None):
+        inp = torch.cat([features, self.xyz_encoding(positions, step)], -1)
+        act = self.color_activation
+        alb6 = self.albedo(inp)
+        met2 = self.metallic(inp)
+        return (act(alb6[..., :3]), act(alb6[..., 3:]),
+                act(self.roughness(inp)), act(met2[..., :1]),
+                act(met2[..., 1:]))
+
+    def material_cache(self, features, dirs, normals, positions,
+                       stage: int = 0, step=None):
+        """The light-independent part of ``apply``: the material heads,
+        the NN radiance branch and the FG-table term of the split sum."""
+        wi = -dirs
+        wo = _reflect(wi, normals)
+        nov = torch.sum(normals * wi, -1, keepdim=True)
+        diff_rgb, albedo, roughness, blend, metallic = self._material_heads(
+            features, positions, step)
+        wo_enc = self.dir_encoding((wo + 1.0) / 2.0, step)
+        spec_rgb = self.color_activation(
+            self.env(torch.cat([features, wo_enc], -1)))
+        cache = {"diff_rgb": (1 - blend) * diff_rgb,
+                 "spec_rgb": blend * spec_rgb, "blend": blend}
+        if stage == 0:
+            return cache
+        specular_albedo = 0.04 * (1 - metallic) + metallic * albedo
+        fg_uv = torch.cat([torch.clamp(nov, 0.0, 1.0),
+                           torch.clamp(roughness, 0.0, 1.0)], -1)
+        fg = sample_texture2d(self.fg, fg_uv)
+        cache.update({
+            "albedo": albedo, "metallic": metallic, "roughness": roughness,
+            "diffuse_albedo": (1 - metallic) * albedo,
+            "spec_ref": specular_albedo * fg[..., 0:1] + fg[..., 1:2],
+            "normals": normals, "wo": wo,
+        })
+        return cache
+
+    def shade_cached(self, cache, emitter, mips, stage: int = 0):
+        """The light-dependent rest: two mip-cubemap lookups and
+        per-sample arithmetic."""
+        out = {k: cache[k] for k in ("diff_rgb", "spec_rgb", "blend")}
+        if stage == 0:
+            return out
+        diffuse_light = emitter.eval_mip(mips, cache["normals"])
+        specular_light = emitter.eval_mip(mips, cache["wo"], specular=True,
+                                          roughness=cache["roughness"])
+        out.update({
+            "diff_rgb_pbr": cache["diffuse_albedo"] * diffuse_light,
+            "spec_rgb_pbr": cache["spec_ref"] * specular_light,
+            "spec_ref": cache["spec_ref"], "spec_light": specular_light,
+            "albedo": cache["albedo"], "metallic": cache["metallic"],
+            "roughness": cache["roughness"],
+        })
+        return out
+
+    def apply(self, features, dirs, normals, positions, emitter=None,
+              mips=None, stage: int = 0, step=None):
+        """Per-sample appearance; all inputs [N, .] -> channel dict."""
+        cache = self.material_cache(features, dirs, normals, positions,
+                                    stage=stage, step=step)
+        return self.shade_cached(cache, emitter, mips, stage=stage)
+
+    def secondary_shading(self, features, rays_d, *args, step=None):
+        """NN radiance for the secondary (reflected) rays."""
+        enc = self.dir_encoding((rays_d + 1.0) / 2.0, step)
+        inp = torch.cat([features, enc] + list(args), -1)
+        return self.color_activation(self.secondary(inp))

@@ -3,6 +3,7 @@
 * ``MLP``: VanillaMLP with geometric (sphere) init, weight norm kept as
   explicit ``v``, ``g``, ``b`` parameters (``w = v * g / max(||v||_row,
   1e-12)``) and Softplus(beta=100) hidden activations.
+* ``FrequencyEncoding``: VanillaFrequency sin/cos bands.
 * ``spherical_harmonics`` / ``SHEncoding``: real SH basis, inputs in
   [0,1] mapped to [-1,1] (tiny-cuda-nn convention).
 * ``CompositeEncoding``: optional xyz prefix, xyz first.
@@ -108,7 +109,11 @@ class _Layer(nn.Module):
 
 
 class MLP(nn.Module):
-    """VanillaMLP (``rise_sdf_tpu/nn.py:MLP``), float32 only."""
+    """VanillaMLP (``rise_sdf_tpu/nn.py:MLP``).  With ``compute_dtype:
+    bfloat16`` each layer's input and weight are cast to bf16 and the
+    product is cast back to float32 before the float32 bias, as JAX's
+    ``dot_general(..., preferred_element_type=f32)``; a torch bf16
+    matmul accumulates in float32 and rounds its result to bf16 once."""
 
     def __init__(self, dim_in: int, dim_out: int, config: Dict[str, Any]):
         super().__init__()
@@ -121,8 +126,10 @@ class MLP(nn.Module):
         if bool(config.get("inside_outside", False)):
             raise NotImplementedError("inside_outside is not ported yet")
         self.weight_norm = bool(config.get("weight_norm", False))
-        if str(config.get("compute_dtype", "float32")) != "float32":
-            raise NotImplementedError("bf16 compute_dtype is not ported yet")
+        # bf16 products with float32 params, bias and outputs
+        self.compute_dtype = {"float32": torch.float32,
+                              "bfloat16": torch.bfloat16}[
+            str(config.get("compute_dtype", "float32"))]
         self.output_activation = get_activation(config.get("output_activation"))
         self.hidden_activation = softplus100 if self.sphere_init else F.relu
         self.dims = [dim_in] + [self.n_neurons] * self.n_hidden_layers \
@@ -165,11 +172,57 @@ class MLP(nn.Module):
     def forward(self, x):
         h = x
         n = len(self.layers)
+        cdt = self.compute_dtype
         for i, layer in enumerate(self.layers):
-            h = layer(h)
+            if cdt is torch.float32:
+                h = layer(h)
+            else:
+                h = F.linear(h.to(cdt), layer.weight().to(cdt)).float() \
+                    + layer.b
             if i < n - 1:
                 h = self.hidden_activation(h)
         return self.output_activation(h)
+
+
+# --------------------------------------------------------------------------- #
+# Frequency encoding (VanillaFrequency)
+# --------------------------------------------------------------------------- #
+
+
+class FrequencyEncoding(nn.Module):
+    """sin/cos at frequencies 2^0 .. 2^(n-1), band-major, with the
+    optional cosine-window progressive mask over ``n_masking_step``."""
+
+    def __init__(self, in_channels: int, config: Dict[str, Any]):
+        super().__init__()
+        self.n_freqs = int(config["n_frequencies"])
+        self.n_input_dims = in_channels
+        self.x_scale = float(config.get("x_scale", 1.0))
+        self.x_offset = float(config.get("x_offset", 0.0))
+        self.n_masking_step = int(config.get("n_masking_step", 0))
+        self.freq_bands = [2.0 ** i for i in range(self.n_freqs)]
+        self.n_output_dims = in_channels * 2 * self.n_freqs
+
+    def mask(self, step) -> Optional[torch.Tensor]:
+        """[n_freqs] window, or None when masking is off."""
+        if self.n_masking_step <= 0:
+            return None
+        ptr = float(step) / self.n_masking_step * self.n_freqs \
+            - torch.arange(self.n_freqs, dtype=torch.float32)
+        return (1.0 - torch.cos(math.pi * torch.clamp(ptr, 0.0, 1.0))) / 2.0
+
+    def forward(self, x, step=None, **_kw):
+        x = x * self.x_scale + self.x_offset
+        mask = self.mask(step if step is not None
+                         else self.n_masking_step + 1)
+        outs = []
+        for i, f in enumerate(self.freq_bands):
+            s, c = torch.sin(f * x), torch.cos(f * x)
+            if mask is not None:
+                m = mask[i].to(x.device)
+                s, c = s * m, c * m
+            outs += [s, c]
+        return torch.cat(outs, dim=-1)
 
 
 # --------------------------------------------------------------------------- #
@@ -270,7 +323,9 @@ class CompositeEncoding(nn.Module):
 
 def get_encoding(n_input_dims: int, config) -> CompositeEncoding:
     otype = config["otype"]
-    if otype == "SphericalHarmonics":
+    if otype == "VanillaFrequency":
+        enc = FrequencyEncoding(n_input_dims, dict(config))
+    elif otype == "SphericalHarmonics":
         enc = SHEncoding(n_input_dims, dict(config))
     elif otype in ("ProgressiveBandHashGrid", "HashGrid"):
         from .ops.hashgrid import HashGridEncoding

@@ -40,25 +40,47 @@ def _nvcc() -> str:
     return found
 
 
+def _so_path(name: str) -> Path:
+    src = SRC_DIR / f"{name}.cu"
+    digest = hashlib.sha256(
+        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"{name}-{digest}.so"
+
+
+def build_libraries(names) -> None:
+    """Compile every ``csrc/<name>.cu`` of ``names`` that is not built
+    yet, one ``nvcc`` process per source, all running at once; raises
+    with nvcc's output when a build fails."""
+    jobs = []
+    for name in names:
+        so = _so_path(name)
+        if so.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+               str(SRC_DIR / f"{name}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        jobs.append((name, cmd, proc, tmp, so))
+    failed = []
+    for name, cmd, proc, tmp, so in jobs:
+        build_logs[name] = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(f"building {name}.cu failed: {' '.join(cmd)}"
+                          f"\n{build_logs[name]}")
+        else:
+            os.replace(tmp, so)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def load_library(name: str) -> ctypes.CDLL:
     """Compile (if needed) and load ``csrc/<name>.cu``; raises with
     nvcc's output when the build fails."""
     if name in _LIBS:
         return _LIBS[name]
-    src = SRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    so = BUILD_DIR / f"{name}-{digest}.so"
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        build_logs[name] = res.stdout + res.stderr
-        if res.returncode != 0:
-            raise RuntimeError(f"building {src.name} failed: {' '.join(cmd)}"
-                               f"\n{build_logs[name]}")
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
+    build_libraries([name])
+    lib = ctypes.CDLL(str(_so_path(name)))
     _LIBS[name] = lib
     return lib

@@ -56,6 +56,14 @@ class HashGridEncoding(nn.Module):
         self.n_dense = sum(self.dense)
         self.table = nn.Parameter(torch.empty(
             self.n_levels, self.table_size, self.n_features_per_level))
+        # per-level constants live beside the table, so an encode on the
+        # card copies nothing from the host (such a copy waits for the
+        # stream)
+        self.register_buffer("level_res", torch.tensor(
+            self.resolutions, dtype=torch.float32), persistent=False)
+        self.register_buffer("dense_stride", torch.tensor(
+            [r + 1 for r in self.resolutions], dtype=torch.int64),
+            persistent=False)
         self.reset_parameters()
 
     @torch.no_grad()
@@ -72,10 +80,10 @@ class HashGridEncoding(nn.Module):
             + max(int(step) - self.start_step, 0) // self.update_steps
         return min(lvl, self.n_levels)
 
-    def level_mask(self, step) -> torch.Tensor:
+    def level_mask(self, step, device=None) -> torch.Tensor:
         """[L] float mask of open levels."""
         cur = self.current_level(step)
-        return (torch.arange(self.n_levels) < cur).float()
+        return (torch.arange(self.n_levels, device=device) < cur).float()
 
     @staticmethod
     def _level_range(levels, n_levels):
@@ -97,9 +105,7 @@ class HashGridEncoding(nn.Module):
         bits equal those of the JAX uint32 wraparound."""
         cx, cy, cz = c[..., 0], c[..., 1], c[..., 2]          # [N, Lr, 2]
         if self.dense[lo]:
-            s = torch.tensor([r + 1 for r in self.resolutions[lo:hi]],
-                             dtype=torch.int64,
-                             device=c.device).view(-1, 1, 1, 1)
+            s = self.dense_stride[lo:hi].view(-1, 1, 1, 1)
             flat = (cx[..., :, None, None]
                     + s * (cy[..., None, :, None]
                            + s * cz[..., None, None, :]))
@@ -129,8 +135,7 @@ class HashGridEncoding(nn.Module):
             self.table_size
         if hi <= lo:
             return x.new_zeros((n, L * F))
-        res = torch.tensor(self.resolutions[lo:hi], dtype=x.dtype,
-                           device=x.device)
+        res = self.level_res[lo:hi].to(x.dtype)
         pos = x[:, None, :] * res[None, :, None]              # [N, Lo, 3]
         # floor has zero gradient: x-gradients flow through the weights
         i0 = torch.minimum(torch.floor(pos.detach()).clamp_(min=0.0),
@@ -148,8 +153,9 @@ class HashGridEncoding(nn.Module):
         vals = table_grad_lookup(self.table.view(L * T, F), rows)
         feats = (self._corner_weights(w)[..., None] * vals).sum(2)
         if self.progressive:  # all-open grids skip the exact x1.0
-            mask = self.level_mask(step if step is not None else 10 ** 9)
-            feats = feats * mask[lo:hi].to(feats.device)[None, :, None]
+            mask = self.level_mask(step if step is not None else 10 ** 9,
+                                   feats.device)
+            feats = feats * mask[lo:hi].to(feats.dtype)[None, :, None]
         if hi - lo < L:
             feats = torch.cat([feats.new_zeros((n, lo, F)), feats,
                                feats.new_zeros((n, L - hi, F))], 1)

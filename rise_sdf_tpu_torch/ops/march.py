@@ -1,16 +1,20 @@
 """Occupancy-pruned ray marching compacted into a fixed-capacity buffer
-(counterpart of ``rise_sdf_tpu/ops/march.py``: uniform steps, no
-visibility cut or band).
+(counterpart of ``rise_sdf_tpu/ops/march.py``; uniform steps only).
 
 1. a static ``[R, S]`` grid of candidate intervals per ray (one
-   stratified offset per ray),
+   stratified offset per ray), optionally cut to a per-ray visibility
+   range ``[t_band_lo, t_cut)`` from a coarse probe
+   (``compute_visibility_cut``), or replaced on banded rays by exactly
+   ``band_k`` samples spanning the band,
 2. candidates masked by the AABB range and a packed-bit occupancy grid,
 3. live samples compacted ray-major into ``capacity`` slots by a cumsum
    and a scatter into a ``capacity + 1`` buffer whose last slot takes
    every dropped candidate; rays whose samples overflow are flagged
    excluded.  Dead slots carry ``ray_indices == n_rays``.
 
-Everything keeps a static shape, so nothing waits on the device.
+``march_rays_dense`` is the uncompacted ``[R, S]`` variant for the
+secondary occlusion rays.  Everything keeps a static shape, so nothing
+waits on the device.
 """
 
 from __future__ import annotations
@@ -66,16 +70,19 @@ def occupancy_lookup(binary, positions, aabb_min, aabb_max, resolution):
     return inside & (bit == 1)
 
 
+def _offsets(n_rays, generator, device, default=0.5):
+    """[R, 1] stratification offsets (``default`` when unstratified)."""
+    if generator is not None:
+        return torch.rand((n_rays, 1), generator=generator, device=device)
+    return torch.full((n_rays, 1), default, device=device)
+
+
 def candidate_intervals(t_near, t_far, step_size, num_samples,
                         generator: Optional[torch.Generator] = None):
     """[R, S] uniform candidate intervals, stratified by one offset per
     ray (mid-interval when ``generator`` is None)."""
     n_rays = t_near.shape[0]
-    if generator is not None:
-        u = torch.rand((n_rays, 1), generator=generator,
-                       device=t_near.device)
-    else:
-        u = torch.full((n_rays, 1), 0.5, device=t_near.device)
+    u = _offsets(n_rays, generator, t_near.device)
     steps = torch.arange(num_samples, dtype=torch.float32,
                          device=t_near.device)[None, :]
     t0 = t_near[:, None] + (steps + u) * step_size
@@ -87,15 +94,46 @@ def candidate_intervals(t_near, t_far, step_size, num_samples,
 
 def march_rays(rays_o, rays_d, *, aabb_min, aabb_max, step_size, num_samples,
                capacity, grid_binary=None, grid_resolution=128,
-               generator: Optional[torch.Generator] = None) -> RaySamples:
-    """Occupancy-pruned marching, compacted to a fixed-size buffer."""
+               generator: Optional[torch.Generator] = None,
+               t_cut: Optional[torch.Tensor] = None,
+               t_band_lo: Optional[torch.Tensor] = None,
+               band_k: Optional[int] = None) -> RaySamples:
+    """Occupancy-pruned marching, compacted to a fixed-size buffer.
+
+    ``t_cut`` [R] drops candidates at ``t_mid >= t_cut`` (occluded),
+    ``t_band_lo`` [R] those before it.  With ``band_k`` (and both
+    bounds) each ray whose band is finite gets exactly ``band_k``
+    uniform samples spanning ``[max(t_band_lo, t_near), min(t_cut,
+    t_far))`` (the AABB entry and exit)
+    instead of the masked fine-step candidates, so banded rays can
+    never overflow a buffer of ``n_rays * band_k``."""
     n_rays = rays_o.shape[0]
     dev = rays_o.device
     t_near, t_far = ray_aabb_intersect(rays_o, rays_d, aabb_min, aabb_max)
     t_starts, t_ends, live = candidate_intervals(
         t_near, t_far, step_size, num_samples, generator)
+    if band_k is not None and t_cut is not None and t_band_lo is not None:
+        k = min(int(band_k), num_samples)
+        big = 1e9
+        lo = torch.maximum(t_band_lo, t_near)
+        hi = torch.minimum(t_cut, t_far)
+        finite = (t_cut < big) & (t_band_lo > -big) & (hi > lo)
+        step_b = ((hi - lo) / k)[:, None]                     # [R, 1]
+        ub = _offsets(n_rays, generator, dev)
+        steps = torch.arange(num_samples, dtype=torch.float32,
+                             device=dev)[None, :]
+        t0b = lo[:, None] + (steps + ub) * step_b
+        f = finite[:, None]
+        t_starts = torch.where(f, t0b - 0.5 * step_b, t_starts)
+        t_ends = torch.where(f, t0b + 0.5 * step_b, t_ends)
+        live = torch.where(f, steps < k, live)
+
+    t_mid = 0.5 * (t_starts + t_ends)
+    if t_cut is not None:
+        live = live & (t_mid < t_cut[:, None])
+    if t_band_lo is not None:
+        live = live & (t_mid >= t_band_lo[:, None])
     if grid_binary is not None:
-        t_mid = 0.5 * (t_starts + t_ends)
         pos = rays_o[:, None, :] + rays_d[:, None, :] * t_mid[..., None]
         live = live & occupancy_lookup(grid_binary, pos, aabb_min, aabb_max,
                                        grid_resolution)
@@ -127,3 +165,87 @@ def march_rays(rays_o, rays_d, *, aabb_min, aabb_max, step_size, num_samples,
         ray_start=torch.clamp(ray_start, max=capacity), ray_count=ray_count,
         ray_included=ray_end <= capacity, num_live=num_live,
     )
+
+
+def compute_visibility_cut(rays_o, rays_d, *, sdf_fn, inv_s, aabb_min,
+                           aabb_max, step_size, num_samples, capacity,
+                           grid_binary=None, grid_resolution=128,
+                           stride: int = 4, cos_anneal_ratio=1.0,
+                           early_stop_eps: float = 1e-4,
+                           margin_intervals: float = 1.0,
+                           band: bool = False):
+    """Per-ray transmittance cut from a coarse SDF probe.
+
+    Marches a coarse grid (``stride`` fine steps per probe) into a
+    ``capacity`` buffer, evaluates ``sdf_fn`` there without gradients,
+    takes the ray-direction cosine from the SDF difference of the
+    neighbouring probes of the same ray (one-sided at a ray's ends;
+    -1, head-on, for a lone probe) and the NeuS alpha of each probe.
+    Returns ``t_cut`` [R] (``transmittance_cut``), or with ``band`` the
+    ``(t_lo, t_cut)`` band (``transmittance_band``); the margin is
+    ``margin_intervals`` coarse steps."""
+    from . import volrend
+    from ..models.neus import neus_alpha
+
+    n_rays = rays_o.shape[0]
+    coarse_step = step_size * stride
+    n_coarse = max(num_samples // stride, 1)
+    rs = march_rays(
+        rays_o, rays_d, aabb_min=aabb_min, aabb_max=aabb_max,
+        step_size=coarse_step, num_samples=n_coarse, capacity=capacity,
+        grid_binary=grid_binary, grid_resolution=grid_resolution,
+        generator=None)
+    t_mid = 0.5 * (rs.t_starts + rs.t_ends)
+    ridx = torch.clamp(rs.ray_indices, 0, n_rays - 1)
+    pos = rays_o[ridx] + rays_d[ridx] * t_mid[:, None]
+    with torch.no_grad():
+        sdf = sdf_fn(pos)
+
+    c = capacity
+    pos_idx = torch.arange(c, device=rays_o.device)
+    ri = rs.ray_indices
+    same_p = (torch.roll(ri, 1) == ri) & torch.roll(rs.valid, 1) \
+        & (pos_idx > 0)
+    same_n = (torch.roll(ri, -1) == ri) & torch.roll(rs.valid, -1) \
+        & (pos_idx < c - 1)
+    s_lo = torch.where(same_p, torch.roll(sdf, 1), sdf)
+    t_lo = torch.where(same_p, torch.roll(t_mid, 1), t_mid)
+    s_hi = torch.where(same_n, torch.roll(sdf, -1), sdf)
+    t_hi = torch.where(same_n, torch.roll(t_mid, -1), t_mid)
+    denom = t_hi - t_lo
+    cos = torch.where(denom > 1e-8,
+                      (s_hi - s_lo) / torch.clamp(denom, min=1e-8), -1.0)
+    cos = torch.clamp(cos, -1.0, 1.0)
+
+    alpha = neus_alpha(sdf, inv_s, cos, rs.t_ends - rs.t_starts,
+                       cos_anneal_ratio)
+    fn = volrend.transmittance_band if band else volrend.transmittance_cut
+    return fn(alpha, rs.t_starts, rs.ray_start, rs.ray_indices, rs.valid,
+              n_rays, early_stop_eps=early_stop_eps,
+              margin=margin_intervals * coarse_step)
+
+
+def march_rays_dense(rays_o, rays_d, *, near_plane, far_plane, num_samples,
+                     aabb_min, aabb_max, grid_binary=None, grid_resolution=128,
+                     generator: Optional[torch.Generator] = None):
+    """Uncompacted masked marching in ``[near, far]`` (secondary rays):
+    samples at ``near + (i + u) * step``, ``step = (far - near) /
+    (S - 1)``, ``u = 0`` unless ``generator`` stratifies.  Returns
+    ``(t_starts, t_ends, live)``, each ``[R, S]``."""
+    n_rays = rays_o.shape[0]
+    step_size = (far_plane - near_plane) / (num_samples - 1)
+    t_near, t_far = ray_aabb_intersect(rays_o, rays_d, aabb_min, aabb_max)
+    t_near = torch.clamp(t_near, min=near_plane)
+    t_far = torch.clamp(t_far, max=far_plane)
+    u = _offsets(n_rays, generator, rays_o.device, default=0.0)
+    steps = torch.arange(num_samples, dtype=torch.float32,
+                         device=rays_o.device)[None, :]
+    t0 = near_plane + (steps + u) * step_size
+    t_starts = t0 - 0.5 * step_size
+    t_ends = t0 + 0.5 * step_size
+    live = (t0 >= t_near[:, None]) & (t0 < t_far[:, None])
+    if grid_binary is not None:
+        pos = rays_o[:, None, :] + rays_d[:, None, :] * t0[..., None]
+        live = live & occupancy_lookup(grid_binary, pos, aabb_min, aabb_max,
+                                       grid_resolution)
+    return t_starts, t_ends, live

@@ -10,8 +10,9 @@ Counterpart of ``rise_sdf_tpu/ops/scatter_pallas.py``.
   counts kernel launches.
 * ``scatter_add_plain``: ``index_add_`` (counterpart of
   ``scatter_add_reference``).
-* ``TableGradLookup``: ``table[idx]`` whose table-gradient is
-  ``scatter_add``.  First-order in the table, which is all the losses
+* ``TableGradLookup``: ``table[idx]`` (kernel G1, ``ops/gather.py``, on
+  the card) whose table-gradient is ``scatter_add``.  First-order in the
+  table, which is all the losses
   need: position gradients flow through the interpolation weights, so
   the table side of the gather is differentiated exactly once even
   under the eikonal loss's double backward.
@@ -23,6 +24,8 @@ import ctypes
 
 import torch
 from torch.autograd.function import once_differentiable
+
+from .gather import gather_rows
 
 _LIB = None
 
@@ -91,13 +94,14 @@ scatter_add.launches = 0
 
 
 class TableGradLookup(torch.autograd.Function):
-    """``table[idx]`` (rows of a ``[T, F]`` table) with a K1 backward."""
+    """``table[idx]`` (rows of a ``[T, F]`` table) with a G1 forward and
+    a K1 backward."""
 
     @staticmethod
     def forward(ctx, table, idx):
         ctx.save_for_backward(idx)
         ctx.table_size = table.shape[0]
-        return table.index_select(0, idx.reshape(-1)).view(
+        return gather_rows(table.contiguous(), idx.reshape(-1)).view(
             *idx.shape, table.shape[1])
 
     @staticmethod

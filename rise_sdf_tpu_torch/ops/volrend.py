@@ -4,7 +4,10 @@
 The per-ray transmittance scan is one cumulative sum of ``log(1 -
 alpha)`` over the ray-major buffer with each ray's start offset
 subtracted (a segmented exclusive scan); accumulation sums into an
-``n_rays + 1`` buffer whose last row takes the dead slots.
+``n_rays + 1`` buffer whose last row takes the dead slots.  The
+visibility prefilter reads the same scan: ``transmittance_cut`` and
+``transmittance_band`` reduce it to a per-ray distance (a segment
+minimum, ``scatter_reduce`` with ``amin``).
 """
 
 from __future__ import annotations
@@ -12,6 +15,10 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+
+# transmittance below this is treated as opaque-terminated, matching
+# nerfacc's early_stop_eps used by OccGridEstimator.sampling
+EARLY_STOP_EPS = 1e-4
 
 
 def render_weight_from_alpha(alphas, ray_start, ray_indices, valid,
@@ -45,3 +52,73 @@ def accumulate_along_rays(weights, ray_indices, values: Optional[torch.Tensor],
     src = weights[:, None] if values is None else weights[:, None] * values
     out = src.new_zeros((n_rays + 1, src.shape[1]))
     return out.index_add(0, ray_indices, src)[:n_rays]
+
+
+def render_visibility(alphas, ray_start, ray_indices, valid, n_rays: int,
+                      early_stop_eps: float = EARLY_STOP_EPS,
+                      alpha_thre: float = 0.0):
+    """Visible-sample mask: the transmittance before the sample is at
+    least ``early_stop_eps`` and, when ``alpha_thre > 0``, its alpha at
+    least ``alpha_thre``."""
+    _, trans = render_weight_from_alpha(alphas, ray_start, ray_indices,
+                                        valid, n_rays)
+    vis = valid & (trans >= early_stop_eps)
+    if alpha_thre > 0:
+        vis = vis & (alphas >= alpha_thre)
+    return vis
+
+
+def _segment_min(vals, ray_indices, n_rays: int, fill: float):
+    """Per-ray minimum of ``vals`` [C] (``fill`` for rays without
+    samples); dead slots (``ray_indices == n_rays``) land in a spare row."""
+    out = torch.full((n_rays + 1,), fill, dtype=vals.dtype,
+                     device=vals.device)
+    idx = torch.clamp(ray_indices, max=n_rays)
+    return out.scatter_reduce(0, idx, vals, reduce="amin")[:n_rays]
+
+
+def transmittance_cut(alphas, t_starts, ray_start, ray_indices, valid,
+                      n_rays: int, early_stop_eps: float = EARLY_STOP_EPS,
+                      margin: float = 0.0):
+    """Per-ray visibility cut: the ``t_start`` of the first sample whose
+    transmittance before it drops below ``early_stop_eps``, plus
+    ``margin``; 1e10 (no cut) for rays that never saturate or have no
+    samples in the buffer."""
+    _, trans = render_weight_from_alpha(alphas, ray_start, ray_indices,
+                                        valid, n_rays)
+    inf = 1e10
+    crossed_t = torch.where(valid & (trans < early_stop_eps), t_starts, inf)
+    cut = _segment_min(crossed_t, ray_indices, n_rays, inf)
+    return torch.clamp(cut + margin, max=inf)
+
+
+def transmittance_band(alphas, t_starts, ray_start, ray_indices, valid,
+                       n_rays: int, early_stop_eps: float = EARLY_STOP_EPS,
+                       enter_eps: Optional[float] = None,
+                       margin: float = 0.0):
+    """Per-ray weight-mass band ``(t_lo, t_cut)``: ``t_cut`` as
+    :func:`transmittance_cut`, ``t_lo`` the ``t_start`` of the first
+    sample whose weight exceeds ``enter_eps`` (default
+    ``early_stop_eps``) minus ``margin``, or -1e10 (no lower bound) for
+    rays that never enter."""
+    weights, trans = render_weight_from_alpha(alphas, ray_start,
+                                              ray_indices, valid, n_rays)
+    inf = 1e10
+    crossed_t = torch.where(valid & (trans < early_stop_eps), t_starts, inf)
+    cut = torch.clamp(_segment_min(crossed_t, ray_indices, n_rays, inf)
+                      + margin, max=inf)
+    ee = early_stop_eps if enter_eps is None else enter_eps
+    entered_t = torch.where(valid & (weights > ee), t_starts, inf)
+    lo = _segment_min(entered_t, ray_indices, n_rays, inf)
+    lo = torch.where(lo >= inf, -inf, lo - margin)
+    return lo, cut
+
+
+def render_weight_from_alpha_dense(alphas, live):
+    """Weights on a non-compacted ``[R, S]`` grid (secondary rays).
+    Returns (weights [R, S], trans [R, S])."""
+    a = torch.where(live, torch.clamp(alphas, 0.0, 1.0 - 1e-7), 0.0)
+    c = torch.cumsum(torch.log1p(-a), 1)
+    c_prev = torch.cat([torch.zeros_like(c[:, :1]), c[:, :-1]], 1)
+    trans = torch.exp(c_prev)
+    return trans * a, trans

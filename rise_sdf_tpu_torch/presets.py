@@ -1,9 +1,11 @@
 """Config presets as plain dicts (the port reads no YAML).
 
-``tiny_neus_config`` mirrors ``rise_sdf_tpu/presets.py:tiny_neus_config``
-value for value; ``neus_sphere_full`` is the model and system of
-``configs/neus-blender.yaml`` at full width, trained on the procedural
-``synthetic-sphere`` scene at the config's own 800x800.
+``tiny_neus_config`` and ``tiny_split_config`` mirror their namesakes in
+``rise_sdf_tpu/presets.py`` value for value; ``neus_sphere_full`` is the
+model and system of ``configs/neus-blender.yaml`` at full width, trained
+on the procedural ``synthetic-sphere`` scene at the config's own
+800x800; ``split_mixed_occ_full`` is the model section of
+``configs/split-mixed-occ-tensoir.yaml``, the flagship.
 """
 
 from __future__ import annotations
@@ -155,4 +157,133 @@ def neus_sphere_full():
         "export": {"chunk_size": 2097152, "export_vertex_color": True},
         "trainer": {"max_steps": max_steps, "log_every_n_steps": 100,
                     "val_check_interval": 10000},
+    }
+
+
+def _merge(dst: dict, src: dict) -> dict:
+    """Deep-merge ``src`` into ``dst`` (``src`` wins), as the JAX
+    package's ``ConfigNode.merge``."""
+    for k, v in src.items():
+        if isinstance(dst.get(k), dict) and isinstance(v, dict):
+            _merge(dst[k], v)
+        else:
+            dst[k] = v
+    return dst
+
+
+def tiny_split_config():
+    tex_mlp = tiny_mlp(1, 16)
+    cfg = tiny_neus_config()
+    _merge(cfg["model"], {
+        "name": "split-mixed-occ", "indirect_pred": True,
+        "relighting_threshold": 0.3, "num_samples_per_secondary_ray": 16,
+        "split_sum_kick_in_step": 10,
+        "geometry": geometry_cfg("finite_difference", progressive=True),
+        "texture": {
+            "name": "volume-mixed-mip-split-occ", "input_feature_dim": 13,
+            "other_dim": 3,
+            "dir_encoding_config": {"otype": "SphericalHarmonics",
+                                    "degree": 4},
+            "xyz_encoding_config": {"otype": "VanillaFrequency",
+                                    "n_frequencies": 3},
+            "metallic_mlp_network_config": tex_mlp,
+            "albedo_mlp_network_config": tex_mlp,
+            "spec_mlp_network_config": tex_mlp,
+            "roughness_mlp_network_config": tex_mlp,
+            "secondary_mlp_network_config": tex_mlp,
+            "color_activation": "sigmoid"},
+        "light": {"name": "envlight-mip-cube",
+                  "envlight_config": {"hdr_filepath": None, "clamp": True,
+                                      "nmf_format": False, "scale": 0.5,
+                                      "bias": 0.25, "base_res": 32}},
+    })
+    _merge(cfg["system"], {
+        "name": "split-occ-system",
+        "loss": {"lambda_rgb_phys_mse": 10.0, "lambda_rgb_phys_l1": 0.0,
+                 "lambda_curvature": 0.5, "lambda_normal_orientation": 0.05,
+                 "lambda_emitter_distillation": 0.0,
+                 "lambda_eikonal": 0.05},
+        "optimizer": {"params": {"emitter": {"lr": 0.01}}},
+    })
+    cfg["dataset"]["relight_list"] = []
+    cfg["dataset"]["has_albedo"] = True
+    cfg["dataset"]["has_roughness"] = True
+    return cfg
+
+
+def split_mixed_occ_full():
+    """The flagship: ``configs/split-mixed-occ-tensoir.yaml``'s model
+    section with its interpolations resolved (texture
+    ``input_feature_dim`` = feature_dim + 0 = 48, ``prefilter_start_step``
+    = ``split_sum_kick_in_step``), and the config's seed."""
+    def head(layers):
+        return {"otype": "VanillaMLP", "activation": "ReLU",
+                "output_activation": "none", "n_neurons": 128,
+                "n_hidden_layers": layers, "compute_dtype": "bfloat16"}
+
+    return {
+        "name": "split-mixed-occ-tensoir-bench",
+        "seed": 42,
+        "model": {
+            "name": "split-mixed-occ", "indirect_pred": True,
+            "relighting_threshold": 0.3, "radius": 1.5,
+            "num_samples_per_ray": 1024, "num_samples_per_secondary_ray": 96,
+            "derive_compaction": True,
+            "secondary_sample_capacity_frac": 0.375,
+            "eval_visibility_frac": 0.5, "visibility_prefilter": True,
+            "prefilter_stride": 4, "prefilter_coarse_per_ray": 64,
+            "prefilter_margin_intervals": 1.0, "prefilter_levels": 0,
+            "eval_sdf_bake": "full", "eval_sdf_bake_cells": 128,
+            "prefilter_start_step": 10000,
+            "train_sample_capacity_prefiltered": 163840,
+            "train_num_rays": 256, "max_train_num_rays": 4096,
+            "eval_samples_per_ray": 64, "eval_banded_samples_per_ray": 8,
+            "eval_band_reserve": 16384, "eval_ray_interleave": "golden",
+            "eval_pipeline_depth": 2, "grid_prune": True,
+            "grid_prune_occ_thre": 0.001, "dynamic_ray_sampling": True,
+            "batch_image_sampling": True, "randomized": True,
+            "ray_chunk": 4096, "cos_anneal_end": 10000,
+            "learned_background": False, "split_sum_kick_in_step": 10000,
+            "background_color": "random",
+            "variance": {"init_val": 0.3, "modulate": False},
+            "geometry": {
+                "name": "volume-sdf", "radius": 1.5, "feature_dim": 48,
+                "grad_type": "finite_difference",
+                "finite_difference_eps": "progressive", "fd_fine_k": 3,
+                "curvature_probe_frac": 0.25,
+                "isosurface": {"method": "mc", "resolution": 512,
+                               "chunk": 2097152, "threshold": 0.0},
+                "xyz_encoding_config": {
+                    "otype": "ProgressiveBandHashGrid", "n_levels": 16,
+                    "start_level": 6, "start_step": 6000,
+                    "update_steps": 500, "n_features_per_level": 2,
+                    "log2_hashmap_size": 19, "base_resolution": 32,
+                    "per_level_scale": 1.447269237440378,
+                    "include_xyz": True},
+                "mlp_network_config": {
+                    "otype": "VanillaMLP", "activation": "ReLU",
+                    "output_activation": "none", "n_neurons": 128,
+                    "n_hidden_layers": 2, "sphere_init": True,
+                    "sphere_init_radius": 0.5, "weight_norm": True,
+                    "compute_dtype": "bfloat16"},
+            },
+            "texture": {
+                "name": "volume-mixed-mip-split-occ",
+                "input_feature_dim": 48, "other_dim": 3, "sample_size": 8,
+                "dir_encoding_config": {"otype": "SphericalHarmonics",
+                                        "degree": 5, "reflected": True},
+                "metallic_mlp_network_config": head(2),
+                "albedo_mlp_network_config": head(4),
+                "spec_mlp_network_config": head(4),
+                "roughness_mlp_network_config": head(2),
+                "secondary_mlp_network_config": head(4),
+                "xyz_encoding_config": {"otype": "VanillaFrequency",
+                                        "n_frequencies": 6},
+                "color_activation": "sigmoid",
+            },
+            "light": {"name": "envlight-mip-cube",
+                      "envlight_config": {"hdr_filepath": None, "clamp": True,
+                                          "nmf_format": False, "scale": 0.5,
+                                          "bias": 0.25, "base_res": 512}},
+        },
     }

@@ -20,11 +20,15 @@ from .. import bridge, models
 
 class BaseSystem:
     def __init__(self, config, datamodule, save_dir: str = "exp_out",
-                 ckpt_dir: Optional[str] = None, device="cpu"):
+                 ckpt_dir: Optional[str] = None, device="cuda"):
         self.config = config
         self.datamodule = datamodule
         self.device = torch.device(device)
         if self.device.type == "cuda":
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    "CUDA is not available; pass device='cpu' to run on "
+                    "the CPU")
             # float32 means float32: no TF32 in matmuls or convolutions
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False

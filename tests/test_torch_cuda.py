@@ -1,12 +1,18 @@
-"""Kernel K1 on the card (marker ``cuda``; skipped without a CUDA device).
+"""Kernels K1 (scatter-add) and G1 (row gather) on the card (marker
+``cuda``; skipped without a CUDA device).
 
 Imports only torch and the port, so it also runs where jax is absent:
 ``python -m pytest --noconftest tests/test_torch_cuda.py`` on a machine
 with the GPU (the repo's conftest imports jax)."""
 
+import os
+import subprocess
+import sys
+
 import pytest
 import torch
 
+from rise_sdf_tpu_torch.ops.gather import gather_rows
 from rise_sdf_tpu_torch.ops.scatter import (
     TableGradLookup,
     scatter_add,
@@ -73,3 +79,64 @@ def test_scatter_add_rejects_mixed_devices(cuda):
     with pytest.raises(ValueError):
         scatter_add(torch.zeros(4, dtype=torch.int32),
                     torch.zeros((4, 2), device=cuda), 8)
+
+
+@pytest.mark.parametrize("n,w,m,offset", [
+    (4096, 2, 4 * 8192 + 3, 0),     # 4 rows of 8 bytes per thread + tail
+    (4096, 2, 5000, 1),             # idx not 16-byte aligned: 8-byte path
+    (3000, 8, 20000, 0),            # 2 x 16-byte vectors per row
+    (3000, 32, 7000, 0),            # 8 x 16-byte vectors per row
+    (1000, 3, 5000, 0),             # 4-byte elements
+], ids=["w2", "w2_misaligned", "w8", "w32", "w3"])
+def test_gather_rows_kernel_is_bit_equal(cuda, n, w, m, offset):
+    """A gather copies bits: G1 equals ``index_select`` exactly."""
+    gen = torch.Generator(device=cuda).manual_seed(n + w + m)
+    table = torch.randn((n, w), generator=gen, device=cuda)
+    idx = torch.randint(0, n, (m + offset,), generator=gen, device=cuda,
+                        dtype=torch.int32)[offset:]
+    before = gather_rows.launches
+    got = gather_rows(table, idx)
+    torch.cuda.synchronize()
+    assert gather_rows.launches == before + 1
+    want = table.index_select(0, idx.long())
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_table_grad_lookup_forward_launches_gather(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    table = torch.randn((2048, 2), generator=gen, device=cuda)
+    idx = torch.randint(0, 2048, (512, 8), generator=gen, device=cuda,
+                        dtype=torch.int32)
+    before = gather_rows.launches
+    got = TableGradLookup.apply(table, idx)
+    torch.cuda.synchronize()
+    assert gather_rows.launches == before + 1
+    assert torch.equal(got, table[idx.long()])
+
+
+def test_gather_rows_rejects_mixed_devices(cuda):
+    with pytest.raises(ValueError):
+        gather_rows(torch.zeros((4, 2), device=cuda),
+                    torch.zeros(3, dtype=torch.int32))
+
+
+def test_gather_rows_out_of_range_index_raises(cuda):
+    """G1's device-side bound check: an index past the table's last row
+    fails the launch's stream.  The failed context cannot be used again,
+    so the gather runs in a process of its own."""
+    code = (
+        "import torch\n"
+        "from rise_sdf_tpu_torch.ops.gather import gather_rows\n"
+        "table = torch.zeros((64, 2), device='cuda')\n"
+        "idx = torch.tensor([0, 5, 64, 1], dtype=torch.int32, "
+        "device='cuda')\n"
+        "try:\n"
+        "    gather_rows(table, idx)\n"
+        "    torch.cuda.synchronize()\n"
+        "except RuntimeError as e:\n"
+        "    print('raised:', str(e).splitlines()[0])\n")
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    res = subprocess.run([sys.executable, "-c", code], cwd=repo,
+                         env=dict(os.environ, PYTHONPATH=repo),
+                         capture_output=True, text=True, timeout=600)
+    assert "raised:" in res.stdout, (res.stdout, res.stderr)

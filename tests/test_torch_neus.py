@@ -57,7 +57,7 @@ def pair(tmp_path_factory):
     cfg = presets.tiny_neus_config()
     tsys = systems.make(cfg["system"]["name"], cfg,
                         datasets.make(cfg["dataset"]["name"], cfg["dataset"]),
-                        save_dir=os.path.join(tmp, "torch"))
+                        save_dir=os.path.join(tmp, "torch"), device="cpu")
     tsys.init_state(1)  # other params, overwritten by the load
     tstate = tsys.load_checkpoint(path)
     return jsys, jstate, tsys, tstate, path, tmp
@@ -216,7 +216,7 @@ def test_fit_and_checkpoint_reload(tmp_path):
     cfg = presets.tiny_neus_config()
     dm = datasets.make(cfg["dataset"]["name"], cfg["dataset"])
     tsys = systems.make(cfg["system"]["name"], cfg, dm,
-                        save_dir=str(tmp_path))
+                        save_dir=str(tmp_path), device="cpu")
     state = tsys.fit(max_steps=25, log_every=0)
     assert state["step"] == 25 and tsys.skipped_updates == 0
     assert all(torch.isfinite(p).all() for p in tsys.model.parameters())
@@ -226,7 +226,7 @@ def test_fit_and_checkpoint_reload(tmp_path):
     assert np.isfinite(res["psnr"]) and res["psnr"] > 5.0
     path = tsys.save_checkpoint(state)
     other = systems.make(cfg["system"]["name"], cfg, dm,
-                         save_dir=str(tmp_path))
+                         save_dir=str(tmp_path), device="cpu")
     other.init_state(0)
     state2 = other.load_checkpoint(path)
     assert state2["step"] == 25
@@ -255,9 +255,13 @@ def test_port_imports_no_jax_yaml_or_reference():
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'yaml', 'rise_sdf_tpu'))\n"
         "assert not bad, bad\n"
+        "need = [p.__name__ + '.' + m for m in ('bench',\n"
+        "        'models.split_mixed_occ', 'ops.sdf_bake', 'ops.prefilter',\n"
+        "        'ops.gather', 'ops.cubemap', 'models.light')]\n"
+        "assert all(m in sys.modules for m in need), need\n"
         "print(len([m for m in sys.modules if m.startswith(p.__name__)]))\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) >= 20
+    assert int(res.stdout.strip()) >= 30
