@@ -111,10 +111,11 @@ def scatter_bound_ms(m, f, table_size):
     return max(moved / HBM_BYTES_PER_S, m * f / F32_OPS_PER_S) * 1e3
 
 
-def gather_bound_ms(m, w, n):
-    """Least time of ``table[idx]``: idx and the table read once, the
-    output written once (a gather does no arithmetic)."""
-    return (m * 4 + n * w * 4 + m * w * 4) / HBM_BYTES_PER_S * 1e3
+def gather_bound_ms(m, w, rows):
+    """Least time of ``table[idx]``: idx read once, each of the ``rows``
+    distinct table rows it names read once, the output written once (a
+    gather does no arithmetic)."""
+    return (m * 4 + rows * w * 4 + m * w * 4) / HBM_BYTES_PER_S * 1e3
 
 
 def check_scatter(torch, got, idx, vals, table_size, what):
@@ -207,9 +208,10 @@ def check_gather(torch, gather, table, idx, what):
     plain_ms = median_ms(torch, lambda: gather.gather_rows_plain(table, idx))
     lib_ms = median_ms(torch, lambda: torch.index_select(table, 0, idx))
     (n, w), m = table.shape, idx.shape[0]
-    bound = gather_bound_ms(m, w, n)
-    log(f"  {what}: {m} rows from {n} x {w}: bit-equal {equal}; G1 "
-        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, index_select "
+    rows = int(torch.unique(idx).numel())
+    bound = gather_bound_ms(m, w, rows)
+    log(f"  {what}: {m} rows ({rows} distinct) from {n} x {w}: bit-equal "
+        f"{equal}; G1 {ms:.4f} ms, plain {plain_ms:.4f} ms, index_select "
         f"{lib_ms:.4f} ms, bound {bound:.4f} ms (bytes; median of 10)")
     if not equal:
         fail(f"G1 differs from index_select at {what}")
@@ -348,7 +350,7 @@ def render_phase(torch, gather, scatter):
 
     gather.gather_rows.launches = 0
     scatter.scatter_add.launches = 0
-    res = bench.run("full", 800, "cuda", profile_chunks=8,
+    res = bench.run("full", "cuda", profile_chunks=8,
                     log=lambda msg: log(f"  {msg}"))
     g1, k1 = gather.gather_rows.launches, scatter.scatter_add.launches
     img = res.pop("image")

@@ -1,12 +1,12 @@
 """Eval throughput of the flagship render: rays/s for one 800x800 image.
 
-    python -m rise_sdf_tpu_torch.bench [--device cuda|cpu] [--size 800]
+    python -m rise_sdf_tpu_torch.bench [--device cuda|cpu]
                                        [--preset full|tiny]
                                        [--profile-chunks N]
 
 The protocol is the headline of the JAX package's ``bench.py``: the
 ``split_mixed_occ_full`` model (``configs/split-mixed-occ-tensoir.yaml``)
-with untrained parameters drawn from ``--seed``, except the variance,
+with untrained parameters drawn from the preset's seed, except the variance,
 set to 0.67 (inv_s ~ 812, a converged surface); a solid occupancy grid
 (cells within 0.5 + 2 cells of the centre); ``step =
 split_sum_kick_in_step + 1`` (stage 1, 14 of 16 hash levels open); the
@@ -26,9 +26,9 @@ the float32 error of the transmittance scan); with ``--profile-chunks N``, the d
 time of ``N`` chunks by kernel under ``torch.profiler`` and G1's share
 of it.
 
-``--preset tiny`` renders the tiny split config (CPU smoke).  The
-default device is the card; without CUDA it raises unless ``--device
-cpu`` is given.
+``--preset tiny`` renders the tiny split config at 16x16 (CPU smoke).
+The default device is the card; without CUDA it raises unless
+``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -51,6 +51,7 @@ from .utils.misc import interleave_order
 from .utils.rays import get_ray_directions, get_rays
 
 VARIANCE = 0.67  # exp(10 * 0.67) ~ 812: the end of a production run
+SIZES = {"full": 800, "tiny": 16}  # image side per preset
 
 
 def tiny_bench_config():
@@ -58,6 +59,7 @@ def tiny_bench_config():
     tiny widths: prefilter, exact-K bands of 8 with a reserve, the full
     bake, both compactions and the golden interleave, chunks of 256."""
     cfg = presets.tiny_split_config()
+    cfg["seed"] = 0
     cfg["model"].update({
         "num_samples_per_ray": 256, "visibility_prefilter": True,
         "prefilter_stride": 4, "prefilter_margin_intervals": 1.0,
@@ -107,11 +109,11 @@ def _kernel_times(prof):
     return out
 
 
-def run(preset: str = "full", size: int = 800, device="cuda", seed: int = 0,
-        profile_chunks: int = 0, log=None) -> dict:
-    """Render one image with the bench protocol; returns the results
-    (``image`` [size, size, 3] and ``included`` [size^2] stay on the
-    device, the rest are numbers)."""
+def run(preset: str = "full", device="cuda", profile_chunks: int = 0,
+        log=None) -> dict:
+    """Render one ``SIZES[preset]``-square image with the bench
+    protocol; returns the results (``image`` [size, size, 3] and
+    ``included`` [size^2] stay on the device, the rest are numbers)."""
     device = torch.device(device)
     if device.type == "cuda":
         if not torch.cuda.is_available():
@@ -122,7 +124,7 @@ def run(preset: str = "full", size: int = 800, device="cuda", seed: int = 0,
     log = log or (lambda msg: None)
     cfg = presets.split_mixed_occ_full() if preset == "full" \
         else tiny_bench_config()
-    mcfg = cfg["model"]
+    mcfg, size = cfg["model"], SIZES[preset]
     res = {"preset": preset, "size": size, "device": str(device)}
 
     t0 = time.perf_counter()
@@ -132,7 +134,7 @@ def run(preset: str = "full", size: int = 800, device="cuda", seed: int = 0,
     t0 = time.perf_counter()
     model = models.make(mcfg["name"], mcfg)
     res["model_build_s"] = time.perf_counter() - t0
-    model.reset_parameters(torch.Generator().manual_seed(seed))
+    model.reset_parameters(torch.Generator().manual_seed(int(cfg["seed"])))
     with torch.no_grad():
         model.variance.variance.fill_(VARIANCE)
     model.to(device).requires_grad_(False)
@@ -258,13 +260,10 @@ def profile(model, rays, chunk, n_chunks, mips, bake, kw) -> dict:
 def main(argv: Optional[list] = None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--size", type=int, default=800)
-    ap.add_argument("--preset", choices=("full", "tiny"), default="full")
-    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--preset", choices=tuple(SIZES), default="full")
     ap.add_argument("--profile-chunks", type=int, default=0)
     args = ap.parse_args(argv)
-    res = run(args.preset, args.size, args.device, args.seed,
-              args.profile_chunks,
+    res = run(args.preset, args.device, args.profile_chunks,
               log=lambda msg: print(msg, file=sys.stderr, flush=True))
     if torch.device(args.device).type == "cuda":
         res["card"] = torch.cuda.get_device_name(0)

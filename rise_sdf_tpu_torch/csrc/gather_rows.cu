@@ -11,21 +11,24 @@
 // device memory (L2 holds the hot part), every thread reads rows with
 // vector loads and writes them with vector stores.
 //
-// What bounds it: bytes.  Each output row is written once (W * 4 bytes)
-// and each index read once (4 bytes); the table rows are read at random,
-// so a row narrower than a 32-byte sector wastes part of each sector it
-// touches.  The hash encode gathers 8-byte rows (W = 2), the baked-SDF
-// sample 32-byte rows (W = 8).  The design keeps many independent loads
-// in flight and the accesses as wide as the row allows:
-//   * 8-byte rows (W = 2): each thread takes 4 rows, reads their 4
-//     indices with one 16-byte load, issues the 4 row loads back to back
-//     and writes the 4 rows as two 16-byte stores, so a warp reads and
-//     writes 1 KB of contiguous output;
-//   * rows that are a multiple of 16 bytes (W = 8: 2 vectors, W = 32: 8):
-//     one thread per 16-byte vector, neighbouring threads on neighbouring
-//     output vectors so the stores coalesce;
-//   * anything else: 8- or 4-byte vectors, one per thread.
-// Index arithmetic is 32-bit when the output's vector count fits.
+// What bounds it: bytes.  Each output row is written once and each index
+// read once; the table rows are read at random, so a row narrower than a
+// 32-byte sector wastes part of each sector it touches.  The hash encode
+// gathers 8-byte rows (float32 W = 2), the baked-SDF sample 32-byte rows
+// (float32 W = 8).  The design keeps many independent loads in flight and
+// the accesses as wide as the row allows.  Two row sizes are taken:
+//   * 8 bytes: each thread takes 4 rows, reads their 4 indices with one
+//     16-byte load, issues the 4 row loads back to back and writes the 4
+//     rows as two 16-byte stores, so a warp reads and writes 1 KB of
+//     contiguous output; idx and out must be 16-byte aligned;
+//   * a multiple of 16 bytes: one thread per 16-byte vector, neighbouring
+//     threads on neighbouring output vectors so the stores coalesce; table
+//     and out must be 16-byte aligned.
+// Anything else is refused (cudaErrorInvalidValue).
+//
+// Loop counters are 32-bit (unsigned) when the work fits, else 64-bit.  A
+// grid-stride step never takes a counter past the work's end (next()), so
+// a counter cannot wrap whatever the grid's stride.
 //
 // The copy moves bits, not floats (uint2 / uint4 vectors), so the result
 // is bit-equal to index_select for any 4- or 8-byte element type; the
@@ -44,29 +47,14 @@ namespace {
 
 constexpr int kThreads = 256;
 
-// One thread per vector of a row.  Q = vectors per row when known at
-// compile time (the division becomes a shift), Q = 0 to take q at run
-// time.  I = the index type (int when m * q fits, else long long).
-template <typename V, int Q, typename I>
-__global__ void gather_rows_kernel(const int* __restrict__ idx,
-                                   const V* __restrict__ table,
-                                   V* __restrict__ out, I total, int q_rt,
-                                   int n_rows) {
-  const I q = Q > 0 ? Q : q_rt;
-  const I stride = (I)gridDim.x * blockDim.x;
-  for (I i = (I)blockIdx.x * blockDim.x + threadIdx.x; i < total;
-       i += stride) {
-    const I r = i / q;
-    const I c = i - r * q;
-    const int row = __ldg(idx + r);
-    assert(row >= 0 && row < n_rows);
-    out[i] = __ldg(table + (I)row * q + c);
-  }
+// the next grid-stride position, or `end` where that would pass it
+template <typename I>
+__device__ __forceinline__ I next(I i, I stride, I end) {
+  return end - i > stride ? i + stride : end;
 }
 
 // 8-byte rows, 4 per thread: one 16-byte index load, 4 independent row
-// loads, two 16-byte stores.  idx and out must be 16-byte aligned; the
-// last m % 4 rows are done one by one.
+// loads, two 16-byte stores.  The last m % 4 rows are done one by one.
 template <typename I>
 __global__ void gather_rows8_x4_kernel(const int* __restrict__ idx,
                                        const uint2* __restrict__ table,
@@ -75,7 +63,7 @@ __global__ void gather_rows8_x4_kernel(const int* __restrict__ idx,
   const I quads = m / 4;
   const I stride = (I)gridDim.x * blockDim.x;
   for (I t = (I)blockIdx.x * blockDim.x + threadIdx.x; t < quads;
-       t += stride) {
+       t = next(t, stride, quads)) {
     const int4 r = __ldg(reinterpret_cast<const int4*>(idx) + t);
     assert(r.x >= 0 && r.x < n_rows && r.y >= 0 && r.y < n_rows);
     assert(r.z >= 0 && r.z < n_rows && r.w >= 0 && r.w < n_rows);
@@ -87,12 +75,27 @@ __global__ void gather_rows8_x4_kernel(const int* __restrict__ idx,
     o[0] = make_uint4(a.x, a.y, b.x, b.y);
     o[1] = make_uint4(c.x, c.y, d.x, d.y);
   }
-  if (blockIdx.x == 0) {
-    for (I i = quads * 4 + threadIdx.x; i < m; i += blockDim.x) {
-      const int row = __ldg(idx + i);
-      assert(row >= 0 && row < n_rows);
-      out[i] = __ldg(table + row);
-    }
+  if (blockIdx.x == 0 && threadIdx.x < m - quads * 4) {
+    const I i = quads * 4 + threadIdx.x;
+    const int row = __ldg(idx + i);
+    assert(row >= 0 && row < n_rows);
+    out[i] = __ldg(table + row);
+  }
+}
+
+// rows of q 16-byte vectors: one thread per output vector
+template <typename I>
+__global__ void gather_rows16_kernel(const int* __restrict__ idx,
+                                     const uint4* __restrict__ table,
+                                     uint4* __restrict__ out, I total, I q,
+                                     int n_rows) {
+  const I stride = (I)gridDim.x * blockDim.x;
+  for (I i = (I)blockIdx.x * blockDim.x + threadIdx.x; i < total;
+       i = next(i, stride, total)) {
+    const I r = i / q;
+    const int row = __ldg(idx + r);
+    assert(row >= 0 && row < n_rows);
+    out[i] = __ldg(table + (long long)row * q + (i - r * q));
   }
 }
 
@@ -104,19 +107,7 @@ unsigned blocks_for(long long work) {
   return (unsigned)(b > 0 ? b : 1);
 }
 
-template <typename V, int Q>
-void launch(const void* idx, const void* table, void* out, long long m,
-            int q, int n_rows, cudaStream_t s) {
-  const long long total = m * q;
-  if (total < (1LL << 31)) {
-    gather_rows_kernel<V, Q, int><<<blocks_for(total), kThreads, 0, s>>>(
-        (const int*)idx, (const V*)table, (V*)out, (int)total, q, n_rows);
-  } else {
-    gather_rows_kernel<V, Q, long long>
-        <<<blocks_for(total), kThreads, 0, s>>>(
-            (const int*)idx, (const V*)table, (V*)out, total, q, n_rows);
-  }
-}
+constexpr long long kU32 = 0xffffffffLL;
 
 }  // namespace
 
@@ -129,31 +120,32 @@ extern "C" int rise_gather_rows(const void* idx, const void* table,
   cudaStream_t s = (cudaStream_t)stream;
   const int rows = (int)n_rows;
   const unsigned long long tab = (unsigned long long)table;
-  const unsigned long long io =
-      (unsigned long long)idx | (unsigned long long)out;
-  if (row_bytes == 8 && tab % 8 == 0 && io % 16 == 0) {
-    const long long quads = m / 4;
-    if (m < (1LL << 31)) {
-      gather_rows8_x4_kernel<int><<<blocks_for(quads), kThreads, 0, s>>>(
-          (const int*)idx, (const uint2*)table, (uint2*)out, (int)m, rows);
+  const unsigned long long o = (unsigned long long)out;
+  const unsigned long long ix = (unsigned long long)idx;
+  if (row_bytes == 8) {
+    if (tab % 8 != 0 || (ix | o) % 16 != 0) return (int)cudaErrorInvalidValue;
+    const unsigned blocks = blocks_for(m / 4);
+    if (m <= kU32) {
+      gather_rows8_x4_kernel<unsigned><<<blocks, kThreads, 0, s>>>(
+          (const int*)idx, (const uint2*)table, (uint2*)out, (unsigned)m,
+          rows);
     } else {
-      gather_rows8_x4_kernel<long long>
-          <<<blocks_for(quads), kThreads, 0, s>>>(
-              (const int*)idx, (const uint2*)table, (uint2*)out, m, rows);
+      gather_rows8_x4_kernel<long long><<<blocks, kThreads, 0, s>>>(
+          (const int*)idx, (const uint2*)table, (uint2*)out, m, rows);
     }
-  } else if (row_bytes % 16 == 0 && (tab | (unsigned long long)out) % 16 == 0) {
-    const int q = (int)(row_bytes / 16);
-    if (q == 2) {
-      launch<uint4, 2>(idx, table, out, m, q, rows, s);
-    } else if (q == 8) {
-      launch<uint4, 8>(idx, table, out, m, q, rows, s);
+  } else if (row_bytes % 16 == 0) {
+    if ((tab | o) % 16 != 0) return (int)cudaErrorInvalidValue;
+    const long long q = row_bytes / 16;
+    const long long total = m * q;
+    const unsigned blocks = blocks_for(total);
+    if (total <= kU32) {
+      gather_rows16_kernel<unsigned><<<blocks, kThreads, 0, s>>>(
+          (const int*)idx, (const uint4*)table, (uint4*)out,
+          (unsigned)total, (unsigned)q, rows);
     } else {
-      launch<uint4, 0>(idx, table, out, m, q, rows, s);
+      gather_rows16_kernel<long long><<<blocks, kThreads, 0, s>>>(
+          (const int*)idx, (const uint4*)table, (uint4*)out, total, q, rows);
     }
-  } else if (row_bytes % 8 == 0 && (tab | (unsigned long long)out) % 8 == 0) {
-    launch<uint2, 0>(idx, table, out, m, (int)(row_bytes / 8), rows, s);
-  } else if (row_bytes % 4 == 0 && (tab | (unsigned long long)out) % 4 == 0) {
-    launch<uint32_t, 0>(idx, table, out, m, (int)(row_bytes / 4), rows, s);
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -110,10 +110,12 @@ class _Layer(nn.Module):
 
 class MLP(nn.Module):
     """VanillaMLP (``rise_sdf_tpu/nn.py:MLP``).  With ``compute_dtype:
-    bfloat16`` each layer's input and weight are cast to bf16 and the
-    product is cast back to float32 before the float32 bias, as JAX's
-    ``dot_general(..., preferred_element_type=f32)``; a torch bf16
-    matmul accumulates in float32 and rounds its result to bf16 once."""
+    bfloat16`` each layer's input and weight are rounded to bf16 and
+    multiplied in float32, then the float32 bias is added, as JAX's
+    ``dot_general(..., preferred_element_type=f32)``: a product of two
+    bf16 values is exact in float32, so only the summation order
+    differs.  (A torch bf16 matmul would round each output to bf16.)
+    TF32 must stay off, PyTorch's default for matmuls."""
 
     def __init__(self, dim_in: int, dim_out: int, config: Dict[str, Any]):
         super().__init__()
@@ -177,8 +179,8 @@ class MLP(nn.Module):
             if cdt is torch.float32:
                 h = layer(h)
             else:
-                h = F.linear(h.to(cdt), layer.weight().to(cdt)).float() \
-                    + layer.b
+                h = F.linear(h.to(cdt).float(),
+                             layer.weight().to(cdt).float()) + layer.b
             if i < n - 1:
                 h = self.hidden_activation(h)
         return self.output_activation(h)

@@ -8,7 +8,8 @@ the hash-grid forward (``TableGradLookup``, 2-wide rows) and the
 baked-SDF sample (``ops/sdf_bake.py``, 8-wide rows).
 
 * ``gather_rows(table, idx)``: ``table [N, W]`` float32 (or float64)
-  contiguous, ``idx [M]`` int32 -> ``[M, W]``.  On CUDA tensors it
+  contiguous, rows of 8 bytes or of a multiple of 16, ``idx [M]`` int32
+  -> ``[M, W]``.  On CUDA tensors it
   launches G1 or raises; on CPU tensors it runs ``gather_rows_plain``.
   ``gather_rows.launches`` counts kernel launches.
 * ``gather_rows_plain``: ``index_select``.
@@ -63,6 +64,20 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         raise ValueError("gather_rows takes a contiguous table and idx")
     if table.device != idx.device:
         raise ValueError(f"table on {table.device}, idx on {idx.device}")
+    # G1 takes 8-byte rows with idx 16-byte aligned, and rows of whole
+    # 16-byte vectors with the table 16-byte aligned (the output is new,
+    # so aligned); the CPU path holds callers to the same contract
+    row_bytes = table.shape[1] * table.element_size()
+    if row_bytes == 8:
+        if idx.data_ptr() % 16:
+            raise ValueError("gather_rows takes 8-byte rows with idx "
+                             "16-byte aligned")
+    elif row_bytes % 16 == 0:
+        if table.data_ptr() % 16:
+            raise ValueError("gather_rows takes a 16-byte aligned table")
+    else:
+        raise ValueError(f"gather_rows takes rows of 8 bytes or of a "
+                         f"multiple of 16 bytes, got {row_bytes}")
     if idx.device.type == "cpu":
         return gather_rows_plain(table, idx)
     if idx.device.type != "cuda":
@@ -75,8 +90,7 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     with torch.cuda.device(table.device):
         stream = torch.cuda.current_stream(table.device).cuda_stream
         rc = lib.rise_gather_rows(idx.data_ptr(), table.data_ptr(),
-                                  out.data_ptr(), m, w * table.element_size(),
-                                  n, stream)
+                                  out.data_ptr(), m, row_bytes, n, stream)
     if rc != 0:
         raise RuntimeError("gather_rows kernel launch failed: "
                            + lib.rise_gather_error_string(rc).decode())

@@ -81,19 +81,20 @@ def test_scatter_add_rejects_mixed_devices(cuda):
                     torch.zeros((4, 2), device=cuda), 8)
 
 
-@pytest.mark.parametrize("n,w,m,offset", [
-    (4096, 2, 4 * 8192 + 3, 0),     # 4 rows of 8 bytes per thread + tail
-    (4096, 2, 5000, 1),             # idx not 16-byte aligned: 8-byte path
-    (3000, 8, 20000, 0),            # 2 x 16-byte vectors per row
-    (3000, 32, 7000, 0),            # 8 x 16-byte vectors per row
-    (1000, 3, 5000, 0),             # 4-byte elements
-], ids=["w2", "w2_misaligned", "w8", "w32", "w3"])
-def test_gather_rows_kernel_is_bit_equal(cuda, n, w, m, offset):
+@pytest.mark.parametrize("n,w,m,dtype", [
+    (4096, 2, 4 * 8192 + 3, torch.float32),  # 4 8-byte rows/thread + tail
+    (4096, 2, 2, torch.float32),             # the tail alone
+    (3000, 8, 20000, torch.float32),         # 2 x 16-byte vectors per row
+    (3000, 32, 7000, torch.float32),         # 8 x 16-byte vectors per row
+    (3000, 2, 5000, torch.float64),          # 1 x 16-byte vector per row
+    (3000, 8, 5000, torch.float64),          # 4 x 16-byte vectors per row
+], ids=["w2", "w2_tail", "w8", "w32", "f64_w2", "f64_w8"])
+def test_gather_rows_kernel_is_bit_equal(cuda, n, w, m, dtype):
     """A gather copies bits: G1 equals ``index_select`` exactly."""
     gen = torch.Generator(device=cuda).manual_seed(n + w + m)
-    table = torch.randn((n, w), generator=gen, device=cuda)
-    idx = torch.randint(0, n, (m + offset,), generator=gen, device=cuda,
-                        dtype=torch.int32)[offset:]
+    table = torch.randn((n, w), generator=gen, device=cuda, dtype=dtype)
+    idx = torch.randint(0, n, (m,), generator=gen, device=cuda,
+                        dtype=torch.int32)
     before = gather_rows.launches
     got = gather_rows(table, idx)
     torch.cuda.synchronize()
@@ -118,6 +119,16 @@ def test_gather_rows_rejects_mixed_devices(cuda):
     with pytest.raises(ValueError):
         gather_rows(torch.zeros((4, 2), device=cuda),
                     torch.zeros(3, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("bad", ["12_byte_rows", "misaligned_idx"])
+def test_gather_rows_rejects_rows_g1_does_not_take(cuda, bad):
+    table = torch.zeros((8, 3 if bad == "12_byte_rows" else 2), device=cuda)
+    idx = torch.zeros(8, dtype=torch.int32, device=cuda)
+    before = gather_rows.launches
+    with pytest.raises(ValueError):
+        gather_rows(table, idx if bad == "12_byte_rows" else idx[1:])
+    assert gather_rows.launches == before
 
 
 def test_gather_rows_out_of_range_index_raises(cuda):

@@ -73,8 +73,11 @@ def test_gather_rows_float64_and_empty():
 
 
 @pytest.mark.parametrize("bad", ["int64_idx", "int_table", "idx_2d",
-                                 "strided_table"])
+                                 "strided_table", "12_byte_rows",
+                                 "misaligned_idx"])
 def test_gather_rows_rejects(bad):
+    """Wrong types and layouts, and the row sizes and alignments G1 does
+    not take, raise on the CPU as on the card."""
     table = torch.zeros((8, 4))
     idx = torch.zeros(3, dtype=torch.int32)
     if bad == "int64_idx":
@@ -83,8 +86,12 @@ def test_gather_rows_rejects(bad):
         table = table.int()
     elif bad == "idx_2d":
         idx = idx.view(3, 1)
-    else:
+    elif bad == "strided_table":
         table = table[:, ::2]
+    elif bad == "12_byte_rows":
+        table = torch.zeros((8, 3))
+    else:
+        table, idx = torch.zeros((8, 2)), torch.zeros(8, dtype=torch.int32)[1:]
     with pytest.raises((TypeError, ValueError)):
         gather.gather_rows(table, idx)
 

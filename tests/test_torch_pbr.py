@@ -5,11 +5,13 @@ mip-cubemap light and the five-head texture.
 
 Tolerances: float32 paths agree to 1e-5 (the two frameworks sum in
 other orders); the FG table and the filter bank are the same numpy
-code, so equal.  The bf16 MLP is held to 2e-2 of the output's largest
-entry: JAX keeps each bf16 product in float32
-(``preferred_element_type``), while a torch bf16 matmul rounds it to
-bf16 once before the float32 bias, so each layer differs by up to one
-bf16 rounding (2^-8 relative)."""
+code, so equal.  The bf16 MLP is held to 2e-3 of the output's largest
+entry, and its median entry to 1e-6: both sides round inputs and
+weights to bf16 and keep the products in float32
+(``preferred_element_type``), so they differ only where a hidden value
+that the two sums left 1 float32 ulp apart rounds to neighbouring bf16
+values.  Rounding each layer's output to bf16, as a torch bf16 matmul
+does, misses both bounds (about 5e-3 of the largest entry)."""
 
 import jax
 import jax.numpy as jnp
@@ -78,8 +80,9 @@ def test_bf16_mlp_matches_jax(sphere):
     want = np.asarray(jm.apply(params, jnp.asarray(x)))
     got = tm(torch.from_numpy(x)).detach()
     assert got.dtype == torch.float32
-    np.testing.assert_allclose(got.numpy(), want, rtol=0,
-                               atol=2e-2 * np.abs(want).max())
+    scale = np.abs(want).max()
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=2e-3 * scale)
+    assert np.median(np.abs(got.numpy() - want)) <= 1e-6 * scale
     # and it is a bf16 product: the float32 path differs by more than
     # float32 rounding
     tm.compute_dtype = torch.float32
