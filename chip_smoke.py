@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU (Hopper, sm_90a).
 
-    python3 chip_smoke.py [--steps 120]
+    python3 chip_smoke.py [--steps 120] [--save-streams FILE]
 
 Phases, each of which fails the run (non-zero exit) when it fails:
 
@@ -11,10 +11,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    at once;
 3. K1 against a float64 ``index_add_`` reference at the JAX test shapes,
    at S1's shape (12,582,912 rows into 2^19 x 2) and at the main-path
-   shape (16 levels x 2^19 x 2, 8,388,608 rows per level), per entry
-   ``|K1 - ref| <= 1e-5 * S + 1e-7`` with ``S`` the sum of ``|v|``
-   landing on that entry; median-of-10 times (each over 10 back-to-back
-   calls) of K1, of its plain version and of ``index_add_``;
+   shape (16 levels x 2^19 x 2, 8,388,608 rows per level, walked with the
+   encode's period 128), per entry ``|K1 - ref| <= 1e-5 * S + 1e-7``
+   with ``S`` the sum of ``|v|`` landing on that entry; median-of-10
+   times (each over 10 back-to-back calls) of K1, of its plain version
+   and of ``index_add_``;
 4. G1 bit-equal to ``index_select`` at S2/S3's shape (8,388,608 rows from
    2^19 x 2), at S4's (4,194,304 rows from 2^19 x w, w = 2, 8, 32), at
    the render's (one chunk's hash encode and baked-SDF probe) and at the
@@ -28,18 +29,28 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    ``split_mixed_occ_full`` at full width, the headline protocol of the
    JAX package's ``bench.py``), G1 and K1 counts zeroed just before and
    read just after: the image must be finite, G1 must launch and K1 must
-   not;
+   not.  The band-sample hash encode of one chunk from the middle of the
+   image is recorded (the render stream); G1 is held to and timed
+   against ``index_select`` on its rows;
 7. training slice: the NeuS system at ``neus_sphere_full`` widths (hash
    grid 16 x 2^19 x 2, 4096 rays x 1024 samples into a 1,048,576-sample
    buffer) on the synthetic sphere at 800x800, trained through
    ``datasets.make`` / ``systems.make`` / ``fit`` for ``--steps`` steps,
    then ``validate`` on one view.  The counts are zeroed just before and
    read just after; at steps 0 and 1 the table gradient is recomputed
-   with the plain scatter on the same cotangent.
+   with the plain scatter on the same cotangent.  Steps 41-45 run under
+   ``torch.profiler`` (K1's and G1's device time and launches per step).
+   Step 1's rows, cotangent and table (the training stream) are kept;
+   after the slice K1 and G1 are checked and timed on them.  For both
+   recorded streams the script prints the runs of equal rows down the
+   ``[N, L, 8]`` layout's columns, which K1 adds up before its atomics.
 
-The last two lines are the kernels' JSON record and
-``{"ok": true, "device": {...}}``.  Without CUDA, or without the
-package beside it, the script exits non-zero and prints no result.
+``--save-streams FILE`` saves both recorded streams for the same-call
+A/B against another tree, ``python -m rise_sdf_tpu_torch.kernel_ab``.
+The last two lines are the kernels' JSON record (K1's and G1's entries
+also carry their times on the recorded streams and per train step) and
+``{"ok": true, "device": {...}}``.  Without CUDA, or without the package
+beside it, the script exits non-zero and prints no result.
 """
 
 import argparse
@@ -59,8 +70,11 @@ REPLACES_S1 = "scripts/scatter_kernel_bench.py:33"
 REPLACES_G1 = ("scripts/pallas_gather_bench.py:79 (S2), "
                "scripts/pallas_gather_bench.py:128 (S3), "
                "scripts/r5_gather_width_bench.py:52 (S4)")
-LEVELS, LOG2_T, F, ROWS_PER_LEVEL = 16, 19, 2, 8 * 1048576
+LEVELS, LOG2_T, F = 16, 19, 2
 S1_ROWS = 12582912
+# the render chunk whose hash encode is recorded (of 157), and the
+# profiled train steps (after PROFILE_FROM, outside the rate's window)
+RENDER_CHUNK, PROFILE_FROM, PROFILE_STEPS = 78, 40, 5
 # the card's memory rate for the bounds (H100 SXM, 3.35 TB/s); scatter
 # adds count against float32 outside the tensor cores (67 TFLOP/s)
 HBM_BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12
@@ -82,26 +96,6 @@ def card_line():
     if res.returncode != 0:
         fail(f"nvidia-smi: {res.stderr.strip()}")
     return res.stdout.strip().splitlines()[0]
-
-
-def median_ms(torch, fn, reps=10, inner=10):
-    """Median over ``reps`` samples of the device time per call of
-    ``fn``, each sample a run of ``inner`` back-to-back calls between two
-    CUDA events, so the host's launch overhead overlaps the device's
-    work (CUDA events)."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(inner):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end) / inner)
-    return float(np.median(times))
 
 
 def scatter_bound_ms(m, f, table_size):
@@ -134,27 +128,33 @@ def check_scatter(torch, got, idx, vals, table_size, what):
     return max_err
 
 
+def check_time_scatter(torch, scatter, idx, vals, t, what, period=1):
+    """K1 held to the float64 reference, then timed (K1, plain,
+    ``index_add_``)."""
+    got = scatter.scatter_add(idx, vals, t, period)
+    torch.cuda.synchronize()
+    res = {"max_abs_err": check_scatter(torch, got, idx, vals, t, what)}
+    del got
+    res.update(time_scatter(torch, scatter, idx, vals, t, what, period))
+    return res
+
+
 def main_path_inputs(torch, gen):
-    """Level-l rows drawn from [0, min((res_l+1)^3, 2^19)) + l * 2^19, as
-    the encode of 1,048,576 samples x 8 corners gives them."""
-    t = 2 ** LOG2_T
-    idx = []
-    for l in range(LEVELS):
-        res = int(np.floor(16 * 1.447269237440378 ** l))
-        hi = min((res + 1) ** 3, t)
-        idx.append(torch.randint(0, hi, (ROWS_PER_LEVEL,), generator=gen,
-                                 device="cuda", dtype=torch.int32) + l * t)
-    idx = torch.cat(idx)
-    vals = torch.randn((idx.shape[0], F), generator=gen, device="cuda")
-    return idx, vals, LEVELS * t
+    """The main path's level-major uniform rows and their values."""
+    from rise_sdf_tpu_torch.kernel_ab import main_path_rows
+
+    idx, t = main_path_rows(gen)
+    return idx, torch.randn((idx.shape[0], F), generator=gen,
+                            device="cuda"), t
 
 
-def time_scatter(torch, scatter, idx, vals, t, what):
+def time_scatter(torch, scatter, idx, vals, t, what, period=1):
     """Median-of-10 times of K1, its plain version and ``index_add_``."""
-    ms = median_ms(torch, lambda: scatter.scatter_add(idx, vals, t))
-    plain_ms = median_ms(torch,
-                         lambda: scatter.scatter_add_plain(idx, vals, t))
-    lib_ms = median_ms(torch, lambda: torch.zeros(
+    from rise_sdf_tpu_torch.kernel_ab import median_ms
+
+    ms = median_ms(lambda: scatter.scatter_add(idx, vals, t, period))
+    plain_ms = median_ms(lambda: scatter.scatter_add_plain(idx, vals, t))
+    lib_ms = median_ms(lambda: torch.zeros(
         (t, vals.shape[1]), device="cuda").index_add_(0, idx, vals))
     bound = scatter_bound_ms(idx.shape[0], vals.shape[1], t)
     log(f"  {what}: K1 {ms:.3f} ms, plain {plain_ms:.3f} ms, index_add_ "
@@ -177,20 +177,14 @@ def kernel_phase(torch, scatter):
     idx = torch.randint(0, t, (S1_ROWS,), generator=gen, device="cuda",
                         dtype=torch.int32)
     vals = torch.randn((S1_ROWS, F), generator=gen, device="cuda")
-    got = scatter.scatter_add(idx, vals, t)
-    torch.cuda.synchronize()
-    s1 = {"max_abs_err": check_scatter(
-        torch, got, idx, vals, t, f"S1 shape: {S1_ROWS} rows into {t} x {F}")}
-    s1.update(time_scatter(torch, scatter, idx, vals, t, "S1 shape"))
-    del idx, vals, got
+    s1 = check_time_scatter(torch, scatter, idx, vals, t,
+                            f"S1 shape: {S1_ROWS} rows into {t} x {F}")
+    del idx, vals
+    # walked with the period of the encode's [N, 16, 8] rows
     idx, vals, t = main_path_inputs(torch, gen)
-    got = scatter.scatter_add(idx, vals, t)
-    torch.cuda.synchronize()
-    k1 = {"max_abs_err": check_scatter(
-        torch, got, idx, vals, t,
-        f"main path: {idx.shape[0]} rows into {t} x {F}")}
-    del got
-    k1.update(time_scatter(torch, scatter, idx, vals, t, "main path"))
+    k1 = check_time_scatter(
+        torch, scatter, idx, vals, t,
+        f"main path: {idx.shape[0]} rows into {t} x {F}, P = 128", 128)
     del idx, vals
     torch.cuda.empty_cache()
     return k1, s1
@@ -199,14 +193,16 @@ def kernel_phase(torch, scatter):
 def check_gather(torch, gather, table, idx, what):
     """G1 bit-equal to ``index_select``; median-of-10 times of G1, of its
     plain version and of ``index_select`` on the int32 rows."""
+    from rise_sdf_tpu_torch.kernel_ab import median_ms
+
     got = gather.gather_rows(table, idx)
     torch.cuda.synchronize()
     want = table.index_select(0, idx.long())
     equal = torch.equal(got.view(torch.int32), want.view(torch.int32))
     del got, want
-    ms = median_ms(torch, lambda: gather.gather_rows(table, idx))
-    plain_ms = median_ms(torch, lambda: gather.gather_rows_plain(table, idx))
-    lib_ms = median_ms(torch, lambda: torch.index_select(table, 0, idx))
+    ms = median_ms(lambda: gather.gather_rows(table, idx))
+    plain_ms = median_ms(lambda: gather.gather_rows_plain(table, idx))
+    lib_ms = median_ms(lambda: torch.index_select(table, 0, idx))
     (n, w), m = table.shape, idx.shape[0]
     rows = int(torch.unique(idx).numel())
     bound = gather_bound_ms(m, w, rows)
@@ -345,13 +341,36 @@ def render_reference_phase(torch, gather):
 
 
 def render_phase(torch, gather, scatter):
-    """The flagship render through its entry point, at 800x800."""
-    from rise_sdf_tpu_torch import bench
+    """The flagship render through its entry point, at 800x800.  The
+    hash encode of the band samples of chunk ``RENDER_CHUNK`` of the
+    timed image (call 0 is the warm-up chunk) is recorded: its table and
+    its ``[N, 16, 8]`` rows (the eval encode gathers every level and
+    masks the closed ones after)."""
+    from rise_sdf_tpu_torch import bench, presets
+    from rise_sdf_tpu_torch.ops import hashgrid
 
+    mcfg = presets.split_mixed_occ_full()["model"]
+    band_slots = int(mcfg["ray_chunk"]) \
+        * int(mcfg["eval_banded_samples_per_ray"]) \
+        + int(mcfg["eval_band_reserve"])
+    lookup = hashgrid.table_grad_lookup
+    seen = {"calls": 0}
+
+    def recording_lookup(table, rows):
+        if rows.shape[0] == band_slots:
+            if seen["calls"] == 1 + RENDER_CHUNK:
+                seen.update(table=table.detach(), rows=rows.clone())
+            seen["calls"] += 1
+        return lookup(table, rows)
+
+    hashgrid.table_grad_lookup = recording_lookup
     gather.gather_rows.launches = 0
     scatter.scatter_add.launches = 0
-    res = bench.run("full", "cuda", profile_chunks=8,
-                    log=lambda msg: log(f"  {msg}"))
+    try:
+        res = bench.run("full", "cuda", profile_chunks=8,
+                        log=lambda msg: log(f"  {msg}"))
+    finally:
+        hashgrid.table_grad_lookup = lookup
     g1, k1 = gather.gather_rows.launches, scatter.scatter_add.launches
     img = res.pop("image")
     res.pop("included")
@@ -375,7 +394,17 @@ def render_phase(torch, gather, scatter):
         fail("G1 never launched during the render")
     if k1 != 0:
         fail(f"K1 launched {k1} times during the render")
-    return g1
+    if "rows" not in seen:
+        fail(f"no band-sample encode at chunk {RENDER_CHUNK} "
+             f"({seen['calls']} recorded)")
+    rows = seen["rows"]
+    what = (f"render stream (chunk {RENDER_CHUNK}'s band-sample encode, "
+            f"rows {list(rows.shape)})")
+    log_runs(torch, rows, what)
+    stream = check_gather(torch, gather, seen["table"], rows.reshape(-1),
+                          what)
+    return g1, stream, {"render_rows": rows.cpu(),
+                        "render_table": seen["table"].cpu()}
 
 
 def slice_phase(torch, scatter, steps, cfg, device="cuda"):
@@ -408,7 +437,8 @@ def slice_phase(torch, scatter, steps, cfg, device="cuda"):
         return vals
 
     table = system.model.geometry.encoding.encoding.table
-    metrics, stamps = [], []
+    metrics, stamps, stream, prof = [], [], {}, {}
+    profile = steps > PROFILE_FROM + PROFILE_STEPS
 
     def on_log(step, m):
         stamps.append(time.perf_counter())
@@ -426,6 +456,21 @@ def slice_phase(torch, scatter, steps, cfg, device="cuda"):
             log(f"  step {step}: max |cotangent| = "
                 f"{float(vals.abs().max()):.3e}, max |K1 - float32 plain| = "
                 f"{float((plain - got).abs().max()):.3e}")
+            if step == 1:  # the training stream, timed after the slice
+                # (held on the host, so the peak memory stays the step's)
+                stream.update(rows=rows.cpu(), vals=vals.cpu(),
+                              table=table.detach().reshape(-1, F).cpu())
+        if profile and step == PROFILE_FROM:
+            torch.cuda.synchronize()
+            prof["p"] = torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA])
+            prof["p"].__enter__()
+            prof["t"] = time.perf_counter()
+        if profile and step == PROFILE_FROM + PROFILE_STEPS:
+            torch.cuda.synchronize()
+            prof["wall_ms"] = (time.perf_counter() - prof["t"]) * 1e3
+            prof["p"].__exit__(None, None, None)
         if step % 20 == 0 or step == steps - 1:
             log(f"  step {step}: loss {m['loss']:.5f} mse {m['rgb_mse']:.5f} "
                 f"inv_s {m['inv_s']:.2f} rays {int(m['num_rays'])} "
@@ -479,12 +524,77 @@ def slice_phase(torch, scatter, steps, cfg, device="cuda"):
     if not (np.isfinite(res["psnr"]) and res["psnr"] > 5.0):
         fail(f"validation PSNR {res['psnr']}")
     shutil.rmtree(save_dir, ignore_errors=True)  # the 64 MiB checkpoint
-    return launches
+    per_step = profile_window(torch, prof) if profile else {}
+    del system, state
+    torch.cuda.empty_cache()
+    k1, g1 = train_stream_phase(torch, scatter, stream)
+    return launches, k1, g1, per_step, {
+        f"train_{k}": v for k, v in stream.items()}
+
+
+def profile_window(torch, prof):
+    """K1's and G1's device time and launches per step over the profiled
+    train steps (``torch.profiler``)."""
+    from rise_sdf_tpu_torch.bench import _kernel_times
+
+    times = _kernel_times(prof["p"])
+    n = PROFILE_STEPS
+    total = sum(t for t, _ in times.values()) / n
+    out = {"steps": n, "wall_ms": prof["wall_ms"] / n, "device_ms": total}
+    for key, name in (("k1", "scatter_add"), ("g1", "gather_rows")):
+        hits = [v for k, v in times.items() if name in k]
+        out[f"{key}_ms"] = sum(t for t, _ in hits) / n
+        out[f"{key}_launches"] = sum(c for _, c in hits) / n
+    log(f"  profiled steps {PROFILE_FROM + 1}-{PROFILE_FROM + n} "
+        f"(torch.profiler), per step: wall {out['wall_ms']:.2f} ms, device "
+        f"{total:.2f} ms; K1 {out['k1_ms']:.3f} ms in "
+        f"{out['k1_launches']:g} launches; G1 {out['g1_ms']:.3f} ms in "
+        f"{out['g1_launches']:g} launches")
+    top = sorted(times.items(), key=lambda kv: -kv[1][0])[:8]
+    for k, (t, c) in top:
+        log(f"    {t / n:8.3f} ms/step  {c / n:5g}x  {k[:90]}")
+    return out
+
+
+def log_runs(torch, rows, what, walk=33):
+    """The atomics K1 issues on ``[N, L, 8]`` rows when it adds up runs
+    of equal rows down each column in walks of ``walk`` samples, per
+    level, and the share of x-neighbour corner pairs (c, c + 4) that
+    fall in one 32-byte sector of the table."""
+    n, lv = rows.shape[0], rows.shape[1]
+    r = rows.reshape(n, -1)
+    head = torch.ones_like(r, dtype=torch.bool)
+    head[1:] = r[1:] != r[:-1]
+    head[::walk] = True
+    per_level = head.view(n, lv, 8).sum((0, 2)).tolist()
+    pair = (rows[..., :4] // 4 == rows[..., 4:] // 4).float().mean()
+    log(f"  {what}: {int(head.sum())} runs of {r.numel()} entries down "
+        f"the columns in walks of {walk} (per level: "
+        f"{[round(x / (n * 8), 3) for x in per_level]} of the entries); "
+        f"x-pairs in one sector {float(pair):.3f}")
+
+
+def train_stream_phase(torch, scatter, stream):
+    """K1 and G1 on the training stream recorded at step 1: the encode's
+    ``[N, 16, 8]`` rows, their cotangent and the live table."""
+    from rise_sdf_tpu_torch.ops import gather
+
+    rows, vals, table = (stream[k].cuda() for k in ("rows", "vals", "table"))
+    idx = rows.reshape(-1)
+    what = f"train stream (step 1, rows {list(rows.shape)})"
+    log_runs(torch, rows, what)
+    k1 = check_time_scatter(torch, scatter, idx, vals, table.shape[0], what,
+                            rows.shape[-2] * rows.shape[-1])
+    g1 = check_gather(torch, gather, table, idx, what)
+    return k1, g1
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=120)
+    ap.add_argument("--save-streams", metavar="FILE",
+                    help="save the recorded streams (torch.save) for "
+                         "python -m rise_sdf_tpu_torch.kernel_ab")
     args = ap.parse_args()
 
     import torch
@@ -516,23 +626,34 @@ def main():
     render_reference_phase(torch, gather)
     log("render slice: rise_sdf_tpu_torch.bench, split_mixed_occ_full, "
         "800x800:")
-    g1["launches"] = render_phase(torch, gather, scatter)
+    g1["launches"], g1["render_stream"], streams = render_phase(
+        torch, gather, scatter)
     from rise_sdf_tpu_torch.presets import neus_sphere_full
 
     log(f"training slice: NeuS neus_sphere_full, {args.steps} steps + 1 "
         f"view:")
-    k1["launches"] = slice_phase(torch, scatter, args.steps,
-                                 neus_sphere_full())
+    (k1["launches"], k1["train_stream"], g1["train_stream"], per_step,
+     train) = slice_phase(torch, scatter, args.steps, neus_sphere_full())
+    if args.save_streams:
+        torch.save({**streams, **train}, args.save_streams)
+    del streams, train
     s1["launches"] = k1["launches"]
+    for key, rec in (("k1", k1), ("g1", g1)):
+        if per_step:
+            rec["per_step"] = {"device_ms": per_step[f"{key}_ms"],
+                               "launches": per_step[f"{key}_launches"]}
 
     log(card)
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
+    extra = ("train_stream", "render_stream", "per_step")
     log(json.dumps({"kernels": [
         {"name": "scatter_add (K1)", "route": "cuda", "source": SRC_K1,
-         "replaces": REPLACES_K1, **{k: k1[k] for k in keys}},
+         "replaces": REPLACES_K1, **{k: k1[k] for k in keys},
+         **{k: k1[k] for k in extra if k in k1}},
         {"name": "gather_rows (G1)", "route": "cuda", "source": SRC_G1,
-         "replaces": REPLACES_G1, **{k: g1[k] for k in keys}},
+         "replaces": REPLACES_G1, **{k: g1[k] for k in keys},
+         **{k: g1[k] for k in extra if k in g1}},
         {"name": "scatter_add at S1's shape (K1)", "route": "cuda",
          "source": SRC_K1, "replaces": REPLACES_S1,
          **{k: s1[k] for k in keys}},

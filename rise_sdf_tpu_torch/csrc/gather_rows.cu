@@ -17,10 +17,20 @@
 // gathers 8-byte rows (float32 W = 2), the baked-SDF sample 32-byte rows
 // (float32 W = 8).  The design keeps many independent loads in flight and
 // the accesses as wide as the row allows.  Two row sizes are taken:
-//   * 8 bytes: each thread takes 4 rows, reads their 4 indices with one
-//     16-byte load, issues the 4 row loads back to back and writes the 4
-//     rows as two 16-byte stores, so a warp reads and writes 1 KB of
-//     contiguous output; idx and out must be 16-byte aligned;
+//   * 8 bytes: a block takes a tile of 8 * 256 rows; each lane takes 4
+//     slots of 2 rows, 32 slots apart: four 8-byte index loads, 8
+//     independent row loads, four 16-byte stores, every access of a
+//     warp on contiguous bytes.  The index and the output stream
+//     through L2 at evict-first priority (ld/st .cs), so the table rows
+//     (64 MiB on the main path, 50 MB of L2) are not pushed out by 1.6
+//     GB of streamed index and output as fast.
+//     In the encode's layout ([N, L, 8] rows, corners cx-major) lanes l
+//     and l + 2 hold corners c and c + 4 of one (sample, level), the two
+//     x-neighbours, in the same load instruction: the coalescer merges
+//     them where they share a sector (adjacent rows on dense levels,
+//     about 3/4 of the time on hashed levels, whose x prime is 1).  idx
+//     and out must be 16-byte aligned; the rows past the last whole tile
+//     are done one by one;
 //   * a multiple of 16 bytes: one thread per 16-byte vector, neighbouring
 //     threads on neighbouring output vectors so the stores coalesce; table
 //     and out must be 16-byte aligned.
@@ -53,33 +63,48 @@ __device__ __forceinline__ I next(I i, I stride, I end) {
   return end - i > stride ? i + stride : end;
 }
 
-// 8-byte rows, 4 per thread: one 16-byte index load, 4 independent row
-// loads, two 16-byte stores.  The last m % 4 rows are done one by one.
+// 8-byte rows in tiles of 8 * kThreads, one tile per block (grid-stride
+// past 2^20 blocks).  Warp w of a block owns rows [256 w, 256 w + 256)
+// of the tile as 128 slots of 2 rows; lane l takes slots l, l + 32,
+// l + 64 and l + 96: four 8-byte index loads, 8 row loads, four 16-byte
+// stores, each a warp-wide access of 256 or 512 contiguous bytes (whole
+// sectors, so the evict-first stores never leave half-written sectors in
+// L2).  The rows past the last whole tile are done one by one by block 0.
 template <typename I>
-__global__ void gather_rows8_x4_kernel(const int* __restrict__ idx,
-                                       const uint2* __restrict__ table,
-                                       uint2* __restrict__ out, I m,
-                                       int n_rows) {
-  const I quads = m / 4;
-  const I stride = (I)gridDim.x * blockDim.x;
-  for (I t = (I)blockIdx.x * blockDim.x + threadIdx.x; t < quads;
-       t = next(t, stride, quads)) {
-    const int4 r = __ldg(reinterpret_cast<const int4*>(idx) + t);
-    assert(r.x >= 0 && r.x < n_rows && r.y >= 0 && r.y < n_rows);
-    assert(r.z >= 0 && r.z < n_rows && r.w >= 0 && r.w < n_rows);
-    const uint2 a = __ldg(table + r.x);
-    const uint2 b = __ldg(table + r.y);
-    const uint2 c = __ldg(table + r.z);
-    const uint2 d = __ldg(table + r.w);
-    uint4* o = reinterpret_cast<uint4*>(out) + 2 * t;
-    o[0] = make_uint4(a.x, a.y, b.x, b.y);
-    o[1] = make_uint4(c.x, c.y, d.x, d.y);
+__global__ void __launch_bounds__(kThreads)
+    gather_rows8_kernel(const int* __restrict__ idx,
+                        const uint2* __restrict__ table,
+                        uint2* __restrict__ out, I m, int n_rows) {
+  const int2* idx2 = reinterpret_cast<const int2*>(idx);
+  uint4* out4 = reinterpret_cast<uint4*>(out);
+  const I tiles = m / (8 * kThreads);
+  const unsigned lane_slot = threadIdx.x / 32 * 128 + threadIdx.x % 32;
+  for (I tile = blockIdx.x; tile < tiles;
+       tile = next(tile, (I)gridDim.x, tiles)) {
+    const I slot = tile * (4 * kThreads) + lane_slot;
+    int2 a[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) a[k] = __ldcs(idx2 + slot + 32 * k);
+    uint2 r[8];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      assert(a[k].x >= 0 && a[k].x < n_rows && a[k].y >= 0 &&
+             a[k].y < n_rows);
+      r[2 * k] = __ldg(table + a[k].x);
+      r[2 * k + 1] = __ldg(table + a[k].y);
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      __stcs(out4 + slot + 32 * k, make_uint4(r[2 * k].x, r[2 * k].y,
+                                              r[2 * k + 1].x, r[2 * k + 1].y));
   }
-  if (blockIdx.x == 0 && threadIdx.x < m - quads * 4) {
-    const I i = quads * 4 + threadIdx.x;
-    const int row = __ldg(idx + i);
-    assert(row >= 0 && row < n_rows);
-    out[i] = __ldg(table + row);
+  if (blockIdx.x == 0) {
+    for (I i = tiles * (8 * kThreads) + threadIdx.x; i < m;
+         i = next(i, (I)kThreads, m)) {
+      const int row = __ldcs(idx + i);
+      assert(row >= 0 && row < n_rows);
+      __stcs(out + i, __ldg(table + row));
+    }
   }
 }
 
@@ -124,13 +149,13 @@ extern "C" int rise_gather_rows(const void* idx, const void* table,
   const unsigned long long ix = (unsigned long long)idx;
   if (row_bytes == 8) {
     if (tab % 8 != 0 || (ix | o) % 16 != 0) return (int)cudaErrorInvalidValue;
-    const unsigned blocks = blocks_for(m / 4);
+    const unsigned blocks = blocks_for(m / 8);  // one tile per block
     if (m <= kU32) {
-      gather_rows8_x4_kernel<unsigned><<<blocks, kThreads, 0, s>>>(
+      gather_rows8_kernel<unsigned><<<blocks, kThreads, 0, s>>>(
           (const int*)idx, (const uint2*)table, (uint2*)out, (unsigned)m,
           rows);
     } else {
-      gather_rows8_x4_kernel<long long><<<blocks, kThreads, 0, s>>>(
+      gather_rows8_kernel<long long><<<blocks, kThreads, 0, s>>>(
           (const int*)idx, (const uint2*)table, (uint2*)out, m, rows);
     }
   } else if (row_bytes % 16 == 0) {

@@ -5,23 +5,54 @@
 // computes the same answer, out[idx[i], c] += vals[i, c] into a zeroed
 // [table_size, F] float32 table, but not the TPU's block structure: the
 // TPU kernel keeps the whole table resident in VMEM and walks the rows in
-// order on one core; here blocks run in parallel on all SMs and every
-// contribution is one float atomicAdd (a RED instruction, since the
-// result is unused) into device memory / L2.
+// order on one core; here blocks run in parallel on all SMs and the sums
+// land in device memory / L2 through float2 vector atomics (RED).
 //
-// What bounds it: atomic throughput, not bytes.  The main path sends
-// 16 levels x 8 corners x 1,048,576 samples = 134M rows (268M float
-// contributions, ~1.6 GB of index and value reads) into a 64 MiB table
-// per training step.  For F = 2 each row is one float2 vector atomic
-// (sm_90), so 134M atomics.  The dense levels 0-4 are heavily
-// contended: level 0 has 17^3 = 4,913 entries, so about 1,700
-// contributions land on each entry.  Warp aggregation of equal indices or
-// a sort + segmented reduce are the follow-ups; this first kernel is the
-// simple one that is right.
+// What bounds it: atomics on contended rows, then bytes.  The main path
+// sends 16 levels x 8 corners x 1,048,576 samples = 134M rows (~1.6 GB of
+// index and value reads) into a 64 MiB table per training step.  Samples
+// are compacted ray-major, so consecutive samples are neighbouring points
+// on one ray, and on the coarse levels (a level-0 cell holds ~20-37 of
+// them) they name the same row; the dead slots of the buffer all name one
+// row per level and corner.  Atomics on one address serialise in L2.
+//
+// Design (F = 2, idx and vals 16-byte aligned): the caller's layout is
+// entry i = n * P + j (the encode's [N, L_open, 8] rows, P = 8 * L_open),
+// so a fixed column j across consecutive n is one (level, corner) along a
+// ray.  A block stages a contiguous tile of K * Q rows x P entries of idx
+// and of the float2 vals in shared memory, with one 1-D bulk copy (TMA)
+// per array completing on an mbarrier, double-buffered so that the next
+// tile arrives while this one is reduced; each warp releases a buffer on
+// a second mbarrier, and only the thread that refills it waits there (a
+// block-wide __syncthreads per tile cost 6 % at S1's shape).  Each
+// thread walks one column j over K = 33 consecutive rows of the tile,
+// adds the values of each run of equal rows in registers and issues one
+// float2 RED per run.
+// Equal rows that are not adjacent issue their own RED, which is still
+// right.  Runs are cut at the walk's edge.
+//
+// Shared-memory banks: a bulk copy lands rows back to back, so the tile
+// cannot be padded.  Thread t = q * P + j reads word (K q + s) P + j at
+// step s, which is t + s P modulo 32 because K = 33 = 1 (mod 32): the 32
+// lanes of a warp hit 32 banks (16 distinct 8-byte slots per half-warp
+// for vals), for every P, with no padding.
+//
+// Tile size: Q walks per column, Q * P (items) near 128 and a multiple
+// of 4 so that every tile is a whole number of 16-byte vectors; a P whose
+// items would pass 256 (odd P above 64), a P above 128, and a P that
+// does not divide M are walked as P = 1 (consecutive entries).  The last
+// tile may be short; the last M % 4 entries are added one by one.
+// One wave of blocks (two per SM) takes the tiles round-robin, so at any
+// moment the card works on one contiguous window of the entries: on a
+// level-major stream its atomics stay among one level's rows, which L2
+// holds (one contiguous share per block spread them over all 64 MiB and
+// took twice as long on the main-path shape).
 //
 // All levels go in one launch: the caller offsets level l's rows by
 // l * T, and L * T (16 x 2^19 = 8.4M) fits int32.  Sums are taken in
 // atomic order, which changes from run to run (not bit-reproducible).
+// F != 2 or misaligned vals take a plain grid-stride loop with one scalar
+// atomic per value.
 //
 // Plain C interface, loaded with ctypes: pointers and the stream come in
 // as void*, the launch returns cudaGetLastError().
@@ -29,6 +60,7 @@
 #include <cuda_runtime.h>
 
 #include <cassert>
+#include <cstdint>
 
 namespace {
 
@@ -51,19 +83,177 @@ __global__ void scatter_add_kernel(const int* __restrict__ idx,
   }
 }
 
-// F = 2 (the hash grid's width): one 8-byte load and one 2-wide vector
-// atomic per row (sm_90's float2 atomicAdd), half the atomic operations.
-__global__ void scatter_add_f2_kernel(const int* __restrict__ idx,
-                                      const float2* __restrict__ vals,
-                                      float2* __restrict__ out,
-                                      long long m,
-                                      long long table_size) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       i < m; i += stride) {
-    const long long row = __ldg(idx + i);
+constexpr int kThreads = 128;
+constexpr int kWalk = 33;         // rows per walk: 1 (mod 32)
+constexpr int kMaxPeriod = 128;
+constexpr int kItems = 128;       // walks per tile, about one per thread
+constexpr int kMaxItems = 256;
+constexpr int kBarBytes = 32;     // four mbarriers ahead of the tiles
+
+__device__ __forceinline__ uint32_t smem(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// a barrier whose phase completes after `n` arrivals (and the bytes
+// announced with expect_tx, for the tile barriers)
+__device__ __forceinline__ void bar_init(uint64_t* bar, unsigned n) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem(bar)),
+               "r"(n)
+               : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem(bar))
+               : "memory");
+}
+
+// thread 0: the tile's bytes will complete the barrier's current phase,
+// then both bulk copies are issued against it
+__device__ __forceinline__ void load_tile(int* s_idx, float2* s_vals,
+                                          const int* idx, const float2* vals,
+                                          long long first, int n,
+                                          uint64_t* bar) {
+  const uint32_t b = smem(bar);
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::
+                   "r"(b), "r"(n * 12)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem(s_idx)),
+      "l"(idx + first), "r"(n * 4), "r"(b)
+      : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem(s_vals)),
+      "l"(vals + first), "r"(n * 8), "r"(b)
+      : "memory");
+}
+
+__device__ __forceinline__ unsigned long long now_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// wait for phase `parity` of the barrier; a tile that has not landed
+// after a second traps instead of hanging the card
+__device__ __forceinline__ void bar_wait(uint64_t* bar, unsigned parity) {
+  const uint32_t b = smem(bar);
+  unsigned long long start = 0;
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done)
+        : "r"(b), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (start == 0) {
+      start = now_ns();
+    } else if (now_ns() - start > 1000000000ULL) {
+      __trap();
+    }
+  }
+}
+
+__device__ __forceinline__ void red(float2* out, int row, float2 v) {
+  atomicAdd(out + row, v);  // result unused: a RED
+}
+
+// F = 2 over tiles of `tile` = kWalk * q_walks * period entries; the
+// entries from `tiles_end` on (fewer than 4) are added one by one.
+__global__ void __launch_bounds__(kThreads)
+    scatter_add_f2_tiled_kernel(const int* __restrict__ idx,
+                                const float2* __restrict__ vals,
+                                float2* __restrict__ out, long long m,
+                                long long tiles_end, int period, int items,
+                                int tile, int table_size) {
+  extern __shared__ __align__(16) unsigned char shared[];
+  uint64_t* bars = reinterpret_cast<uint64_t*>(shared);
+  // buffer b: tile idx (4 bytes each), then tile vals (8 bytes each)
+  auto s_idx = [&](int b) {
+    return reinterpret_cast<int*>(shared + kBarBytes + b * tile * 12);
+  };
+  auto s_vals = [&](int b) {
+    return reinterpret_cast<float2*>(shared + kBarBytes + b * tile * 12 +
+                                     tile * 4);
+  };
+  const long long n_tiles = (tiles_end + tile - 1) / tile;
+  if (threadIdx.x == 0) {
+    for (int b = 0; b < 2; ++b) {
+      bar_init(bars + b, 1);                   // buffer b is full
+      bar_init(bars + 2 + b, kThreads / 32);   // every warp is done with it
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    for (int b = 0; b < 2; ++b) {
+      const long long t = blockIdx.x + (long long)b * gridDim.x;
+      if (t < n_tiles) {
+        const long long first = t * tile;
+        const long long n = tiles_end - first < tile ? tiles_end - first : tile;
+        load_tile(s_idx(b), s_vals(b), idx, vals, first, (int)n, bars + b);
+      }
+    }
+  }
+  __syncthreads();
+
+  long long k = 0;
+  for (long long t = blockIdx.x; t < n_tiles; t += gridDim.x, ++k) {
+    const int b = (int)(k & 1);
+    const long long first = t * tile;
+    const int n = (int)(tiles_end - first < tile ? tiles_end - first : tile);
+    bar_wait(bars + b, (unsigned)((k >> 1) & 1));
+    const int* si = s_idx(b);
+    const float2* sv = s_vals(b);
+    for (int it = threadIdx.x; it < items; it += kThreads) {
+      const int q = it / period;
+      const int j = it - q * period;
+      int e = q * kWalk * period + j;
+      if (e >= n) continue;
+      // steps of this walk inside the tile (all kWalk but in a short tile)
+      const int steps = min(kWalk, (n - e + period - 1) / period);
+      int cur = si[e];
+      float2 acc = sv[e];
+      assert(cur >= 0 && cur < table_size);
+#pragma unroll 4
+      for (int s = 1; s < steps; ++s) {
+        e += period;
+        const int row = si[e];
+        const float2 v = sv[e];
+        assert(row >= 0 && row < table_size);
+        if (row == cur) {
+          acc.x += v.x;
+          acc.y += v.y;
+        } else {
+          red(out, cur, acc);
+          cur = row;
+          acc = v;
+        }
+      }
+      red(out, cur, acc);
+    }
+    // this warp is done with buffer b; thread 0 refills it with the tile
+    // two steps ahead once every warp is, and the other warps go on with
+    // the other buffer meanwhile
+    __syncwarp();
+    if (threadIdx.x % 32 == 0) bar_arrive(bars + 2 + b);
+    if (threadIdx.x == 0) {
+      const long long t2 = t + 2LL * gridDim.x;
+      if (t2 < n_tiles) {
+        bar_wait(bars + 2 + b, (unsigned)((k >> 1) & 1));
+        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+        const long long f2 = t2 * tile;
+        const long long n2 = tiles_end - f2 < tile ? tiles_end - f2 : tile;
+        load_tile(s_idx(b), s_vals(b), idx, vals, f2, (int)n2, bars + b);
+      }
+    }
+  }
+  if (blockIdx.x == 0 && threadIdx.x < m - tiles_end) {
+    const long long i = tiles_end + threadIdx.x;
+    const int row = idx[i];
     assert(row >= 0 && row < table_size);
-    atomicAdd(out + row, __ldg(vals + i));
+    red(out, row, vals[i]);
   }
 }
 
@@ -71,22 +261,57 @@ __global__ void scatter_add_f2_kernel(const int* __restrict__ idx,
 
 extern "C" int rise_scatter_add_f32(const void* idx, const void* vals,
                                     void* out, long long m, int f,
-                                    long long table_size, void* stream) {
+                                    long long table_size, long long period,
+                                    void* stream) {
   if (m <= 0 || f <= 0) return (int)cudaSuccess;
-  const int threads = 256;
-  long long blocks = (m + threads - 1) / threads;
-  // the grid-stride loop covers the rest; 64K blocks keep every SM busy
-  if (blocks > 65536) blocks = 65536;
   cudaStream_t s = (cudaStream_t)stream;
-  const bool aligned8 = ((unsigned long long)vals % 8 == 0) &&
-                        ((unsigned long long)out % 8 == 0);
-  if (f == 2 && aligned8) {
-    scatter_add_f2_kernel<<<(unsigned)blocks, threads, 0, s>>>(
-        (const int*)idx, (const float2*)vals, (float2*)out, m, table_size);
-  } else {
+  const bool tiled = f == 2 && table_size <= 0x7fffffffLL &&
+                     ((unsigned long long)idx % 16 == 0) &&
+                     ((unsigned long long)vals % 16 == 0) &&
+                     ((unsigned long long)out % 8 == 0);
+  if (!tiled) {
+    const int threads = 256;
+    long long blocks = (m + threads - 1) / threads;
+    // the grid-stride loop covers the rest; 64K blocks keep every SM busy
+    if (blocks > 65536) blocks = 65536;
     scatter_add_kernel<<<(unsigned)blocks, threads, 0, s>>>(
         (const int*)idx, (const float*)vals, (float*)out, m, f, table_size);
+    return (int)cudaGetLastError();
   }
+  // q walks per column: items = q * P near kItems, a multiple of 4
+  if (period < 1 || period > kMaxPeriod || m % period != 0) period = 1;
+  const long long unit = 4 / (period % 4 == 0 ? 4 : period % 2 == 0 ? 2 : 1);
+  long long q = kItems / period;
+  q = (q + unit - 1) / unit * unit;
+  if (q * period > kMaxItems) {
+    period = 1;
+    q = kItems;
+  }
+  const int items = (int)(q * period);
+  const int tile = kWalk * items;
+  const long long tiles_end = m & ~3LL;
+  const int smem_bytes = kBarBytes + 2 * tile * 12;
+  cudaError_t err = cudaFuncSetAttribute(
+      scatter_add_f2_tiled_kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  int device = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    device)) != cudaSuccess)
+    return (int)err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, scatter_add_f2_tiled_kernel, kThreads, smem_bytes)) !=
+      cudaSuccess)
+    return (int)err;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const long long n_tiles = (tiles_end + tile - 1) / tile;
+  long long blocks = (long long)sms * per_sm;
+  if (blocks > n_tiles) blocks = n_tiles;
+  if (blocks < 1) blocks = 1;  // M < 4: the last-entries path alone
+  scatter_add_f2_tiled_kernel<<<(unsigned)blocks, kThreads, smem_bytes, s>>>(
+      (const int*)idx, (const float2*)vals, (float2*)out, m, tiles_end,
+      (int)period, items, tile, (int)table_size);
   return (int)cudaGetLastError();
 }
 

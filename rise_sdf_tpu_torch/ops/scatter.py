@@ -2,11 +2,15 @@
 
 Counterpart of ``rise_sdf_tpu/ops/scatter_pallas.py``.
 
-* ``scatter_add(idx, vals, table_size)``: zeroed ``[table_size, F]``
-  float32 table with every ``vals`` row added at its ``idx``.  On CUDA
-  tensors it launches the hand-written kernel ``csrc/scatter_add.cu``
-  (replaces the Pallas kernel ``pallas_scatter_add``) or raises; on CPU
-  tensors it runs ``scatter_add_plain``.  ``scatter_add.launches``
+* ``scatter_add(idx, vals, table_size, period=1)``: zeroed
+  ``[table_size, F]`` float32 table with every ``vals`` row added at its
+  ``idx``.  On CUDA tensors it launches the hand-written kernel
+  ``csrc/scatter_add.cu`` (replaces the Pallas kernel
+  ``pallas_scatter_add``) or raises; on CPU tensors it runs
+  ``scatter_add_plain``.  ``period`` is the row stride of the caller's
+  layout (entry ``n * period + j``): the kernel adds up runs of equal
+  rows down each column ``j`` before its atomics.  It changes the order
+  of the float32 sums, not what is summed.  ``scatter_add.launches``
   counts kernel launches.
 * ``scatter_add_plain``: ``index_add_`` (counterpart of
   ``scatter_add_reference``).
@@ -39,7 +43,7 @@ def _lib():
         lib.rise_scatter_add_f32.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
-            ctypes.c_void_p]
+            ctypes.c_longlong, ctypes.c_void_p]
         lib.rise_scatter_add_f32.restype = ctypes.c_int
         lib.rise_cuda_error_string.argtypes = [ctypes.c_int]
         lib.rise_cuda_error_string.restype = ctypes.c_char_p
@@ -54,11 +58,17 @@ def scatter_add_plain(idx: torch.Tensor, vals: torch.Tensor,
                        device=vals.device).index_add_(0, idx.long(), vals)
 
 
-def scatter_add(idx: torch.Tensor, vals: torch.Tensor,
-                table_size: int) -> torch.Tensor:
+def scatter_add(idx: torch.Tensor, vals: torch.Tensor, table_size: int,
+                period: int = 1) -> torch.Tensor:
     """idx [M] int32 in [0, table_size); vals [M, F] float32 ->
-    [table_size, F] float32.  Launches on the current stream and does not
-    synchronise."""
+    [table_size, F] float32.  ``period`` >= 1: entry ``n * period + j``
+    of ``idx`` is row ``n``, column ``j`` of the caller's layout (the
+    kernel walks a ``period`` that does not divide M as 1).  Launches on
+    the current stream and does not synchronise."""
+    if isinstance(period, bool) or not isinstance(period, int):
+        raise TypeError(f"scatter_add takes an int period, got {period!r}")
+    if period < 1:
+        raise ValueError(f"scatter_add takes a period >= 1, got {period}")
     if idx.dtype != torch.int32 or vals.dtype != torch.float32:
         raise TypeError(f"scatter_add takes int32 idx and float32 vals, got "
                         f"{idx.dtype} and {vals.dtype}")
@@ -82,7 +92,7 @@ def scatter_add(idx: torch.Tensor, vals: torch.Tensor,
         stream = torch.cuda.current_stream(vals.device).cuda_stream
         rc = lib.rise_scatter_add_f32(idx.data_ptr(), vals.data_ptr(),
                                       out.data_ptr(), m, f, table_size,
-                                      stream)
+                                      period, stream)
     if rc != 0:
         raise RuntimeError("scatter_add kernel launch failed: "
                            + lib.rise_cuda_error_string(rc).decode())
@@ -109,9 +119,13 @@ class TableGradLookup(torch.autograd.Function):
     def backward(ctx, grad):
         (idx,) = ctx.saved_tensors
         f = grad.shape[-1]
+        # the encode's [N, L_open, 8] rows: one sample's levels and corners
+        # per row of the layout, consecutive samples along a ray
+        period = idx.shape[-2] * idx.shape[-1] \
+            if idx.dim() == 3 and idx.shape[-1] == 8 else 1
         d_table = scatter_add(idx.reshape(-1),
                               grad.reshape(-1, f).float().contiguous(),
-                              ctx.table_size)
+                              ctx.table_size, period)
         return d_table.to(grad.dtype), None
 
 

@@ -9,9 +9,11 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
+from rise_sdf_tpu_torch.ops import hashgrid
 from rise_sdf_tpu_torch.ops.gather import gather_rows
 from rise_sdf_tpu_torch.ops.scatter import (
     TableGradLookup,
@@ -60,6 +62,82 @@ def test_scatter_add_kernel_matches_reference(cuda, m, t, f, offset):
                                rtol=1e-5, atol=1e-5)
 
 
+def ray_encode_rows(n_rays, n_samples, seed=0):
+    """[n_rays * n_samples, 16, 8] int32 rows that the port's hash encode
+    builds for samples along a few rays (ray-major, as the march
+    compacts them), and the flattened table's size.  16 levels of 2^12
+    rows from resolution 4 by 1.3: levels 0-5 are dense, where
+    neighbouring samples share rows; the rest are hashed."""
+    enc = hashgrid.HashGridEncoding(3, {
+        "n_levels": 16, "n_features_per_level": 2, "log2_hashmap_size": 12,
+        "base_resolution": 4, "per_level_scale": 1.3})
+    rng = np.random.default_rng(seed)
+    o = rng.uniform(0.3, 0.7, (n_rays, 1, 3))
+    d = rng.standard_normal((n_rays, 1, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    t = np.linspace(-0.25, 0.25, n_samples)[None, :, None]
+    x = np.clip(o + t * d, 0.0, 1.0).reshape(-1, 3).astype(np.float32)
+    seen = {}
+    lookup = hashgrid.table_grad_lookup
+
+    def recording_lookup(table, rows):
+        seen["rows"] = rows
+        return lookup(table, rows)
+
+    hashgrid.table_grad_lookup = recording_lookup
+    try:
+        with torch.no_grad():
+            enc(torch.from_numpy(x))
+    finally:
+        hashgrid.table_grad_lookup = lookup
+    return seen["rows"], enc.n_levels * enc.table_size
+
+
+def dense17_rows(n, seed=0):
+    """[n, 1, 8] rows of a dense 17^3 level (resolution 16) for samples
+    along one ray in steps shorter than a cell: runs of equal rows."""
+    rng = np.random.default_rng(seed)
+    o, d = rng.uniform(0.2, 0.8, 3), rng.standard_normal(3)
+    x = np.clip(o + np.linspace(-0.3, 0.3, n)[:, None] * d / np.linalg.norm(
+        d), 0.0, 1.0 - 1e-6) * 16
+    c = np.floor(x).astype(np.int64)[:, None, :] + np.array(
+        [[i, j, k] for i in (0, 1) for j in (0, 1) for k in (0, 1)])
+    flat = c[..., 0] + 17 * (c[..., 1] + 17 * c[..., 2])
+    return torch.from_numpy(flat.astype(np.int32)[:, None, :]), 17 ** 3
+
+
+@pytest.mark.parametrize("stream,period,cut", [
+    ("all_equal", 1, 0),         # one row: a single run down every column
+    ("all_equal", 128, 0),
+    ("dense17", 8, 0),           # 17^3 dense level, P = 8
+    ("dense17", 8, 5),           # P does not divide M: walked as P = 1
+    ("dense17", 1, 3),           # P = 1 with M % 4 = 1: the last entries
+    ("rays", 128, 0),            # [N, 16, 8] encode rows, short last tile
+    ("rays", 1, 0),
+    ("rays", 128, 77),           # P does not divide M
+], ids=["equal_p1", "equal_p128", "dense17_p8", "dense17_p8_ragged",
+        "dense17_p1_tail", "rays_p128", "rays_p1", "rays_p128_ragged"])
+def test_scatter_add_kernel_on_contended_streams(cuda, stream, period, cut):
+    """K1's run combining on streams whose neighbouring entries name the
+    same row, held to the float64 reference per entry."""
+    if stream == "all_equal":
+        idx, t = torch.full((100003,), 7, dtype=torch.int32), 64
+    elif stream == "dense17":
+        rows, t = dense17_rows(1001)
+        idx = rows.reshape(-1)
+    else:
+        rows, t = ray_encode_rows(8, 125)  # 1000 samples: 1000 % 33 = 10
+        idx = rows.reshape(-1)
+    idx = idx[:idx.numel() - cut].contiguous().to(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(period + cut)
+    vals = torch.randn((idx.numel(), 2), generator=gen, device=cuda)
+    before = scatter_add.launches
+    got = scatter_add(idx, vals, t, period)
+    torch.cuda.synchronize()
+    assert scatter_add.launches == before + 1
+    _assert_matches_f64(got, idx, vals, t)
+
+
 def test_table_grad_lookup_backward_launches_kernel(cuda):
     gen = torch.Generator(device=cuda).manual_seed(0)
     table = torch.randn((2048, 2), generator=gen,
@@ -82,13 +160,14 @@ def test_scatter_add_rejects_mixed_devices(cuda):
 
 
 @pytest.mark.parametrize("n,w,m,dtype", [
-    (4096, 2, 4 * 8192 + 3, torch.float32),  # 4 8-byte rows/thread + tail
+    (4096, 2, 4 * 8192 + 3, torch.float32),  # 8 8-byte rows/thread + tail
     (4096, 2, 2, torch.float32),             # the tail alone
+    (4096, 2, 2048 * 37 + 2047, torch.float32),  # tiles + a long tail
     (3000, 8, 20000, torch.float32),         # 2 x 16-byte vectors per row
     (3000, 32, 7000, torch.float32),         # 8 x 16-byte vectors per row
     (3000, 2, 5000, torch.float64),          # 1 x 16-byte vector per row
     (3000, 8, 5000, torch.float64),          # 4 x 16-byte vectors per row
-], ids=["w2", "w2_tail", "w8", "w32", "f64_w2", "f64_w8"])
+], ids=["w2", "w2_tail", "w2_long_tail", "w8", "w32", "f64_w2", "f64_w8"])
 def test_gather_rows_kernel_is_bit_equal(cuda, n, w, m, dtype):
     """A gather copies bits: G1 equals ``index_select`` exactly."""
     gen = torch.Generator(device=cuda).manual_seed(n + w + m)
@@ -99,6 +178,30 @@ def test_gather_rows_kernel_is_bit_equal(cuda, n, w, m, dtype):
     got = gather_rows(table, idx)
     torch.cuda.synchronize()
     assert gather_rows.launches == before + 1
+    want = table.index_select(0, idx.long())
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("tail", range(1, 8))
+def test_gather_rows_kernel_every_8_row_tail(cuda, tail):
+    """Every remainder of M modulo 8 rows on the 8-byte path."""
+    gen = torch.Generator(device=cuda).manual_seed(tail)
+    table = torch.randn((5000, 2), generator=gen, device=cuda)
+    idx = torch.randint(0, 5000, (2048 * 5 + 8 * 3 + tail,), generator=gen,
+                        device=cuda, dtype=torch.int32)
+    got = gather_rows(table, idx)
+    want = table.index_select(0, idx.long())
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_gather_rows_kernel_on_encode_rows(cuda):
+    """G1 on ray-ordered [N, 16, 8] rows of the port's encode, the layout
+    whose neighbouring threads read x-neighbour corners."""
+    rows, t = ray_encode_rows(8, 125, seed=1)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    table = torch.randn((t, 2), generator=gen, device=cuda)
+    idx = rows.reshape(-1).to(cuda)
+    got = gather_rows(table, idx)
     want = table.index_select(0, idx.long())
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
@@ -131,19 +234,17 @@ def test_gather_rows_rejects_rows_g1_does_not_take(cuda, bad):
     assert gather_rows.launches == before
 
 
-def test_gather_rows_out_of_range_index_raises(cuda):
-    """G1's device-side bound check: an index past the table's last row
-    fails the launch's stream.  The failed context cannot be used again,
-    so the gather runs in a process of its own."""
+def _raises_in_subprocess(call):
+    """Runs ``call`` on an index past a 64-row table's last row in a
+    process of its own (a failed context cannot be used again) and
+    checks that the launch's stream fails."""
     code = (
         "import torch\n"
-        "from rise_sdf_tpu_torch.ops.gather import gather_rows\n"
-        "table = torch.zeros((64, 2), device='cuda')\n"
-        "idx = torch.tensor([0, 5, 64, 1], dtype=torch.int32, "
+        "idx = torch.tensor([0, 5, 64, 1] * 4, dtype=torch.int32, "
         "device='cuda')\n"
         "try:\n"
-        "    gather_rows(table, idx)\n"
-        "    torch.cuda.synchronize()\n"
+        + "".join("    " + line + "\n" for line in call.splitlines())
+        + "    torch.cuda.synchronize()\n"
         "except RuntimeError as e:\n"
         "    print('raised:', str(e).splitlines()[0])\n")
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -151,3 +252,18 @@ def test_gather_rows_out_of_range_index_raises(cuda):
                          env=dict(os.environ, PYTHONPATH=repo),
                          capture_output=True, text=True, timeout=600)
     assert "raised:" in res.stdout, (res.stdout, res.stderr)
+
+
+def test_gather_rows_out_of_range_index_raises(cuda):
+    """G1's device-side bound check."""
+    _raises_in_subprocess(
+        "from rise_sdf_tpu_torch.ops.gather import gather_rows\n"
+        "gather_rows(torch.zeros((64, 2), device='cuda'), idx)")
+
+
+def test_scatter_add_out_of_range_index_raises(cuda):
+    """K1's device-side bound check, on its tiled path (P = 8)."""
+    _raises_in_subprocess(
+        "from rise_sdf_tpu_torch.ops.scatter import scatter_add\n"
+        "scatter_add(idx, torch.zeros((idx.numel(), 2), device='cuda'), "
+        "64, 8)")

@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from rise_sdf_tpu_torch.ops import gather, sdf_bake
+from test_torch_cuda import dense17_rows, ray_encode_rows
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -61,6 +62,21 @@ def test_gather_rows_equals_pallas_interpret(kernel, m):
     want = np.asarray(fn(jnp.asarray(table.reshape(-1, 128)),
                          jnp.asarray(idx), True))
     got = gather.gather_rows(torch.from_numpy(table), torch.from_numpy(idx))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("stream", ["rays", "dense17"])
+def test_gather_rows_on_encode_rows_equals_jax_take(stream):
+    """The layouts G1 serves on the main path: ray-ordered [N, 16, 8]
+    rows of the port's hash encode and the [N, 1, 8] rows of a dense
+    17^3 level, cut so that M % 8 != 0, against XLA's ``table[idx]``."""
+    rows, t = ray_encode_rows(8, 125) if stream == "rays" \
+        else dense17_rows(1001)
+    idx = rows.reshape(-1)[:-3].contiguous()
+    table = np.random.default_rng(6).standard_normal((t, 2)).astype(
+        np.float32)
+    want = np.asarray(jnp.asarray(table)[jnp.asarray(idx.numpy())])
+    got = gather.gather_rows(torch.from_numpy(table), idx)
     np.testing.assert_array_equal(got.numpy(), want)
 
 

@@ -16,11 +16,13 @@ from rise_sdf_tpu.ops.scatter_pallas import (
     scatter_add_reference,
     table_grad_lookup,
 )
+from rise_sdf_tpu_torch.ops import scatter as port_scatter
 from rise_sdf_tpu_torch.ops.scatter import (
     TableGradLookup,
     scatter_add,
     scatter_add_plain,
 )
+from test_torch_cuda import dense17_rows, ray_encode_rows
 
 
 def _inputs(m, t, seed):
@@ -68,6 +70,78 @@ def test_scatter_add_rejects_bad_inputs(case):
         vals = torch.zeros(2, 8).t()
     with pytest.raises((TypeError, ValueError)):
         scatter_add(idx, vals, 16)
+
+
+def _within_f64(got, idx, vals, t):
+    """Per entry |got - ref64| <= 1e-5 * S + 1e-7, S the sum of |v|
+    landing on the entry: float32 sums in another order than float64's
+    (up to a few hundred contributions per entry here)."""
+    ref = np.zeros((t, 2))
+    np.add.at(ref, idx, vals.astype(np.float64))
+    s = np.zeros((t, 2))
+    np.add.at(s, idx, np.abs(vals.astype(np.float64)))
+    err = np.abs(np.asarray(got, np.float64) - ref)
+    assert (err <= 1e-5 * s + 1e-7).all(), float(err.max())
+
+
+@pytest.mark.parametrize("stream", ["dense17", "rays"])
+@pytest.mark.parametrize("period", [1, 8, 128])
+def test_scatter_add_period_on_contended_streams_matches_jax(stream, period):
+    """Streams whose neighbouring entries name the same row (a 17^3 dense
+    level; ray-ordered [N, 16, 8] rows of the port's encode), cut so that
+    M is no multiple of P or of 32: the port's scatter with ``period``
+    against JAX's ``scatter_add_reference`` and ``pallas_scatter_add``
+    (interpret mode), each within the float32 bound of a float64 sum."""
+    if stream == "dense17":
+        rows, t = dense17_rows(1001)
+    else:
+        rows, t = ray_encode_rows(4, 75)
+    idx = rows.reshape(-1).numpy()[:-5]
+    assert idx.size % 32 and (idx.size % period or period == 1)
+    vals = np.random.default_rng(period).standard_normal(
+        (idx.size, 2)).astype(np.float32)
+    got = scatter_add(torch.from_numpy(idx), torch.from_numpy(vals), t,
+                      period)
+    np.testing.assert_array_equal(
+        got.numpy(), scatter_add_plain(torch.from_numpy(idx),
+                                       torch.from_numpy(vals), t).numpy())
+    for want in (scatter_add_reference(jnp.asarray(idx), jnp.asarray(vals), t),
+                 pallas_scatter_add(jnp.asarray(idx), jnp.asarray(vals), t,
+                                    True)):
+        _within_f64(np.asarray(want), idx, vals, t)
+    _within_f64(got.numpy(), idx, vals, t)
+
+
+@pytest.mark.parametrize("bad", [0, -8, 8.0, True, None])
+def test_scatter_add_rejects_bad_period(bad):
+    with pytest.raises((TypeError, ValueError)):
+        scatter_add(torch.zeros(8, dtype=torch.int32), torch.zeros(8, 2), 16,
+                    bad)
+
+
+@pytest.mark.parametrize("shape,period", [
+    ((64, 16, 8), 128), ((64, 14, 8), 112), ((64, 1, 8), 8),
+    ((512, 8), 1), ((64, 4, 2), 1)])
+def test_table_grad_lookup_backward_passes_layout_period(monkeypatch, shape,
+                                                         period):
+    """The backward hands K1 the row stride of the encode's [N, L, 8]
+    layout, and 1 for any other shape (checked with a spy)."""
+    calls = []
+
+    def spy(idx, vals, table_size, period=1):
+        calls.append(period)
+        return scatter_add(idx, vals, table_size, period)
+
+    monkeypatch.setattr(port_scatter, "scatter_add", spy)
+    rng = np.random.default_rng(5)
+    table = torch.from_numpy(rng.standard_normal((300, 2)).astype(
+        np.float32)).requires_grad_(True)
+    idx = torch.from_numpy(rng.integers(0, 300, shape).astype(np.int32))
+    TableGradLookup.apply(table, idx).sum().backward()
+    assert calls == [period]
+    want = np.zeros((300, 2), np.float32)
+    np.add.at(want, idx.numpy().reshape(-1), 1.0)
+    np.testing.assert_array_equal(table.grad.numpy(), want)
 
 
 def test_table_grad_lookup_forward_backward_match_jax():
