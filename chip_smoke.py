@@ -39,14 +39,16 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    then ``validate`` on one view.  The counts are zeroed just before and
    read just after; at steps 0 and 1 the table gradient is recomputed
    with the plain scatter on the same cotangent.  Steps 41-45 run under
-   ``torch.profiler`` (K1's and G1's device time and launches per step).
+   ``torch.profiler`` (K1's and G1's device time and launches per step;
+   ``rise_sdf_tpu_torch.measure`` holds the timing code).
    Step 1's rows, cotangent and table (the training stream) are kept;
    after the slice K1 and G1 are checked and timed on them.  For both
    recorded streams the script prints the runs of equal rows down the
    ``[N, L, 8]`` layout's columns, which K1 adds up before its atomics.
 
 ``--save-streams FILE`` saves both recorded streams for the same-call
-A/B against another tree, ``python -m rise_sdf_tpu_torch.kernel_ab``.
+A/B against another tree, ``python -m rise_sdf_tpu_torch.kernel_ab``
+(``_ab/streams.pt``, about 1.7 GB, in the gitignored ``_ab/``).
 The last two lines are the kernels' JSON record (K1's and G1's entries
 also carry their times on the recorded streams and per train step) and
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the package
@@ -70,11 +72,9 @@ REPLACES_S1 = "scripts/scatter_kernel_bench.py:33"
 REPLACES_G1 = ("scripts/pallas_gather_bench.py:79 (S2), "
                "scripts/pallas_gather_bench.py:128 (S3), "
                "scripts/r5_gather_width_bench.py:52 (S4)")
-LEVELS, LOG2_T, F = 16, 19, 2
-S1_ROWS = 12582912
-# the render chunk whose hash encode is recorded (of 157), and the
-# profiled train steps (after PROFILE_FROM, outside the rate's window)
-RENDER_CHUNK, PROFILE_FROM, PROFILE_STEPS = 78, 40, 5
+F = 2
+# the render chunk whose hash encode is recorded (of 157)
+RENDER_CHUNK = 78
 # the card's memory rate for the bounds (H100 SXM, 3.35 TB/s); scatter
 # adds count against float32 outside the tensor cores (67 TFLOP/s)
 HBM_BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12
@@ -139,18 +139,9 @@ def check_time_scatter(torch, scatter, idx, vals, t, what, period=1):
     return res
 
 
-def main_path_inputs(torch, gen):
-    """The main path's level-major uniform rows and their values."""
-    from rise_sdf_tpu_torch.kernel_ab import main_path_rows
-
-    idx, t = main_path_rows(gen)
-    return idx, torch.randn((idx.shape[0], F), generator=gen,
-                            device="cuda"), t
-
-
 def time_scatter(torch, scatter, idx, vals, t, what, period=1):
     """Median-of-10 times of K1, its plain version and ``index_add_``."""
-    from rise_sdf_tpu_torch.kernel_ab import median_ms
+    from rise_sdf_tpu_torch.measure import median_ms
 
     ms = median_ms(lambda: scatter.scatter_add(idx, vals, t, period))
     plain_ms = median_ms(lambda: scatter.scatter_add_plain(idx, vals, t))
@@ -164,6 +155,8 @@ def time_scatter(torch, scatter, idx, vals, t, what, period=1):
 
 
 def kernel_phase(torch, scatter):
+    from rise_sdf_tpu_torch.measure import k1_shapes
+
     gen = torch.Generator(device="cuda").manual_seed(0)
     for m, t in ((3 * 8192 + 100, 4096), (8192, 35937)):
         idx = torch.randint(0, t, (m,), generator=gen, device="cuda",
@@ -172,20 +165,9 @@ def kernel_phase(torch, scatter):
         got = scatter.scatter_add(idx, vals, t)
         torch.cuda.synchronize()
         check_scatter(torch, got, idx, vals, t, f"{m} rows into {t}")
-    # S1's shape: uniform rows into one 2^19 x 2 level
-    t = 2 ** LOG2_T
-    idx = torch.randint(0, t, (S1_ROWS,), generator=gen, device="cuda",
-                        dtype=torch.int32)
-    vals = torch.randn((S1_ROWS, F), generator=gen, device="cuda")
-    s1 = check_time_scatter(torch, scatter, idx, vals, t,
-                            f"S1 shape: {S1_ROWS} rows into {t} x {F}")
-    del idx, vals
-    # walked with the period of the encode's [N, 16, 8] rows
-    idx, vals, t = main_path_inputs(torch, gen)
-    k1 = check_time_scatter(
-        torch, scatter, idx, vals, t,
-        f"main path: {idx.shape[0]} rows into {t} x {F}, P = 128", 128)
-    del idx, vals
+    # S1's shape, then the main path's
+    s1, k1 = (check_time_scatter(torch, scatter, idx, vals, t, what, period)
+              for what, (idx, vals, t, period) in k1_shapes(gen))
     torch.cuda.empty_cache()
     return k1, s1
 
@@ -193,7 +175,7 @@ def kernel_phase(torch, scatter):
 def check_gather(torch, gather, table, idx, what):
     """G1 bit-equal to ``index_select``; median-of-10 times of G1, of its
     plain version and of ``index_select`` on the int32 rows."""
-    from rise_sdf_tpu_torch.kernel_ab import median_ms
+    from rise_sdf_tpu_torch.measure import median_ms
 
     got = gather.gather_rows(table, idx)
     torch.cuda.synchronize()
@@ -216,30 +198,14 @@ def check_gather(torch, gather, table, idx, what):
 
 
 def gather_phase(torch, gather):
+    """G1 at S2/S3's, S4's, one render chunk's and the main path's
+    shapes; returns the main path's record."""
+    from rise_sdf_tpu_torch.measure import g1_shapes
+
     gen = torch.Generator(device="cuda").manual_seed(1)
-    t = 2 ** LOG2_T
-
-    def uniform(n, w, m):
-        table = torch.randn((n, w), generator=gen, device="cuda")
-        idx = torch.randint(0, n, (m,), generator=gen, device="cuda",
-                            dtype=torch.int32)
-        return table, idx
-
-    check_gather(torch, gather, *uniform(t, 2, 8388608), "S2/S3 shape")
-    for w in (2, 8, 32):
-        check_gather(torch, gather, *uniform(t, w, 4194304),
-                     f"S4 shape, w={w}")
-    # one render chunk: the hash encode (49,152 samples x 16 levels x 8
-    # corners into the 16 x 2^19 x 2 table) and the baked-SDF probe
-    # (4096 rays x 64 probes into the 129^3 x 8 corner table)
-    check_gather(torch, gather, *uniform(LEVELS * t, 2, 49152 * 16 * 8),
-                 "render chunk, hash encode")
-    check_gather(torch, gather, *uniform(129 ** 3, 8, 4096 * 64),
-                 "render chunk, baked-SDF probe")
-    idx, _, n = main_path_inputs(torch, gen)
-    table = torch.randn((n, F), generator=gen, device="cuda")
-    res = check_gather(torch, gather, table, idx, "main path")
-    del table, idx
+    for what, (table, idx) in g1_shapes(gen):
+        res = check_gather(torch, gather, table, idx, what)
+        del table, idx
     torch.cuda.empty_cache()
     return res
 
@@ -408,7 +374,7 @@ def render_phase(torch, gather, scatter):
 
 
 def slice_phase(torch, scatter, steps, cfg, device="cuda"):
-    from rise_sdf_tpu_torch import datasets, systems
+    from rise_sdf_tpu_torch import datasets, measure, systems
     from rise_sdf_tpu_torch.ops import hashgrid
     from rise_sdf_tpu_torch.ops.gather import gather_rows
 
@@ -437,12 +403,9 @@ def slice_phase(torch, scatter, steps, cfg, device="cuda"):
         return vals
 
     table = system.model.geometry.encoding.encoding.table
-    metrics, stamps, stream, prof = [], [], {}, {}
-    profile = steps > PROFILE_FROM + PROFILE_STEPS
+    stream = {}
 
     def on_log(step, m):
-        stamps.append(time.perf_counter())
-        metrics.append(m)
         if step <= 1:
             if step == 1:
                 hashgrid.table_grad_lookup = lookup
@@ -460,17 +423,6 @@ def slice_phase(torch, scatter, steps, cfg, device="cuda"):
                 # (held on the host, so the peak memory stays the step's)
                 stream.update(rows=rows.cpu(), vals=vals.cpu(),
                               table=table.detach().reshape(-1, F).cpu())
-        if profile and step == PROFILE_FROM:
-            torch.cuda.synchronize()
-            prof["p"] = torch.profiler.profile(activities=[
-                torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA])
-            prof["p"].__enter__()
-            prof["t"] = time.perf_counter()
-        if profile and step == PROFILE_FROM + PROFILE_STEPS:
-            torch.cuda.synchronize()
-            prof["wall_ms"] = (time.perf_counter() - prof["t"]) * 1e3
-            prof["p"].__exit__(None, None, None)
         if step % 20 == 0 or step == steps - 1:
             log(f"  step {step}: loss {m['loss']:.5f} mse {m['rgb_mse']:.5f} "
                 f"inv_s {m['inv_s']:.2f} rays {int(m['num_rays'])} "
@@ -482,9 +434,8 @@ def slice_phase(torch, scatter, steps, cfg, device="cuda"):
     scatter.scatter_add.launches = 0
     gather_rows.launches = 0
     t_fit = time.perf_counter()
-    state = system.fit(max_steps=steps, seed=seed, state=state, log_every=1,
-                       on_log=on_log)
-    torch.cuda.synchronize()
+    state, metrics, sps, per_step = measure.train(system, steps, seed, state,
+                                                  on_log)
     fit_s = time.perf_counter() - t_fit
     peak = torch.cuda.max_memory_allocated()
     t_val = time.perf_counter()
@@ -496,8 +447,7 @@ def slice_phase(torch, scatter, steps, cfg, device="cuda"):
     hashgrid.table_grad_lookup = lookup
 
     losses = [m["loss"] for m in metrics]
-    window = min(60, steps - 1)
-    sps = window / (stamps[-1] - stamps[-1 - window])
+    window = min(measure.RATE_WINDOW, steps - 1)
     live = [m["num_samples"] for m in metrics]
     log(f"  {steps} steps in {fit_s:.1f} s; {sps:.3f} steps/s over the last "
         f"{window} steps; live samples/step mean {np.mean(live):.0f} "
@@ -524,7 +474,16 @@ def slice_phase(torch, scatter, steps, cfg, device="cuda"):
     if not (np.isfinite(res["psnr"]) and res["psnr"] > 5.0):
         fail(f"validation PSNR {res['psnr']}")
     shutil.rmtree(save_dir, ignore_errors=True)  # the 64 MiB checkpoint
-    per_step = profile_window(torch, prof) if profile else {}
+    if per_step:
+        first = measure.PROFILE_FROM + 1
+        log(f"  profiled steps {first}-{first + per_step['steps'] - 1} "
+            f"(torch.profiler), per step: wall {per_step['wall_ms']:.2f} ms, "
+            f"device {per_step['device_ms']:.2f} ms; K1 "
+            f"{per_step['k1_ms']:.3f} ms in {per_step['k1_launches']:g} "
+            f"launches; G1 {per_step['g1_ms']:.3f} ms in "
+            f"{per_step['g1_launches']:g} launches")
+        for k, t, c in per_step["top"]:
+            log(f"    {t:8.3f} ms/step  {c:5g}x  {k}")
     del system, state
     torch.cuda.empty_cache()
     k1, g1 = train_stream_phase(torch, scatter, stream)
@@ -532,31 +491,7 @@ def slice_phase(torch, scatter, steps, cfg, device="cuda"):
         f"train_{k}": v for k, v in stream.items()}
 
 
-def profile_window(torch, prof):
-    """K1's and G1's device time and launches per step over the profiled
-    train steps (``torch.profiler``)."""
-    from rise_sdf_tpu_torch.bench import _kernel_times
-
-    times = _kernel_times(prof["p"])
-    n = PROFILE_STEPS
-    total = sum(t for t, _ in times.values()) / n
-    out = {"steps": n, "wall_ms": prof["wall_ms"] / n, "device_ms": total}
-    for key, name in (("k1", "scatter_add"), ("g1", "gather_rows")):
-        hits = [v for k, v in times.items() if name in k]
-        out[f"{key}_ms"] = sum(t for t, _ in hits) / n
-        out[f"{key}_launches"] = sum(c for _, c in hits) / n
-    log(f"  profiled steps {PROFILE_FROM + 1}-{PROFILE_FROM + n} "
-        f"(torch.profiler), per step: wall {out['wall_ms']:.2f} ms, device "
-        f"{total:.2f} ms; K1 {out['k1_ms']:.3f} ms in "
-        f"{out['k1_launches']:g} launches; G1 {out['g1_ms']:.3f} ms in "
-        f"{out['g1_launches']:g} launches")
-    top = sorted(times.items(), key=lambda kv: -kv[1][0])[:8]
-    for k, (t, c) in top:
-        log(f"    {t / n:8.3f} ms/step  {c / n:5g}x  {k[:90]}")
-    return out
-
-
-def log_runs(torch, rows, what, walk=33):
+def log_runs(torch, rows, what, walk=32):
     """The atomics K1 issues on ``[N, L, 8]`` rows when it adds up runs
     of equal rows down each column in walks of ``walk`` samples, per
     level, and the share of x-neighbour corner pairs (c, c + 4) that

@@ -16,37 +16,28 @@
 // them) they name the same row; the dead slots of the buffer all name one
 // row per level and corner.  Atomics on one address serialise in L2.
 //
-// Design (F = 2, idx and vals 16-byte aligned): the caller's layout is
+// Design (F = 2, vals and out 8-byte aligned): the caller's layout is
 // entry i = n * P + j (the encode's [N, L_open, 8] rows, P = 8 * L_open),
 // so a fixed column j across consecutive n is one (level, corner) along a
-// ray.  A block stages a contiguous tile of K * Q rows x P entries of idx
-// and of the float2 vals in shared memory, with one 1-D bulk copy (TMA)
-// per array completing on an mbarrier, double-buffered so that the next
-// tile arrives while this one is reduced; each warp releases a buffer on
-// a second mbarrier, and only the thread that refills it waits there (a
-// block-wide __syncthreads per tile cost 6 % at S1's shape).  Each
-// thread walks one column j over K = 33 consecutive rows of the tile,
+// ray.  A walk takes column j over kWalk consecutive rows n; each thread
 // adds the values of each run of equal rows in registers and issues one
-// float2 RED per run.
-// Equal rows that are not adjacent issue their own RED, which is still
-// right.  Runs are cut at the walk's edge.
+// float2 RED per run.  Equal rows that are not adjacent issue their own
+// RED, which is still right; runs are cut at the walk's edge.
 //
-// Shared-memory banks: a bulk copy lands rows back to back, so the tile
-// cannot be padded.  Thread t = q * P + j reads word (K q + s) P + j at
-// step s, which is t + s P modulo 32 because K = 33 = 1 (mod 32): the 32
-// lanes of a warp hit 32 banks (16 distinct 8-byte slots per half-warp
-// for vals), for every P, with no padding.
+// Reads: consecutive threads take consecutive walks, so at each step the
+// lanes of a warp read neighbouring columns of one row of the layout: at
+// P = 128 a 128-byte idx access and a 256-byte vals access, whole
+// sectors for every P >= 8, read straight from global memory.  Each
+// thread issues kBatch steps' loads before it compares any, and idx and
+// vals stream through L2 at evict-first priority (ld.cs), leaving L2 to
+// the table the atomics land in.  P = 1 (no layout) walks 32-entry rows,
+// so that its reads are whole sectors too.  The entries past the last
+// whole row of the layout (P not dividing M) are added one by one.
 //
-// Tile size: Q walks per column, Q * P (items) near 128 and a multiple
-// of 4 so that every tile is a whole number of 16-byte vectors; a P whose
-// items would pass 256 (odd P above 64), a P above 128, and a P that
-// does not divide M are walked as P = 1 (consecutive entries).  The last
-// tile may be short; the last M % 4 entries are added one by one.
-// One wave of blocks (two per SM) takes the tiles round-robin, so at any
+// One wave of blocks takes the walks in grid-stride order, so at any
 // moment the card works on one contiguous window of the entries: on a
 // level-major stream its atomics stay among one level's rows, which L2
-// holds (one contiguous share per block spread them over all 64 MiB and
-// took twice as long on the main-path shape).
+// holds.
 //
 // All levels go in one launch: the caller offsets level l's rows by
 // l * T, and L * T (16 x 2^19 = 8.4M) fits int32.  Sums are taken in
@@ -60,7 +51,6 @@
 #include <cuda_runtime.h>
 
 #include <cassert>
-#include <cstdint>
 
 namespace {
 
@@ -84,173 +74,65 @@ __global__ void scatter_add_kernel(const int* __restrict__ idx,
 }
 
 constexpr int kThreads = 128;
-constexpr int kWalk = 33;         // rows per walk: 1 (mod 32)
-constexpr int kMaxPeriod = 128;
-constexpr int kItems = 128;       // walks per tile, about one per thread
-constexpr int kMaxItems = 256;
-constexpr int kBarBytes = 32;     // four mbarriers ahead of the tiles
-
-__device__ __forceinline__ uint32_t smem(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// a barrier whose phase completes after `n` arrivals (and the bytes
-// announced with expect_tx, for the tile barriers)
-__device__ __forceinline__ void bar_init(uint64_t* bar, unsigned n) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem(bar)),
-               "r"(n)
-               : "memory");
-}
-
-__device__ __forceinline__ void bar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem(bar))
-               : "memory");
-}
-
-// thread 0: the tile's bytes will complete the barrier's current phase,
-// then both bulk copies are issued against it
-__device__ __forceinline__ void load_tile(int* s_idx, float2* s_vals,
-                                          const int* idx, const float2* vals,
-                                          long long first, int n,
-                                          uint64_t* bar) {
-  const uint32_t b = smem(bar);
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::
-                   "r"(b), "r"(n * 12)
-               : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];" ::"r"(smem(s_idx)),
-      "l"(idx + first), "r"(n * 4), "r"(b)
-      : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];" ::"r"(smem(s_vals)),
-      "l"(vals + first), "r"(n * 8), "r"(b)
-      : "memory");
-}
-
-__device__ __forceinline__ unsigned long long now_ns() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-
-// wait for phase `parity` of the barrier; a tile that has not landed
-// after a second traps instead of hanging the card
-__device__ __forceinline__ void bar_wait(uint64_t* bar, unsigned parity) {
-  const uint32_t b = smem(bar);
-  unsigned long long start = 0;
-  for (;;) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}"
-        : "=r"(done)
-        : "r"(b), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (start == 0) {
-      start = now_ns();
-    } else if (now_ns() - start > 1000000000ULL) {
-      __trap();
-    }
-  }
-}
+constexpr int kWalk = 32;   // rows per walk
+constexpr int kBatch = 8;   // steps whose loads are in flight at once
+constexpr int kNoLayout = 32;  // the row width P = 1 is walked as
 
 __device__ __forceinline__ void red(float2* out, int row, float2 v) {
   atomicAdd(out + row, v);  // result unused: a RED
 }
 
-// F = 2 over tiles of `tile` = kWalk * q_walks * period entries; the
-// entries from `tiles_end` on (fewer than 4) are added one by one.
+// F = 2: walk w takes rows [g * kWalk, g * kWalk + kWalk) of column j,
+// g = w / period, j = w % period, of the `rows` whole rows; the entries
+// from rows * period on are added one by one.
 __global__ void __launch_bounds__(kThreads)
-    scatter_add_f2_tiled_kernel(const int* __restrict__ idx,
-                                const float2* __restrict__ vals,
-                                float2* __restrict__ out, long long m,
-                                long long tiles_end, int period, int items,
-                                int tile, int table_size) {
-  extern __shared__ __align__(16) unsigned char shared[];
-  uint64_t* bars = reinterpret_cast<uint64_t*>(shared);
-  // buffer b: tile idx (4 bytes each), then tile vals (8 bytes each)
-  auto s_idx = [&](int b) {
-    return reinterpret_cast<int*>(shared + kBarBytes + b * tile * 12);
-  };
-  auto s_vals = [&](int b) {
-    return reinterpret_cast<float2*>(shared + kBarBytes + b * tile * 12 +
-                                     tile * 4);
-  };
-  const long long n_tiles = (tiles_end + tile - 1) / tile;
-  if (threadIdx.x == 0) {
-    for (int b = 0; b < 2; ++b) {
-      bar_init(bars + b, 1);                   // buffer b is full
-      bar_init(bars + 2 + b, kThreads / 32);   // every warp is done with it
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-    for (int b = 0; b < 2; ++b) {
-      const long long t = blockIdx.x + (long long)b * gridDim.x;
-      if (t < n_tiles) {
-        const long long first = t * tile;
-        const long long n = tiles_end - first < tile ? tiles_end - first : tile;
-        load_tile(s_idx(b), s_vals(b), idx, vals, first, (int)n, bars + b);
-      }
-    }
-  }
-  __syncthreads();
-
-  long long k = 0;
-  for (long long t = blockIdx.x; t < n_tiles; t += gridDim.x, ++k) {
-    const int b = (int)(k & 1);
-    const long long first = t * tile;
-    const int n = (int)(tiles_end - first < tile ? tiles_end - first : tile);
-    bar_wait(bars + b, (unsigned)((k >> 1) & 1));
-    const int* si = s_idx(b);
-    const float2* sv = s_vals(b);
-    for (int it = threadIdx.x; it < items; it += kThreads) {
-      const int q = it / period;
-      const int j = it - q * period;
-      int e = q * kWalk * period + j;
-      if (e >= n) continue;
-      // steps of this walk inside the tile (all kWalk but in a short tile)
-      const int steps = min(kWalk, (n - e + period - 1) / period);
-      int cur = si[e];
-      float2 acc = sv[e];
-      assert(cur >= 0 && cur < table_size);
-#pragma unroll 4
-      for (int s = 1; s < steps; ++s) {
-        e += period;
-        const int row = si[e];
-        const float2 v = sv[e];
-        assert(row >= 0 && row < table_size);
-        if (row == cur) {
-          acc.x += v.x;
-          acc.y += v.y;
-        } else {
-          red(out, cur, acc);
-          cur = row;
-          acc = v;
+    scatter_add_f2_walk_kernel(const int* __restrict__ idx,
+                               const float2* __restrict__ vals,
+                               float2* __restrict__ out, long long m,
+                               int period, long long rows, int table_size) {
+  const long long walks = (rows + kWalk - 1) / kWalk * period;
+  const long long stride = (long long)gridDim.x * kThreads;
+  for (long long w = (long long)blockIdx.x * kThreads + threadIdx.x;
+       w < walks; w += stride) {
+    const long long g = w / period;
+    const long long n0 = g * kWalk;
+    const int steps = (int)(rows - n0 < kWalk ? rows - n0 : kWalk);
+    const long long e0 = n0 * period + (w - g * period);
+    const int* ip = idx + e0;
+    const float2* vp = vals + e0;
+    int cur = __ldcs(ip);
+    float2 acc = __ldcs(vp);
+    assert(cur >= 0 && cur < table_size);
+    for (int s = 1; s < steps; s += kBatch) {
+      int r[kBatch];
+      float2 v[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        if (s + u < steps) {
+          r[u] = __ldcs(ip + (long long)(s + u) * period);
+          v[u] = __ldcs(vp + (long long)(s + u) * period);
         }
       }
-      red(out, cur, acc);
-    }
-    // this warp is done with buffer b; thread 0 refills it with the tile
-    // two steps ahead once every warp is, and the other warps go on with
-    // the other buffer meanwhile
-    __syncwarp();
-    if (threadIdx.x % 32 == 0) bar_arrive(bars + 2 + b);
-    if (threadIdx.x == 0) {
-      const long long t2 = t + 2LL * gridDim.x;
-      if (t2 < n_tiles) {
-        bar_wait(bars + 2 + b, (unsigned)((k >> 1) & 1));
-        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-        const long long f2 = t2 * tile;
-        const long long n2 = tiles_end - f2 < tile ? tiles_end - f2 : tile;
-        load_tile(s_idx(b), s_vals(b), idx, vals, f2, (int)n2, bars + b);
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        if (s + u < steps) {
+          assert(r[u] >= 0 && r[u] < table_size);
+          if (r[u] == cur) {
+            acc.x += v[u].x;
+            acc.y += v[u].y;
+          } else {
+            red(out, cur, acc);
+            cur = r[u];
+            acc = v[u];
+          }
+        }
       }
     }
+    red(out, cur, acc);
   }
-  if (blockIdx.x == 0 && threadIdx.x < m - tiles_end) {
-    const long long i = tiles_end + threadIdx.x;
+  for (long long i = rows * period + (long long)blockIdx.x * kThreads +
+                     threadIdx.x;
+       i < m; i += stride) {
     const int row = idx[i];
     assert(row >= 0 && row < table_size);
     red(out, row, vals[i]);
@@ -265,11 +147,9 @@ extern "C" int rise_scatter_add_f32(const void* idx, const void* vals,
                                     void* stream) {
   if (m <= 0 || f <= 0) return (int)cudaSuccess;
   cudaStream_t s = (cudaStream_t)stream;
-  const bool tiled = f == 2 && table_size <= 0x7fffffffLL &&
-                     ((unsigned long long)idx % 16 == 0) &&
-                     ((unsigned long long)vals % 16 == 0) &&
-                     ((unsigned long long)out % 8 == 0);
-  if (!tiled) {
+  if (f != 2 || table_size > 0x7fffffffLL || period < 1 ||
+      period > 0x7fffffffLL || ((unsigned long long)vals % 8 != 0) ||
+      ((unsigned long long)out % 8 != 0)) {
     const int threads = 256;
     long long blocks = (m + threads - 1) / threads;
     // the grid-stride loop covers the rest; 64K blocks keep every SM busy
@@ -278,40 +158,25 @@ extern "C" int rise_scatter_add_f32(const void* idx, const void* vals,
         (const int*)idx, (const float*)vals, (float*)out, m, f, table_size);
     return (int)cudaGetLastError();
   }
-  // q walks per column: items = q * P near kItems, a multiple of 4
-  if (period < 1 || period > kMaxPeriod || m % period != 0) period = 1;
-  const long long unit = 4 / (period % 4 == 0 ? 4 : period % 2 == 0 ? 2 : 1);
-  long long q = kItems / period;
-  q = (q + unit - 1) / unit * unit;
-  if (q * period > kMaxItems) {
-    period = 1;
-    q = kItems;
-  }
-  const int items = (int)(q * period);
-  const int tile = kWalk * items;
-  const long long tiles_end = m & ~3LL;
-  const int smem_bytes = kBarBytes + 2 * tile * 12;
-  cudaError_t err = cudaFuncSetAttribute(
-      scatter_add_f2_tiled_kernel,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-  if (err != cudaSuccess) return (int)err;
+  if (period == 1) period = kNoLayout;
+  cudaError_t err;
   int device = 0, sms = 0, per_sm = 0;
   if ((err = cudaGetDevice(&device)) != cudaSuccess) return (int)err;
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                     device)) != cudaSuccess)
     return (int)err;
   if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, scatter_add_f2_tiled_kernel, kThreads, smem_bytes)) !=
-      cudaSuccess)
+           &per_sm, scatter_add_f2_walk_kernel, kThreads, 0)) != cudaSuccess)
     return (int)err;
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  const long long n_tiles = (tiles_end + tile - 1) / tile;
+  const long long rows = m / period;
+  const long long work = (rows + kWalk - 1) / kWalk * period + m % period;
   long long blocks = (long long)sms * per_sm;
-  if (blocks > n_tiles) blocks = n_tiles;
-  if (blocks < 1) blocks = 1;  // M < 4: the last-entries path alone
-  scatter_add_f2_tiled_kernel<<<(unsigned)blocks, kThreads, smem_bytes, s>>>(
-      (const int*)idx, (const float2*)vals, (float2*)out, m, tiles_end,
-      (int)period, items, tile, (int)table_size);
+  if (blocks > (work + kThreads - 1) / kThreads)
+    blocks = (work + kThreads - 1) / kThreads;
+  scatter_add_f2_walk_kernel<<<(unsigned)blocks, kThreads, 0, s>>>(
+      (const int*)idx, (const float2*)vals, (float2*)out, m, (int)period,
+      rows, (int)table_size);
   return (int)cudaGetLastError();
 }
 

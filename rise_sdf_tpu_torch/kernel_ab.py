@@ -1,38 +1,33 @@
 """Same-call A/B of the kernels K1 and G1 against another tree's, on one
 NVIDIA GPU.
 
-    python3 chip_smoke.py --save-streams /tmp/streams.pt
-    python3 -m rise_sdf_tpu_torch.kernel_ab --parent DIR \\
-        [--streams /tmp/streams.pt] [--out ab.json] [--steps 120]
-        [--also NAME=DIR ...] [--kernels-only]
+    python3 chip_smoke.py --save-streams _ab/streams.pt
+    python3 -m rise_sdf_tpu_torch.kernel_ab --parent _ab/parent \\
+        [--streams _ab/streams.pt] [--out ab.json] [--steps 120]
 
-``DIR`` holds an unpacked copy of another commit of this repository
-(``git archive <commit> | tar -x -C DIR``); this tree is the change.
-Each ``--also`` tree (a variant of either) joins the kernel rounds,
-between the parent's and the change's.
-Both trees' ``csrc/scatter_add.cu`` and ``csrc/gather_rows.cu`` are
-built (each tree with its own ``ops/cuda_build.py``, all at once) and
-loaded side by side with ``ctypes``.  In the order parent, change,
-change, parent the script then times:
+``--parent`` holds an unpacked copy of another commit of this repository
+(``git archive <commit> | tar -x -C _ab/parent``; ``_ab/`` is
+gitignored); this tree is the change.  The parent's K1 must take the
+``period`` argument and its package must hold ``measure.py``; an older
+commit's copy needs both patched in first.  Both trees'
+``csrc/scatter_add.cu`` and ``csrc/gather_rows.cu`` are built (each tree
+with its own ``ops/cuda_build.py``, all at once) and loaded side by side
+with ``ctypes``.  In the order parent, change, change, parent the script
+then times:
 
-1. the kernels, on the same inputs for both sides: K1 at S1's shape
-   (12,582,912 uniform rows into 2^19 x 2, P = 1) and at the main-path
-   shape (134,217,728 level-major uniform rows into 16 x 2^19 x 2,
-   P = 128); G1 at S2/S3's shape, at S4's (w = 2, 8, 32), at one render
-   chunk's uniform hash encode and at the main-path shape; and, with
-   ``--streams``, both on the recorded streams that ``chip_smoke.py``
-   saved: K1 and G1 on the step-1 training stream, G1 on the render
-   chunk's band-sample encode.  Each time is the median of 10 CUDA-event
-   samples of 10 back-to-back calls, beside ``index_add_`` /
-   ``index_select`` on the same inputs; every side's result is held to
-   the float64 reference (K1) or to ``index_select`` bit for bit (G1)
-   first;
+1. the kernels, on the same inputs for both sides: K1 and G1 at the
+   uniform shapes of ``chip_smoke.py`` (``measure.k1_shapes`` and
+   ``measure.g1_shapes``); and, with ``--streams``, both on the recorded
+   streams that ``chip_smoke.py`` saved: K1 and G1 on the step-1
+   training stream, G1 on the render chunk's band-sample encode.  Each
+   time is the median of 10 CUDA-event samples of 10 back-to-back calls
+   (``measure.median_ms``), beside ``index_add_`` / ``index_select`` on
+   the same inputs; every side's result is held to the float64
+   reference (K1) or to ``index_select`` bit for bit (G1) first;
 2. end to end, each in a process of its own in that side's tree: the
    800x800 render (``python -m rise_sdf_tpu_torch.bench
    --profile-chunks 8``) and ``--steps`` steps of the NeuS slice at
-   ``neus_sphere_full`` (steps/s over the last 60 steps, K1's and G1's
-   device time per step under ``torch.profiler`` over 5 steps, PSNR of
-   one validation view).
+   ``neus_sphere_full`` (``python -m rise_sdf_tpu_torch.measure``).
 
 It prints a table and, last, one JSON line with every number; ``--out``
 writes the same JSON to a file.  Only ratios taken inside one run
@@ -52,59 +47,15 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from .measure import g1_shapes, k1_shapes, median_ms
+
 REPO = Path(__file__).resolve().parent.parent
-LEVELS, LOG2_T = 16, 19
 
 _BUILD = (
     "from rise_sdf_tpu_torch.ops import cuda_build as c\n"
     "names = ['scatter_add', 'gather_rows']\n"
     "c.build_libraries(names)\n"
     "print(*(c._so_path(n) for n in names))\n")
-
-# the NeuS slice of chip_smoke.py without its checks: steps/s over the
-# last 60 steps, kernels per step from 5 profiled steps, one view's PSNR
-_NEUS = """
-import json, shutil, sys, time, numpy as np, torch
-from rise_sdf_tpu_torch import datasets, systems
-from rise_sdf_tpu_torch.bench import _kernel_times
-from rise_sdf_tpu_torch.presets import neus_sphere_full
-steps, lo, n = int(sys.argv[1]), 40, 5
-torch.backends.cuda.matmul.allow_tf32 = False
-torch.backends.cudnn.allow_tf32 = False
-cfg = neus_sphere_full()
-dm = datasets.make(cfg["dataset"]["name"], cfg["dataset"])
-save = "exp/kernel_ab"
-system = systems.make(cfg["system"]["name"], cfg, dm, save_dir=save,
-                      device="cuda")
-state = system.init_state(int(cfg.get("seed", 42)))
-stamps, prof = [], {}
-def on_log(step, m):
-    stamps.append(time.perf_counter())
-    if step == lo:
-        torch.cuda.synchronize()
-        prof["p"] = torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA])
-        prof["p"].__enter__()
-    if step == lo + n:
-        torch.cuda.synchronize()
-        prof["p"].__exit__(None, None, None)
-state = system.fit(max_steps=steps, seed=int(cfg.get("seed", 42)),
-                   state=state, log_every=1, on_log=on_log)
-torch.cuda.synchronize()
-psnr = system.validate(state, n_images=1)["psnr"]
-times = _kernel_times(prof["p"])
-def per_step(name):
-    hits = [v for k, v in times.items() if name in k]
-    return sum(t for t, _ in hits) / n, sum(c for _, c in hits) / n
-k1, g1 = per_step("scatter_add"), per_step("gather_rows")
-shutil.rmtree(save, ignore_errors=True)
-print(json.dumps({"steps_per_s": 60 / (stamps[-1] - stamps[-61]),
-                  "psnr": float(psnr), "skipped": system.skipped_updates,
-                  "device_ms_per_step": sum(t for t, _ in times.values()) / n,
-                  "k1_ms_per_step": k1[0], "k1_launches_per_step": k1[1],
-                  "g1_ms_per_step": g1[0], "g1_launches_per_step": g1[1]}))
-"""
 
 
 class Side:
@@ -114,13 +65,10 @@ class Side:
     def __init__(self, tree: Path, sos):
         self.tree = tree
         k1, g1 = (ctypes.CDLL(str(so)) for so in sos)
-        src = (tree / "rise_sdf_tpu_torch/csrc/scatter_add.cu").read_text()
-        c_sig = src[src.index('extern "C" int rise_scatter_add_f32'):]
-        self.periodic = "period" in c_sig[:c_sig.index("{")]
         k1.rise_scatter_add_f32.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong] \
-            + [ctypes.c_longlong] * self.periodic + [ctypes.c_void_p]
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
+            ctypes.c_longlong, ctypes.c_void_p]
         k1.rise_scatter_add_f32.restype = ctypes.c_int
         g1.rise_gather_rows.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -131,10 +79,9 @@ class Side:
 
     def scatter(self, idx, vals, t, period):
         out = torch.zeros((t, vals.shape[1]), device="cuda")
-        stream = torch.cuda.current_stream().cuda_stream
         rc = self.k1(idx.data_ptr(), vals.data_ptr(), out.data_ptr(),
-                     idx.numel(), vals.shape[1], t,
-                     *([period] if self.periodic else []), stream)
+                     idx.numel(), vals.shape[1], t, period,
+                     torch.cuda.current_stream().cuda_stream)
         if rc:
             raise RuntimeError(f"{self.tree}: K1 launch failed ({rc})")
         return out
@@ -163,65 +110,6 @@ def build(trees):
             raise RuntimeError(f"building {tree}'s kernels failed:\n{out}")
         sos.append(out.split()[-2:])
     return sos
-
-
-def median_ms(fn, reps=10, inner=10):
-    """Median over ``reps`` samples of the device time per call of
-    ``fn``, each sample a run of ``inner`` back-to-back calls between two
-    CUDA events, so the host's launch overhead overlaps the device's
-    work."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(inner):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end) / inner)
-    return float(np.median(times))
-
-
-def main_path_rows(gen):
-    """Level-l rows drawn from [0, min((res_l+1)^3, 2^19)) + l * 2^19, as
-    the encode of 1,048,576 samples x 8 corners gives them, level-major;
-    and the flattened table's size."""
-    t = 2 ** LOG2_T
-    return torch.cat([
-        torch.randint(0, min((int(16 * 1.447269237440378 ** l) + 1) ** 3, t),
-                      (8 * 1048576,), generator=gen, device="cuda",
-                      dtype=torch.int32) + l * t
-        for l in range(LEVELS)]), LEVELS * t
-
-
-def uniform_cases(gen):
-    """The uniform shapes of ``chip_smoke.py``."""
-    t = 2 ** LOG2_T
-
-    def draw(n, w, m):
-        return (torch.randn((n, w), generator=gen, device="cuda"),
-                torch.randint(0, n, (m,), generator=gen, device="cuda",
-                              dtype=torch.int32))
-
-    level_major, _ = main_path_rows(gen)
-    main_vals = torch.randn((level_major.numel(), 2), generator=gen,
-                            device="cuda")
-    s1_idx = torch.randint(0, t, (12582912,), generator=gen, device="cuda",
-                           dtype=torch.int32)
-    k1 = {"S1 shape": (s1_idx, torch.randn((s1_idx.numel(), 2),
-                                           generator=gen, device="cuda"),
-                       t, 1),
-          "main path": (level_major, main_vals, LEVELS * t, 128)}
-    g1 = {"S2/S3 shape": draw(t, 2, 8388608),
-          "S4 w=2": draw(t, 2, 4194304), "S4 w=8": draw(t, 8, 4194304),
-          "S4 w=32": draw(t, 32, 4194304),
-          "render chunk (uniform)": draw(LEVELS * t, 2, 49152 * 16 * 8),
-          "main path": (torch.randn((LEVELS * t, 2), generator=gen,
-                                    device="cuda"), level_major)}
-    return k1, g1
 
 
 def stream_cases(path):
@@ -253,11 +141,9 @@ def check(sides, k1_cases, g1_cases):
 
 
 def kernel_rounds(sides, k1_cases, g1_cases):
-    """Every side twice, in the order parent, the ``--also`` trees,
-    change, change, the ``--also`` trees reversed, parent; the library
-    call in every round."""
-    also = [n for n in sides if n not in ("parent", "change")]
-    order = ["parent", *also, "change", "change", *also[::-1], "parent"]
+    """Every side twice, in the order parent, change, change, parent; the
+    library call in every round."""
+    order = ["parent", "change", "change", "parent"]
     res = {f"K1 {k}": {n: [] for n in sides} for k in k1_cases}
     res.update({f"G1 {k}": {n: [] for n in sides} for k in g1_cases})
     lib = {k: [] for k in res}
@@ -275,14 +161,13 @@ def kernel_rounds(sides, k1_cases, g1_cases):
                 lambda: torch.index_select(table, 0, idx)))
     out = {}
     for k, ms in res.items():
-        parent = sum(ms["parent"])
-        out[k] = {"ms": ms, "library_ms": lib[k],
-                  "over_parent": {n: sum(v) / parent for n, v in ms.items()},
+        ratio = sum(ms["change"]) / sum(ms["parent"])
+        out[k] = {"ms": ms, "library_ms": lib[k], "change_over_parent": ratio,
                   "change_over_library": sum(ms["change"]) / 2
                   / float(np.median(lib[k]))}
-        print(f"{k:30s} library {float(np.median(lib[k])):.4f} ms; "
-              + "; ".join(f"{n} {v[0]:.4f} {v[1]:.4f} "
-                          f"({sum(v) / parent:.3f})" for n, v in ms.items()),
+        print(f"{k:40s} library {float(np.median(lib[k])):.4f} ms; parent "
+              f"{ms['parent'][0]:.4f} {ms['parent'][1]:.4f}; change "
+              f"{ms['change'][0]:.4f} {ms['change'][1]:.4f} ({ratio:.3f})",
               flush=True)
     return out
 
@@ -292,8 +177,8 @@ def run_json(cmd, tree, timeout):
                          env=dict(os.environ, PYTHONPATH=str(tree)),
                          timeout=timeout)
     if res.returncode:
-        raise RuntimeError(f"{' '.join(cmd[:3])} in {tree} failed:\n"
-                           f"{res.stderr[-4000:]}")
+        raise RuntimeError(f"{' '.join(cmd[:3])} in {tree} failed (exit "
+                           f"{res.returncode}):\n{res.stderr[-4000:]}")
     return json.loads(res.stdout.strip().splitlines()[-1])
 
 
@@ -303,25 +188,26 @@ def end_to_end(trees, steps):
         tree = trees[name]
         render = run_json([sys.executable, "-m", "rise_sdf_tpu_torch.bench",
                            "--profile-chunks", "8"], tree, 900)
-        neus = run_json([sys.executable, "-c", _NEUS, str(steps)], tree, 900)
+        neus = run_json([sys.executable, "-m", "rise_sdf_tpu_torch.measure",
+                         "--steps", str(steps)], tree, 900)
         row = {"side": name,
                "render_device_ms_per_8_chunks": render["profile_device_ms"],
                "render_g1_ms_per_8_chunks": render["g1_device_ms"],
                "render_rays_per_s": render["rays_per_s"],
                "render_dropped_rays": render["dropped_rays"],
-               "render_busy_share": render["device_busy_share"], **neus}
+               "render_busy_share": render["device_busy_share"],
+               **{f"neus_{k}": v for k, v in neus.items() if k != "top"}}
         runs.append(row)
         print(f"{name}: render {row['render_device_ms_per_8_chunks']:.2f} ms "
               f"of device time per 8 chunks (G1 "
               f"{row['render_g1_ms_per_8_chunks']:.3f}), "
               f"{row['render_rays_per_s']:.0f} rays/s, "
               f"{row['render_dropped_rays']} dropped; NeuS "
-              f"{row['steps_per_s']:.3f} steps/s, PSNR {row['psnr']:.3f} dB, "
-              f"per step: device {row['device_ms_per_step']:.2f} ms, K1 "
-              f"{row['k1_ms_per_step']:.3f} ms x "
-              f"{row['k1_launches_per_step']:g}, G1 "
-              f"{row['g1_ms_per_step']:.3f} ms x "
-              f"{row['g1_launches_per_step']:g}", flush=True)
+              f"{row['neus_steps_per_s']:.3f} steps/s, PSNR "
+              f"{row['neus_psnr']:.3f} dB, per step: device "
+              f"{row['neus_device_ms']:.2f} ms, K1 {row['neus_k1_ms']:.3f} ms "
+              f"x {row['neus_k1_launches']:g}, G1 {row['neus_g1_ms']:.3f} ms "
+              f"x {row['neus_g1_launches']:g}", flush=True)
     return runs
 
 
@@ -331,9 +217,6 @@ def main(argv=None):
     ap.add_argument("--streams", type=Path)
     ap.add_argument("--out", type=Path)
     ap.add_argument("--steps", type=int, default=120)
-    ap.add_argument("--also", action="append", default=[],
-                    metavar="NAME=DIR")
-    ap.add_argument("--kernels-only", action="store_true")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_ab: CUDA is not available")
@@ -342,14 +225,10 @@ def main(argv=None):
                           text=True, timeout=60).stdout.strip()
     print(f"card: {card}", flush=True)
     trees = {"parent": args.parent.resolve(), "change": REPO}
-    trees.update((name, Path(d).resolve()) for name, d in (
-        a.split("=", 1) for a in args.also))
     sides = {name: Side(trees[name], so) for name, so in zip(
         trees, build(list(trees.values())))}
-    print("K1 takes a period: " + ", ".join(
-        f"{n} {s.periodic}" for n, s in sides.items()), flush=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    k1_cases, g1_cases = uniform_cases(gen)
+    k1_cases, g1_cases = dict(k1_shapes(gen)), dict(g1_shapes(gen))
     if args.streams:
         sk1, sg1 = stream_cases(args.streams)
         k1_cases.update(sk1)
@@ -359,8 +238,7 @@ def main(argv=None):
               "kernels": kernel_rounds(sides, k1_cases, g1_cases)}
     del k1_cases, g1_cases
     torch.cuda.empty_cache()
-    if not args.kernels_only:
-        result["end_to_end"] = end_to_end(trees, args.steps)
+    result["end_to_end"] = end_to_end(trees, args.steps)
     line = json.dumps(result)
     if args.out:
         args.out.write_text(line + "\n")

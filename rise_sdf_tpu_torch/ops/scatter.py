@@ -63,8 +63,8 @@ def scatter_add(idx: torch.Tensor, vals: torch.Tensor, table_size: int,
     """idx [M] int32 in [0, table_size); vals [M, F] float32 ->
     [table_size, F] float32.  ``period`` >= 1: entry ``n * period + j``
     of ``idx`` is row ``n``, column ``j`` of the caller's layout (the
-    kernel walks a ``period`` that does not divide M as 1).  Launches on
-    the current stream and does not synchronise."""
+    kernel adds the entries past the last whole row one by one).
+    Launches on the current stream and does not synchronise."""
     if isinstance(period, bool) or not isinstance(period, int):
         raise TypeError(f"scatter_add takes an int period, got {period!r}")
     if period < 1:

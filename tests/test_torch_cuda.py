@@ -9,17 +9,16 @@ import os
 import subprocess
 import sys
 
-import numpy as np
 import pytest
 import torch
 
-from rise_sdf_tpu_torch.ops import hashgrid
 from rise_sdf_tpu_torch.ops.gather import gather_rows
 from rise_sdf_tpu_torch.ops.scatter import (
     TableGradLookup,
     scatter_add,
     scatter_add_plain,
 )
+from test_torch_streams import dense17_rows, ray_encode_rows
 
 pytestmark = pytest.mark.cuda
 
@@ -62,57 +61,13 @@ def test_scatter_add_kernel_matches_reference(cuda, m, t, f, offset):
                                rtol=1e-5, atol=1e-5)
 
 
-def ray_encode_rows(n_rays, n_samples, seed=0):
-    """[n_rays * n_samples, 16, 8] int32 rows that the port's hash encode
-    builds for samples along a few rays (ray-major, as the march
-    compacts them), and the flattened table's size.  16 levels of 2^12
-    rows from resolution 4 by 1.3: levels 0-5 are dense, where
-    neighbouring samples share rows; the rest are hashed."""
-    enc = hashgrid.HashGridEncoding(3, {
-        "n_levels": 16, "n_features_per_level": 2, "log2_hashmap_size": 12,
-        "base_resolution": 4, "per_level_scale": 1.3})
-    rng = np.random.default_rng(seed)
-    o = rng.uniform(0.3, 0.7, (n_rays, 1, 3))
-    d = rng.standard_normal((n_rays, 1, 3))
-    d /= np.linalg.norm(d, axis=-1, keepdims=True)
-    t = np.linspace(-0.25, 0.25, n_samples)[None, :, None]
-    x = np.clip(o + t * d, 0.0, 1.0).reshape(-1, 3).astype(np.float32)
-    seen = {}
-    lookup = hashgrid.table_grad_lookup
-
-    def recording_lookup(table, rows):
-        seen["rows"] = rows
-        return lookup(table, rows)
-
-    hashgrid.table_grad_lookup = recording_lookup
-    try:
-        with torch.no_grad():
-            enc(torch.from_numpy(x))
-    finally:
-        hashgrid.table_grad_lookup = lookup
-    return seen["rows"], enc.n_levels * enc.table_size
-
-
-def dense17_rows(n, seed=0):
-    """[n, 1, 8] rows of a dense 17^3 level (resolution 16) for samples
-    along one ray in steps shorter than a cell: runs of equal rows."""
-    rng = np.random.default_rng(seed)
-    o, d = rng.uniform(0.2, 0.8, 3), rng.standard_normal(3)
-    x = np.clip(o + np.linspace(-0.3, 0.3, n)[:, None] * d / np.linalg.norm(
-        d), 0.0, 1.0 - 1e-6) * 16
-    c = np.floor(x).astype(np.int64)[:, None, :] + np.array(
-        [[i, j, k] for i in (0, 1) for j in (0, 1) for k in (0, 1)])
-    flat = c[..., 0] + 17 * (c[..., 1] + 17 * c[..., 2])
-    return torch.from_numpy(flat.astype(np.int32)[:, None, :]), 17 ** 3
-
-
 @pytest.mark.parametrize("stream,period,cut", [
     ("all_equal", 1, 0),         # one row: a single run down every column
     ("all_equal", 128, 0),
     ("dense17", 8, 0),           # 17^3 dense level, P = 8
-    ("dense17", 8, 5),           # P does not divide M: walked as P = 1
-    ("dense17", 1, 3),           # P = 1 with M % 4 = 1: the last entries
-    ("rays", 128, 0),            # [N, 16, 8] encode rows, short last tile
+    ("dense17", 8, 5),           # P does not divide M: a ragged last row
+    ("dense17", 1, 3),           # P = 1, M % 32 = 5: the last entries
+    ("rays", 128, 0),            # [N, 16, 8] encode rows, short last walk
     ("rays", 1, 0),
     ("rays", 128, 77),           # P does not divide M
 ], ids=["equal_p1", "equal_p128", "dense17_p8", "dense17_p8_ragged",
@@ -126,7 +81,7 @@ def test_scatter_add_kernel_on_contended_streams(cuda, stream, period, cut):
         rows, t = dense17_rows(1001)
         idx = rows.reshape(-1)
     else:
-        rows, t = ray_encode_rows(8, 125)  # 1000 samples: 1000 % 33 = 10
+        rows, t = ray_encode_rows(8, 125)  # 1000 samples: a short last walk
         idx = rows.reshape(-1)
     idx = idx[:idx.numel() - cut].contiguous().to(cuda)
     gen = torch.Generator(device=cuda).manual_seed(period + cut)
@@ -262,7 +217,7 @@ def test_gather_rows_out_of_range_index_raises(cuda):
 
 
 def test_scatter_add_out_of_range_index_raises(cuda):
-    """K1's device-side bound check, on its tiled path (P = 8)."""
+    """K1's device-side bound check, on its column walk (P = 8)."""
     _raises_in_subprocess(
         "from rise_sdf_tpu_torch.ops.scatter import scatter_add\n"
         "scatter_add(idx, torch.zeros((idx.numel(), 2), device='cuda'), "

@@ -19,7 +19,7 @@ import pytest
 import torch
 
 from rise_sdf_tpu_torch.ops import gather, sdf_bake
-from test_torch_cuda import dense17_rows, ray_encode_rows
+from test_torch_streams import dense17_rows, ray_encode_rows
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -22,7 +22,7 @@ from rise_sdf_tpu_torch.ops.scatter import (
     scatter_add,
     scatter_add_plain,
 )
-from test_torch_cuda import dense17_rows, ray_encode_rows
+from test_torch_streams import dense17_rows, ray_encode_rows
 
 
 def _inputs(m, t, seed):
