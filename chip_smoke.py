@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU (Hopper, sm_90a).
 
-    python3 chip_smoke.py [--steps 120] [--save-streams FILE]
+    python3 chip_smoke.py [--steps 120] [--split-steps 32]
+                          [--save-streams FILE]
 
 Phases, each of which fails the run (non-zero exit) when it fails:
 
@@ -22,9 +23,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    main-path shape (134,217,728 rows from 8,388,608 x 2); median-of-10
    times of G1, of its plain version and of ``index_select``;
 5. small-input references, card against CPU: the tiny NeuS config's loss
-   and gradients (K1 against the plain scatter), and the tiny split
-   config's eval render with prefilter, bands and the full bake (G1
-   against the plain gather), both in float64;
+   and gradients (K1 against the plain scatter), the tiny split config's
+   eval render with prefilter, bands and the full bake (G1 against the
+   plain gather), and one tiny split train step at stage 0 and at stage
+   1 with the prefilter (hybrid FD, curvature probe, mips in the loss:
+   loss and every gradient), all in float64;
 6. render slice: ``rise_sdf_tpu_torch.bench`` at 800x800 (the flagship
    ``split_mixed_occ_full`` at full width, the headline protocol of the
    JAX package's ``bench.py``), G1 and K1 counts zeroed just before and
@@ -44,13 +47,32 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    Step 1's rows, cotangent and table (the training stream) are kept;
    after the slice K1 and G1 are checked and timed on them.  For both
    recorded streams the script prints the runs of equal rows down the
-   ``[N, L, 8]`` layout's columns, which K1 adds up before its atomics.
+   ``[N, L, 8]`` layout's columns, which K1 adds up before its atomics;
+8. flagship training: the split-occ system at
+   ``split_mixed_occ_train_full`` widths (hash grid 16 x 2^19 x 2, 4096
+   rays, hybrid-FD normals with the shared-probe encode, the curvature
+   probe on 1/4 of the samples, five bf16 heads, a 512^2 emitter) on the
+   synthetic sphere at 800x800, in two windows of ``--split-steps``
+   steps from one fresh init each (``rise_sdf_tpu_torch.measure.
+   train_split``): stage 0 from step 0 and stage 1 (prefilter, mips in
+   the loss, secondary pass) from step 13000, then ``validate`` on one
+   view.  The counts are zeroed just before and read just after; K1 and
+   G1 must launch on every step, losses stay finite with no skipped
+   update, and validation gives finite PSNR and phys PSNR with no
+   dropped ray.  At stage-1 step 13009, the first after the window's
+   first occupancy sweep, every encode's rows and cotangent are recorded
+   and the table gradient is held to the plain scatter of them, per entry
+   ``1e-5 * S + 1e-7``; K1 (period 96) and G1 are then checked and timed
+   on that step's shared-probe rows ``[N, 3, 32]`` (the probe stream).
+   Steps 13010-13014 run under ``torch.profiler`` (K1's and G1's device
+   ms and launches per flagship step).
 
 ``--save-streams FILE`` saves both recorded streams for the same-call
 A/B against another tree, ``python -m rise_sdf_tpu_torch.kernel_ab``
 (``_ab/streams.pt``, about 1.7 GB, in the gitignored ``_ab/``).
 The last two lines are the kernels' JSON record (K1's and G1's entries
-also carry their times on the recorded streams and per train step) and
+also carry their times on the recorded streams and per NeuS and flagship
+train step) and
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the package
 beside it, the script exits non-zero and prints no result.
 """
@@ -306,6 +328,74 @@ def render_reference_phase(torch, gather):
         fail("card and CPU disagree on the tiny split render")
 
 
+def split_train_reference_phase(torch, gather, scatter):
+    """One tiny split train step at stage 0 (step 5) and at stage 1 with
+    the prefilter (step 30): card (G1, K1) against CPU (plain versions),
+    both in float64 on the same params, rays and curvature directions;
+    the loss and every parameter gradient."""
+    from rise_sdf_tpu_torch import datasets, presets, systems
+
+    cfg = presets.tiny_split_config()
+    cfg["model"].update({"randomized": False, "visibility_prefilter": True})
+    dm = datasets.make(cfg["dataset"]["name"], cfg["dataset"])
+    for step in (5, 30):
+        runs, batch = {}, None
+        for dev in ("cpu", "cuda"):
+            system = systems.make(cfg["system"]["name"], cfg, dm,
+                                  save_dir=os.path.join("exp", "chip_smoke"),
+                                  device=dev)
+            # params drawn on the CPU, then moved off the sphere init so
+            # that the table gradient is not zero
+            system.init_state(0)
+            gen = torch.Generator().manual_seed(3)
+            with torch.no_grad():
+                for p in system.model.parameters():
+                    p.add_(0.05 * torch.randn(p.shape, generator=gen).to(dev))
+            system.model.double()
+            if batch is None:
+                batch = system.sample_batch(torch.Generator().manual_seed(4),
+                                            system.device_data(dm.train()))
+                dirs = torch.rand((system.capacity, 3), dtype=torch.float64,
+                                  generator=torch.Generator().manual_seed(5))
+            grid = torch.ones(system.model.grid_resolution ** 3,
+                              dtype=torch.bool, device=dev)
+            before = (gather.gather_rows.launches,
+                      scatter.scatter_add.launches)
+            loss, _ = system.forward_loss(
+                {k: (v.double() if v.is_floating_point() else v).to(dev)
+                 for k, v in batch.items()}, grid, step,
+                laplace_dirs=dirs.to(dev), **system.train_options(step))
+            loss.backward()
+            launches = (gather.gather_rows.launches - before[0],
+                        scatter.scatter_add.launches - before[1])
+            runs[dev] = (float(loss.detach()),
+                         {k: p.grad.detach().cpu()
+                          for k, p in system.model.named_parameters()
+                          if p.grad is not None}, launches)
+        (l_cpu, g_cpu, _), (l_gpu, g_gpu, launches) = runs["cpu"], \
+            runs["cuda"]
+        if sorted(g_cpu) != sorted(g_gpu):
+            fail(f"step {step}: card and CPU differ in which parameters "
+                 "take a gradient")
+        worst = 0.0
+        for k in g_cpu:
+            scale = float(g_cpu[k].abs().max())
+            if scale == 0:
+                fail(f"zero gradient for {k} at step {step}")
+            worst = max(worst,
+                        float((g_gpu[k] - g_cpu[k]).abs().max()) / scale)
+        log(f"  tiny split train step {step} in float64: loss cpu "
+            f"{l_cpu:.12f} cuda {l_gpu:.12f}; worst gradient difference "
+            f"{worst:.2e} of its tensor's largest entry; {len(g_cpu)} "
+            f"gradients; card launches G1 {launches[0]}, K1 {launches[1]}")
+        if not abs(l_gpu - l_cpu) <= 1e-9 * abs(l_cpu) or not worst <= 1e-5:
+            fail(f"card and CPU disagree on the tiny split train step "
+                 f"{step}")
+        if launches[0] == 0 or launches[1] == 0:
+            fail(f"the tiny split train step {step} launched G1 "
+                 f"{launches[0]}, K1 {launches[1]} times")
+
+
 def render_phase(torch, gather, scatter):
     """The flagship render through its entry point, at 800x800.  The
     hash encode of the band samples of chunk ``RENDER_CHUNK`` of the
@@ -492,20 +582,21 @@ def slice_phase(torch, scatter, steps, cfg, device="cuda"):
 
 
 def log_runs(torch, rows, what, walk=32):
-    """The atomics K1 issues on ``[N, L, 8]`` rows when it adds up runs
-    of equal rows down each column in walks of ``walk`` samples, per
-    level, and the share of x-neighbour corner pairs (c, c + 4) that
-    fall in one 32-byte sector of the table."""
-    n, lv = rows.shape[0], rows.shape[1]
+    """The atomics K1 issues on ``[N, L, K]`` rows (K = 8 corners, or the
+    32-point probe neighbourhood) when it adds up runs of equal rows down
+    each column in walks of ``walk`` samples, per level, and the share of
+    x-neighbour cell corners (c, c + 4) that fall in one 32-byte sector
+    of the table."""
+    n, lv, k = rows.shape
     r = rows.reshape(n, -1)
     head = torch.ones_like(r, dtype=torch.bool)
     head[1:] = r[1:] != r[:-1]
     head[::walk] = True
-    per_level = head.view(n, lv, 8).sum((0, 2)).tolist()
-    pair = (rows[..., :4] // 4 == rows[..., 4:] // 4).float().mean()
+    per_level = head.view(n, lv, k).sum((0, 2)).tolist()
+    pair = (rows[..., 0:4] // 4 == rows[..., 4:8] // 4).float().mean()
     log(f"  {what}: {int(head.sum())} runs of {r.numel()} entries down "
         f"the columns in walks of {walk} (per level: "
-        f"{[round(x / (n * 8), 3) for x in per_level]} of the entries); "
+        f"{[round(x / (n * k), 3) for x in per_level]} of the entries); "
         f"x-pairs in one sector {float(pair):.3f}")
 
 
@@ -524,9 +615,175 @@ def train_stream_phase(torch, scatter, stream):
     return k1, g1
 
 
+def flagship_phase(torch, scatter, gather, steps):
+    """The flagship's training at full width in its two windows (see the
+    module docstring, phase 8), then validation of one view; the table
+    gradient of stage-1 step 13009 against the plain scatter of every
+    encode's recorded cotangent; K1 and G1 on that step's probe stream.
+    Returns K1's and G1's records of the probe stream, the profile and
+    their launches in the phase."""
+    from rise_sdf_tpu_torch import datasets, measure, systems
+    from rise_sdf_tpu_torch.ops import hashgrid
+    from rise_sdf_tpu_torch.presets import split_mixed_occ_train_full
+
+    cfg = split_mixed_occ_train_full()
+    seed = int(cfg["seed"])
+    t0 = time.perf_counter()
+    dm = datasets.make(cfg["dataset"]["name"], cfg["dataset"])
+    save_dir = os.path.join("exp", "chip_smoke_split")
+    system = systems.make(cfg["system"]["name"], cfg, dm, save_dir=save_dir,
+                          device="cuda")
+    log(f"  system built in {time.perf_counter() - t0:.1f} s (capacity "
+        f"{system.capacity}, prefiltered {system.capacity_prefiltered}, "
+        f"{system.train_num_rays} rays/step)")
+    table = system.model.geometry.encoding.encoding.table
+    recorded = measure.SPLIT_PROFILE_FROM
+    lookup = hashgrid.table_grad_lookup
+    seen, per_step, stream = {"on": False, "enc": []}, [], {}
+
+    def recording_lookup(tb, rows):
+        vals = lookup(tb, rows)
+        if seen["on"] and vals.requires_grad:
+            vals.retain_grad()
+            seen["enc"].append((rows, vals))
+        return vals
+
+    def on_log(step, m):
+        per_step.append((step, scatter.scatter_add.launches,
+                         gather.gather_rows.launches))
+        if step == recorded:
+            seen["on"] = False
+            check_recorded_step(torch, scatter, table, seen.pop("enc"),
+                                stream)
+            seen["enc"] = []
+        seen["on"] = step == recorded - 1
+        if step % 4 == 0 or step in (recorded, measure.SPLIT_STAGE1_STEP
+                                     + steps - 1):
+            phys = f" phys {m['rgb_phys_mse']:.5f}" if "rgb_phys_mse" in m \
+                else ""
+            log(f"  step {step}: loss {m['loss']:.5f} mse "
+                f"{m['rgb_mse']:.5f}{phys} curvature {m['curvature']:.5f} "
+                f"rays {int(m['num_rays'])} live samples "
+                f"{int(m['num_samples'])}")
+
+    hashgrid.table_grad_lookup = recording_lookup
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    scatter.scatter_add.launches = 0
+    gather.gather_rows.launches = 0
+    t_fit = time.perf_counter()
+    try:
+        state, windows, prof = measure.train_split(system, steps, seed,
+                                                   on_log)
+    finally:
+        hashgrid.table_grad_lookup = lookup
+    fit_s = time.perf_counter() - t_fit
+    peak = torch.cuda.max_memory_allocated()
+    t_val = time.perf_counter()
+    res = system.validate(state, n_images=1)
+    torch.cuda.synchronize()
+    val_s = time.perf_counter() - t_val
+    k1, g1 = scatter.scatter_add.launches, gather.gather_rows.launches
+    shutil.rmtree(save_dir, ignore_errors=True)
+
+    # launches per step: the counts' growth from one step's end to the
+    # next (a window's first step counts from the previous window's end)
+    last, short = (0, 0), []
+    for step, k, g in per_step:
+        if k - last[0] < 1 or g - last[1] < 1:
+            short.append((step, k - last[0], g - last[1]))
+        last = (k, g)
+    for stage in (0, 1):
+        metrics, rate = windows[stage]
+        live = [m["num_samples"] for m in metrics]
+        log(f"  stage {stage}: {len(metrics)} steps, {rate:.3f} steps/s "
+            f"over its steady steps; live samples/step mean "
+            f"{np.mean(live):.0f}; rays kept {metrics[-1]['num_rays']:.0f}"
+            f"/{system.train_num_rays}")
+    log(f"  {2 * steps} steps in {fit_s:.1f} s; peak device memory "
+        f"{peak / 2 ** 30:.2f} GiB (torch.cuda.max_memory_allocated)")
+    log(f"  validate 1 view 800x800 in {val_s:.1f} s: PSNR "
+        f"{res['psnr']:.3f} dB, phys PSNR {res.get('phys_psnr', 0):.3f} dB, "
+        f"{res['dropped_rays']} rays dropped")
+    log(f"  K1 launches {k1}, G1 launches {g1} (both windows and the "
+        f"validation); skipped updates {system.skipped_updates}")
+    if prof:
+        log(f"  profiled stage-1 steps (torch.profiler), per step: wall "
+            f"{prof['wall_ms']:.2f} ms, device {prof['device_ms']:.2f} ms; "
+            f"K1 {prof['k1_ms']:.3f} ms in {prof['k1_launches']:g} "
+            f"launches; G1 {prof['g1_ms']:.3f} ms in "
+            f"{prof['g1_launches']:g} launches")
+        for k, t, c in prof["top"]:
+            log(f"    {t:8.3f} ms/step  {c:5g}x  {k}")
+    losses = [m["loss"] for w in windows.values() for m in w[0]]
+    if len(losses) != 2 * steps or not np.all(np.isfinite(losses)):
+        fail("non-finite or missing flagship losses")
+    if system.skipped_updates:
+        fail(f"{system.skipped_updates} skipped flagship updates")
+    if short:
+        fail(f"steps without a K1 or G1 launch (step, K1, G1): {short}")
+    if not all(bool(torch.isfinite(p).all())
+               for p in system.model.parameters()):
+        fail("non-finite parameters after flagship training")
+    if not (np.isfinite(res["psnr"]) and np.isfinite(res.get(
+            "phys_psnr", np.nan))):
+        fail(f"flagship validation {res}")
+    if res["dropped_rays"]:
+        fail(f"flagship validation dropped {res['dropped_rays']} rays")
+    if "rows" not in stream:
+        fail(f"no probe stream recorded at step {recorded}")
+    del system, state
+    torch.cuda.empty_cache()
+    rows, vals = stream["rows"].cuda(), stream["vals"].cuda()
+    idx = rows.reshape(-1)
+    what = f"probe stream (step {recorded}, rows {list(rows.shape)})"
+    log_runs(torch, rows, what)
+    k1_rec = check_time_scatter(torch, scatter, idx, vals,
+                                stream["table"].shape[0], what,
+                                rows.shape[-2] * rows.shape[-1])
+    g1_rec = check_gather(torch, gather, stream["table"].cuda(), idx, what)
+    return k1_rec, g1_rec, prof, (k1, g1)
+
+
+def check_recorded_step(torch, scatter, table, encodes, stream):
+    """The step's table gradient (the sum of its encodes' K1 launches)
+    against the float64 plain scatter of every encode's rows and
+    cotangent; keeps the shared-probe encode's ``[N, L, 32]`` rows, its
+    cotangent and the table (the probe stream)."""
+    if not encodes:
+        fail("no encode was recorded")
+    got = table.grad.reshape(-1, F)
+    ref = torch.zeros(got.shape, dtype=torch.float64, device=got.device)
+    mag = torch.zeros_like(ref)
+    shapes = []
+    for rows, vals in encodes:
+        if vals.grad is None:
+            continue
+        idx = rows.reshape(-1).long()
+        v = vals.grad.reshape(-1, F).double()
+        ref.index_add_(0, idx, v)
+        mag.index_add_(0, idx, v.abs())
+        shapes.append(list(rows.shape))
+        if rows.shape[-1] == 32:
+            stream.update(rows=rows.cpu(), vals=vals.grad.reshape(
+                -1, F).contiguous().cpu(),
+                table=table.detach().reshape(-1, F).cpu())
+    err = (got.double() - ref).abs()
+    bad = int((err > 1e-5 * mag + 1e-7).sum())
+    log(f"  step table gradient vs the float64 plain scatter of {len(shapes)}"
+        f" encodes {shapes}: max |K1 - ref64| = {float(err.max()):.3e}, "
+        f"entries over bound = {bad}, max |ref| = "
+        f"{float(ref.abs().max()):.3e}")
+    if bad or not bool(torch.isfinite(got).all()):
+        fail("the flagship step's table gradient disagrees with the plain "
+             "scatter")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=120)
+    ap.add_argument("--split-steps", type=int, default=32,
+                    help="steps in each of the flagship's two windows")
     ap.add_argument("--save-streams", metavar="FILE",
                     help="save the recorded streams (torch.save) for "
                          "python -m rise_sdf_tpu_torch.kernel_ab")
@@ -559,6 +816,7 @@ def main():
     log("small-input reference (card vs CPU):")
     small_reference_phase(torch)
     render_reference_phase(torch, gather)
+    split_train_reference_phase(torch, gather, scatter)
     log("render slice: rise_sdf_tpu_torch.bench, split_mixed_occ_full, "
         "800x800:")
     g1["launches"], g1["render_stream"], streams = render_phase(
@@ -572,16 +830,24 @@ def main():
     if args.save_streams:
         torch.save({**streams, **train}, args.save_streams)
     del streams, train
+    log(f"flagship training: split-occ split_mixed_occ_train_full, "
+        f"{args.split_steps} steps at stage 0 and at stage 1 + 1 view:")
+    (k1["probe_stream"], g1["probe_stream"], split_step,
+     (k1["flagship_launches"], g1["flagship_launches"])) = flagship_phase(
+        torch, scatter, gather, args.split_steps)
     s1["launches"] = k1["launches"]
     for key, rec in (("k1", k1), ("g1", g1)):
-        if per_step:
-            rec["per_step"] = {"device_ms": per_step[f"{key}_ms"],
-                               "launches": per_step[f"{key}_launches"]}
+        for name, prof in (("per_step", per_step),
+                           ("flagship_per_step", split_step)):
+            if prof:
+                rec[name] = {"device_ms": prof[f"{key}_ms"],
+                             "launches": prof[f"{key}_launches"]}
 
     log(card)
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
-    extra = ("train_stream", "render_stream", "per_step")
+    extra = ("train_stream", "render_stream", "per_step", "probe_stream",
+             "flagship_per_step", "flagship_launches")
     log(json.dumps({"kernels": [
         {"name": "scatter_add (K1)", "route": "cuda", "source": SRC_K1,
          "replaces": REPLACES_K1, **{k: k1[k] for k in keys},

@@ -149,18 +149,11 @@ def run(preset: str = "full", device="cuda", profile_chunks: int = 0,
     if order is not None:
         rays = rays[torch.from_numpy(order).to(device)]
     step = int(mcfg["split_sum_kick_in_step"]) + 1
-    stage = model.stage(step)
-    band_spr = int(mcfg.get("eval_banded_samples_per_ray", 0))
-    if band_spr > 0:
-        capacity = chunk * band_spr + int(mcfg.get("eval_band_reserve", 0))
-    else:
-        capacity = chunk * int(mcfg.get("eval_samples_per_ray", 64))
-    bg = torch.ones(3, device=device)
-    kw = dict(occ_binary=occ, step=step, stage=stage, capacity=capacity,
-              background_color=bg, prefilter=model.prefilter_on(step, False),
-              banded=band_spr > 0)
+    kw = dict(occ_binary=occ, step=step,
+              background_color=torch.ones(3, device=device),
+              **model.eval_options(step, chunk))
     res.update(rays=n, chunk=chunk, n_chunks=-(-n // chunk),
-               capacity=capacity, step=step, stage=stage)
+               capacity=kw["capacity"], step=step, stage=kw["stage"])
 
     # warm-up: builds the kernels, touches every code path once
     t0 = time.perf_counter()

@@ -1,14 +1,29 @@
-"""Kernel timing and the NeuS slice's rate on one NVIDIA GPU, shared by
-``chip_smoke.py`` and ``rise_sdf_tpu_torch.kernel_ab``.
+"""Kernel timing and the training slices' rates on one NVIDIA GPU,
+shared by ``chip_smoke.py`` and ``rise_sdf_tpu_torch.kernel_ab``.
 
-    python -m rise_sdf_tpu_torch.measure [--steps 120]
+    python -m rise_sdf_tpu_torch.measure [--preset neus|split] [--steps N]
 
-trains ``neus_sphere_full`` (hash grid 16 x 2^19 x 2, 4096 rays x 1024
-samples into a 1,048,576-sample buffer) for ``--steps`` steps and
-validates one view; it prints one JSON line: steps/s over the last 60
-steps, the validation PSNR, skipped updates, and the device time per
-step with K1's and G1's share and launches, from ``torch.profiler`` over
-steps 41-45.  Without CUDA it raises.
+``--preset neus`` (the default) trains ``neus_sphere_full`` (hash grid
+16 x 2^19 x 2, 4096 rays x 1024 samples into a 1,048,576-sample buffer)
+for ``--steps`` steps (120) and validates one view; it prints one JSON
+line: steps/s over the last 60 steps, the validation PSNR, skipped
+updates, and the device time per step with K1's and G1's share and
+launches, from ``torch.profiler`` over steps 41-45.
+
+``--preset split`` trains the flagship, ``split_mixed_occ_train_full``
+(4096 rays, hybrid-FD normals, curvature probe, five bf16 heads, a 512^2
+emitter) in two windows of ``--steps`` steps (32) from one fresh init
+each: stage 0 from step 0 (6 hash levels open, no prefilter) and stage 1
+from step ``SPLIT_STAGE1_STEP`` (all 16 open, the visibility prefilter,
+the mips built in the loss, the secondary pass); then validates one
+view.  Its JSON line: steps/s of each window over its last whole
+occupancy-sweep periods (16 steps each, so one sweep per period is
+timed) after the first 16 steps, K1's and G1's device ms and launches
+per step from ``torch.profiler`` over stage-1 steps 13,010-13,014 (after
+the window's first sweep at 13,008), peak device memory, PSNR, phys PSNR
+and dropped rays.
+
+Without CUDA it raises.
 """
 
 from __future__ import annotations
@@ -22,11 +37,21 @@ import time
 import numpy as np
 import torch
 
+from .systems.neus import OCC_UPDATE_EVERY
+
 LEVELS, LOG2_T = 16, 19
 S1_ROWS = 12582912
 # the profiled train steps: after PROFILE_FROM, outside the rate's window
 PROFILE_FROM, PROFILE_STEPS = 40, 5
 RATE_WINDOW = 60
+# the flagship's stage-1 window starts here: every hash level open
+# (6 + (13000 - 6000) / 500 = 20 >= 16), prefilter and split sum on
+SPLIT_STAGE1_STEP = 13000
+# the first stage-1 step after the window's first occupancy sweep (at
+# 13008; the fresh all-occupied grid fits ~6 % of the rays before it):
+# the profile covers the PROFILE_STEPS steps after it
+SPLIT_PROFILE_FROM = SPLIT_STAGE1_STEP \
+    + (-SPLIT_STAGE1_STEP) % OCC_UPDATE_EVERY + 1
 
 
 def median_ms(fn, reps=10, inner=10):
@@ -101,22 +126,22 @@ def g1_shapes(gen):
 
 
 class StepProfile:
-    """``torch.profiler`` over train steps ``PROFILE_FROM + 1`` to
-    ``PROFILE_FROM + PROFILE_STEPS``; call it from ``fit``'s ``on_log``
-    at every step."""
+    """``torch.profiler`` over train steps ``start + 1`` to ``start +
+    PROFILE_STEPS``; call it from ``fit``'s ``on_log`` at every step."""
 
-    def __init__(self):
+    def __init__(self, start=PROFILE_FROM):
+        self.start = start
         self.prof, self.t0, self.wall_ms = None, 0.0, 0.0
 
     def __call__(self, step):
-        if step == PROFILE_FROM:
+        if step == self.start:
             torch.cuda.synchronize()
             self.prof = torch.profiler.profile(activities=[
                 torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA])
             self.prof.__enter__()
             self.t0 = time.perf_counter()
-        elif step == PROFILE_FROM + PROFILE_STEPS:
+        elif step == self.start + PROFILE_STEPS:
             torch.cuda.synchronize()
             self.wall_ms = (time.perf_counter() - self.t0) * 1e3
             self.prof.__exit__(None, None, None)
@@ -140,14 +165,18 @@ class StepProfile:
         return out
 
 
-def train(system, steps, seed, state, on_log=None):
-    """``system.fit`` for ``steps`` steps, logging every step; steps past
-    ``PROFILE_FROM + PROFILE_STEPS`` profile the window.  Returns the
-    state, the per-step metrics, steps/s over the last ``RATE_WINDOW``
-    steps (fewer in a short run) and ``StepProfile.per_step()`` (empty
-    when the run is too short)."""
+def train(system, steps, seed, state, on_log=None, profile_from=PROFILE_FROM,
+          window=RATE_WINDOW):
+    """``system.fit`` for ``steps`` steps from ``state["step"]``, logging
+    every step; a run past ``profile_from + PROFILE_STEPS`` profiles the
+    steps after ``profile_from``.  Returns the state, the per-step
+    metrics, steps/s over the last ``window`` steps (fewer in a short
+    run) and ``StepProfile.per_step()`` (empty when the run is too
+    short)."""
     stamps, metrics = [], []
-    prof = StepProfile() if steps > PROFILE_FROM + PROFILE_STEPS else None
+    start = int(state["step"])
+    prof = StepProfile(profile_from) \
+        if start + steps > profile_from + PROFILE_STEPS else None
 
     def hook(step, m):
         stamps.append(time.perf_counter())
@@ -157,12 +186,65 @@ def train(system, steps, seed, state, on_log=None):
         if prof is not None:
             prof(step)
 
-    state = system.fit(max_steps=steps, seed=seed, state=state, log_every=1,
-                       on_log=hook)
+    state = system.fit(max_steps=start + steps, seed=seed, state=state,
+                       log_every=1, on_log=hook)
     torch.cuda.synchronize()
-    window = min(RATE_WINDOW, steps - 1)
+    window = min(window, steps - 1)
     rate = window / (stamps[-1] - stamps[-1 - window])
     return state, metrics, rate, prof.per_step() if prof else {}
+
+
+def train_split(system, steps, seed, on_log=None):
+    """The flagship's two windows of ``steps`` steps (at least 32), each
+    from a fresh init drawn from ``seed``: stage 0 from step 0, stage 1
+    from ``SPLIT_STAGE1_STEP``, whose steps after ``SPLIT_PROFILE_FROM``
+    are profiled.  Returns the stage-1 state, each window's metrics and
+    steps/s, and the profile's ``per_step``.  A window's rate is taken
+    over its last whole sweep periods after its first 16 steps (the
+    warm-up; at stage 1 the profiled steps and the profiler's teardown,
+    which lands on the step after them), so it counts one occupancy
+    sweep every 16 steps, as a long run does."""
+    period = OCC_UPDATE_EVERY
+    first = max(period, SPLIT_PROFILE_FROM - SPLIT_STAGE1_STEP
+                + PROFILE_STEPS + 1)
+    if steps < first + period:
+        raise ValueError(f"a flagship window needs at least "
+                         f"{first + period} steps")
+    window = (steps - first) // period * period
+    out = {}
+    for stage, start in ((0, 0), (1, SPLIT_STAGE1_STEP)):
+        state = system.init_state(seed)
+        state["step"] = start
+        prof_from = SPLIT_PROFILE_FROM if stage else start + steps
+        state, metrics, rate, per_step = train(
+            system, steps, seed, state, on_log, profile_from=prof_from,
+            window=window)
+        out[stage] = (metrics, rate)
+    return state, out, per_step
+
+
+def _split_main(steps):
+    from . import datasets, systems
+    from .presets import split_mixed_occ_train_full
+
+    cfg = split_mixed_occ_train_full()
+    seed = int(cfg["seed"])
+    save = os.path.join("exp", "measure")
+    system = systems.make(cfg["system"]["name"], cfg,
+                          datasets.make(cfg["dataset"]["name"],
+                                        cfg["dataset"]),
+                          save_dir=save, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    state, windows, per_step = train_split(system, steps, seed)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    val = system.validate(state, n_images=1)
+    shutil.rmtree(save, ignore_errors=True)
+    return {"stage0_steps_per_s": windows[0][1],
+            "stage1_steps_per_s": windows[1][1],
+            "peak_memory_gib": peak, "psnr": val["psnr"],
+            "phys_psnr": val["phys_psnr"],
+            "dropped_rays": val["dropped_rays"],
+            "skipped": system.skipped_updates, **per_step}
 
 
 def main(argv=None):
@@ -170,25 +252,31 @@ def main(argv=None):
     from .presets import neus_sphere_full
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--steps", type=int, default=120)
+    ap.add_argument("--preset", choices=("neus", "split"), default="neus")
+    ap.add_argument("--steps", type=int, default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("measure: CUDA is not available")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = neus_sphere_full()
-    seed = int(cfg.get("seed", 42))
-    save = os.path.join("exp", "measure")
-    system = systems.make(cfg["system"]["name"], cfg,
-                          datasets.make(cfg["dataset"]["name"],
-                                        cfg["dataset"]),
-                          save_dir=save, device="cuda")
-    state, _, rate, per_step = train(system, args.steps, seed,
-                                     system.init_state(seed))
-    psnr = float(system.validate(state, n_images=1)["psnr"])
-    shutil.rmtree(save, ignore_errors=True)
-    print(json.dumps({"steps_per_s": rate, "psnr": psnr,
-                      "skipped": system.skipped_updates, **per_step}))
+    if args.preset == "split":
+        res = _split_main(args.steps or 32)
+    else:
+        cfg = neus_sphere_full()
+        seed = int(cfg.get("seed", 42))
+        save = os.path.join("exp", "measure")
+        system = systems.make(cfg["system"]["name"], cfg,
+                              datasets.make(cfg["dataset"]["name"],
+                                            cfg["dataset"]),
+                              save_dir=save, device="cuda")
+        state, _, rate, per_step = train(system, args.steps or 120, seed,
+                                         system.init_state(seed))
+        psnr = float(system.validate(state, n_images=1)["psnr"])
+        shutil.rmtree(save, ignore_errors=True)
+        res = {"steps_per_s": rate, "psnr": psnr,
+               "skipped": system.skipped_updates, **per_step}
+    res["card"] = torch.cuda.get_device_name(0)
+    print(json.dumps(res))
 
 
 if __name__ == "__main__":

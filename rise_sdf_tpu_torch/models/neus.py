@@ -76,6 +76,15 @@ class NeuSModel(nn.Module):
             return 1.0
         return min(1.0, float(step) / self.cos_anneal_end)
 
+    def open_levels(self, step: int):
+        """Open hash levels of the geometry at ``step`` (None when the
+        grid is not progressive)."""
+        return self.geometry.open_levels(step)
+
+    def post_update(self, step: int):
+        """Buffer upkeep after the optimizer step (the variance's)."""
+        self.variance.post_update(step)
+
     def occ_eval(self, x, step):
         """Per-cell occupancy alpha for the grid EMA update."""
         sdf = self.geometry.sdf(x, step)
@@ -83,9 +92,11 @@ class NeuSModel(nn.Module):
                               self.render_step_size)
 
     def forward(self, rays, *, occ_binary, step, generator=None,
-                train: bool = False, capacity: int, background_color):
+                train: bool = False, capacity: int, background_color,
+                levels=None):
         """rays [R,6] -> per-ray render dict.  ``generator`` stratifies the
-        march (training only); None gives mid-interval samples."""
+        march (training only); None gives mid-interval samples.
+        ``levels``: the open hash levels (None: all, masked by step)."""
         n_rays = rays.shape[0]
         rays_o, rays_d = rays[:, 0:3], rays[:, 3:6]
         march_gen = generator if (self.randomized and train) else None
@@ -102,7 +113,8 @@ class NeuSModel(nn.Module):
         positions = rays_o[ridx] + t_dirs * t_mid[:, None]
 
         geo = self.geometry(positions, step, with_grad=True,
-                            with_feature=True, create_graph=train)
+                            with_feature=True, create_graph=train,
+                            levels=levels)
         sdf, sdf_grad, feature = geo["sdf"], geo["grad"], geo["feature"]
         normal = _normalize(sdf_grad)
         inv_s = self.variance.inv_s()

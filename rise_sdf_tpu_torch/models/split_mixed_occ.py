@@ -1,14 +1,22 @@
-"""Split-mixed-occ renderer, evaluation only (counterpart of
+"""Split-mixed-occ renderer (counterpart of
 ``rise_sdf_tpu/models/split_mixed_occ.py:SplitMixedOccModel``).
 
-The flagship's eval render: an optional coarse visibility probe (the
+The flagship's render: an optional coarse visibility probe (the
 per-ray cut or the ``[t_lo, t_cut)`` band), occupancy-pruned marching
 compacted into a fixed buffer (exactly ``band_k`` samples on banded
-rays), the geometry with analytic normals, NeuS weights, the eval
-visibility compaction of the texture stage, the five-head texture with
-split-sum shading, one fused accumulation, and the secondary pass:
-transmittance along the mirror rays (compacted to a fixed budget),
-blended with the secondary radiance head.
+rays), the geometry, NeuS weights, the eval visibility compaction of
+the texture stage, the five-head texture with split-sum shading, one
+fused accumulation, and the secondary pass: transmittance along the
+mirror rays (compacted to a fixed budget), blended with the secondary
+radiance head.
+
+Training (``train=True``) marches stratified when ``randomized``,
+takes the configured gradient (hybrid finite differences for the
+flagship) with the curvature probe, skips the visibility compaction and
+returns the per-sample tensors the losses read.  The visibility probe
+and the secondary transmittance and depth carry no gradient, as the
+JAX package's ``stop_gradient`` leaves them; the secondary feature
+encode and head do.
 
 With a bake (``ops/sdf_bake.py``, ``eval_sdf_bake`` "probe" or "full")
 the probe, and with "full" also the secondary transmittance, read the
@@ -19,8 +27,8 @@ kept entry its slot, the scatter sends the rest to one spare slot past
 the buffer (``.at[dest].set(..., mode="drop")``), and a ray whose
 entries overflow is reported in ``ray_included``.
 
-Stages 0 and 1 are served; training, relighting, ``forward_multi`` and
-the sphere-traced ``forward_surface`` are not ported yet.
+Stages 0 and 1 are served; relighting, ``forward_multi`` and the
+sphere-traced ``forward_surface`` are not ported yet.
 """
 
 from __future__ import annotations
@@ -85,10 +93,14 @@ class SplitMixedOccModel(nn.Module):
             raise ValueError(f"eval_sdf_bake '{self.eval_sdf_bake}'")
         self.eval_sdf_bake_cells = int(config.get("eval_sdf_bake_cells", 128))
         self.eval_band_spr = int(config.get("eval_banded_samples_per_ray", 0))
+        self.eval_band_reserve = int(config.get("eval_band_reserve", 0))
+        self.eval_samples_per_ray = int(config.get("eval_samples_per_ray",
+                                                   128))
         self.eval_band_exact = bool(config.get("eval_band_exact", True))
         if float(config.get("cone_angle", 0.0)) != 0.0:
             raise NotImplementedError("cone_angle marching is not ported yet")
         self.cos_anneal_end = int(config.get("cos_anneal_end", 0))
+        self.randomized = bool(config.get("randomized", True))
         self.split_sum_kick_in_step = int(
             config.get("split_sum_kick_in_step", 0))
         self.indirect_pred = bool(config.get("indirect_pred", True))
@@ -101,6 +113,8 @@ class SplitMixedOccModel(nn.Module):
         self.texture = make(config["texture"]["name"], config["texture"])
         self.emitter = make(config["light"]["name"], config["light"])
         self.variance = Variance(config["variance"])
+        self.fd_grad = config["geometry"].get("grad_type") \
+            == "finite_difference"
 
     @torch.no_grad()
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
@@ -112,6 +126,15 @@ class SplitMixedOccModel(nn.Module):
     # ------------------------------------------------------------------ #
     def stage(self, step: int) -> int:
         return 1 if step >= self.split_sum_kick_in_step else 0
+
+    def open_levels(self, step: int):
+        """Open hash levels of the geometry at ``step`` (None when the
+        grid is not progressive)."""
+        return self.geometry.open_levels(step)
+
+    def post_update(self, step: int):
+        """Buffer upkeep after the optimizer step (the variance's)."""
+        self.variance.post_update(step)
 
     def cos_anneal_ratio(self, step) -> float:
         if self.cos_anneal_end == 0:
@@ -129,6 +152,20 @@ class SplitMixedOccModel(nn.Module):
         start = int(self.config.get("prefilter_start_step",
                                     self.split_sum_kick_in_step))
         return (step >= start) if train else True
+
+    def eval_options(self, step: int, chunk: int) -> dict:
+        """The eval render's options for chunks of ``chunk`` rays at
+        ``step``: the stage, the prefilter (always on at eval when
+        configured) and, with it, banded marching into exactly
+        ``eval_banded_samples_per_ray`` slots per banded ray plus
+        ``eval_band_reserve``; else ``eval_samples_per_ray`` slots per
+        ray."""
+        pf = self.prefilter_on(step, train=False)
+        banded = pf and self.eval_band_spr > 0
+        cap = chunk * self.eval_band_spr + self.eval_band_reserve \
+            if banded else chunk * self.eval_samples_per_ray
+        return {"stage": self.stage(step), "prefilter": pf,
+                "banded": banded, "capacity": cap}
 
     def bake_eval_sdf(self, step):
         """The full geometry SDF baked onto the eval grid, or None when
@@ -207,9 +244,10 @@ class SplitMixedOccModel(nn.Module):
         wo = -rays_d
         sec_d = 2.0 * torch.sum(wo * normal_map, -1, keepdim=True) \
             * normal_map - wo
-        tr, _, sec_inc, sec_live = self.compute_indirect_radiance(
-            sec_o, sec_d, occ_binary, step, levels=levels,
-            frac=secondary_frac, bake=bake)
+        with torch.no_grad():
+            tr, _, sec_inc, sec_live = self.compute_indirect_radiance(
+                sec_o, sec_d, occ_binary, step, levels=levels,
+                frac=secondary_frac, bake=bake)
         # overflow matters only where the secondary result is blended in
         included = included & (sec_inc | ~sec_valid)
         sec_geo = self.geometry(sec_o, step, with_grad=False,
@@ -318,18 +356,20 @@ class SplitMixedOccModel(nn.Module):
             early_stop_eps=volrend.EARLY_STOP_EPS,
             margin_intervals=self.prefilter_margin_intervals, band=band)
 
-    def _march_compact(self, rays, *, occ_binary, step, capacity, levels,
-                       prefilter, banded, vis_frac, bake):
-        """Probe, march, geometry, NeuS weights and the eval visibility
+    def _march_compact(self, rays, *, occ_binary, step, train, capacity,
+                       levels, prefilter, banded, vis_frac, bake, generator,
+                       laplace_dirs):
+        """Probe, march, geometry, NeuS weights and (eval) the visibility
         compaction of the samples that go to the texture stage."""
         n_rays = rays.shape[0]
         rays_o, rays_d = rays[:, 0:3], rays[:, 3:6]
         t_cut = t_band_lo = None
         if prefilter and occ_binary is not None:
-            vc = self.visibility_cut(
-                rays_o, rays_d, occ_binary, step, levels=levels,
-                cos_anneal_ratio=self.cos_anneal_ratio(step), band=banded,
-                bake=bake)
+            with torch.no_grad():
+                vc = self.visibility_cut(
+                    rays_o, rays_d, occ_binary, step, levels=levels,
+                    cos_anneal_ratio=self.cos_anneal_ratio(step),
+                    band=banded, bake=bake)
             t_band_lo, t_cut = vc if banded else (None, vc)
 
         rs = march.march_rays(
@@ -337,7 +377,8 @@ class SplitMixedOccModel(nn.Module):
             step_size=self.render_step_size,
             num_samples=self.num_samples_per_ray, capacity=capacity,
             grid_binary=occ_binary, grid_resolution=self.grid_resolution,
-            generator=None, t_cut=t_cut, t_band_lo=t_band_lo,
+            generator=generator if (self.randomized and train) else None,
+            t_cut=t_cut, t_band_lo=t_band_lo,
             band_k=(self.eval_band_spr
                     if (banded and self.eval_band_exact
                         and self.eval_band_spr > 0) else None))
@@ -347,9 +388,17 @@ class SplitMixedOccModel(nn.Module):
         t_dirs = rays_d.index_select(0, ridx)
         positions = rays_o.index_select(0, ridx) + t_dirs * t_mid[:, None]
 
+        want_laplace = self.fd_grad and train
+        if want_laplace and laplace_dirs is None:
+            laplace_dirs = torch.rand(
+                (-(-capacity // self.geometry.laplace_stride), 3),
+                generator=generator, device=rays.device)
         geo = self.geometry(positions, step, with_grad=True,
-                            with_feature=True, grad_mode="analytic",
-                            levels=levels)
+                            with_feature=True, create_graph=train,
+                            levels=levels,
+                            grad_mode=None if train else "analytic",
+                            with_laplace=want_laplace,
+                            laplace_dirs=laplace_dirs)
         feature = geo["feature"]
         normal = _normalize(geo["grad"])
         inv_s = self.variance.inv_s()
@@ -363,8 +412,9 @@ class SplitMixedOccModel(nn.Module):
         frac = self.eval_visibility_frac if vis_frac is None \
             else float(vis_frac)
         vis = (weights > 1e-5) & rs.valid
-        mc = {"rs": rs, "weights": weights, "vis": vis, "inv_s": inv_s}
-        if frac < 1.0:
+        mc = {"rs": rs, "geo": geo, "weights": weights, "vis": vis,
+              "inv_s": inv_s, "t_mid": t_mid, "dists": dists}
+        if not train and frac < 1.0:
             # the texture stage runs only on samples of weight > 1e-5
             cap2 = max(int(capacity * frac), 16)
             src, bv, _ = _compact(vis, cap2)
@@ -388,73 +438,100 @@ class SplitMixedOccModel(nn.Module):
         mc["included"] = included
         return mc
 
-    @torch.no_grad()
     def forward(self, rays, *, occ_binary, mips, step, stage: int = 0,
                 train: bool = False, relighting: bool = False,
                 capacity: int, background_color, levels=None,
                 secondary_frac=None, prefilter: bool = False,
-                vis_frac=None, banded: bool = False, bake=None):
-        """rays [R, 6] -> per-ray eval dict.  ``mips`` is
+                vis_frac=None, banded: bool = False, bake=None,
+                generator: Optional[torch.Generator] = None,
+                laplace_dirs: Optional[torch.Tensor] = None):
+        """rays [R, 6] -> per-ray dict.  ``mips`` is
         ``emitter.build_mips()``, ``bake`` the ``bake_eval_sdf`` table (or
-        None); the other options are the JAX ``forward``'s.  Runs under
-        ``no_grad``; the geometry takes its analytic normals with respect
-        to the sample positions only."""
-        if train:
-            raise NotImplementedError(
-                "split-mixed-occ training is not ported yet")
+        None); the other options are the JAX ``forward``'s.  Eval
+        (``train=False``) runs under ``no_grad``, the geometry taking its
+        analytic normals with respect to the sample positions only.
+        Training draws the stratified march offsets (when ``randomized``)
+        and the curvature probe's directions from ``generator``, unless
+        ``laplace_dirs`` [ceil(capacity / laplace_stride), 3] gives the
+        directions (uniform [0, 1)^3, as the JAX probe draws them)."""
         if relighting:
             raise NotImplementedError("relighting is not ported yet")
-        mc = self._march_compact(
-            rays, occ_binary=occ_binary, step=step, capacity=capacity,
-            levels=levels, prefilter=prefilter, banded=banded,
-            vis_frac=vis_frac, bake=bake)
-        n_rays = rays.shape[0]
-        rays_o, rays_d = rays[:, 0:3], rays[:, 3:6]
-        rs = mc["rs"]
-        s_dirs, s_normal, s_tmid = mc["s_dirs"], mc["s_normal"], mc["s_tmid"]
+        with torch.set_grad_enabled(train):
+            mc = self._march_compact(
+                rays, occ_binary=occ_binary, step=step, train=train,
+                capacity=capacity, levels=levels, prefilter=prefilter,
+                banded=banded, vis_frac=vis_frac, bake=bake,
+                generator=generator, laplace_dirs=laplace_dirs)
+            n_rays = rays.shape[0]
+            rays_o, rays_d = rays[:, 0:3], rays[:, 3:6]
+            rs = mc["rs"]
+            s_dirs, s_normal = mc["s_dirs"], mc["s_normal"]
+            s_tmid = mc["s_tmid"]
 
-        tex = self.texture.apply(mc["s_feature"], s_dirs, s_normal,
-                                 mc["s_pos"], emitter=self.emitter, mips=mips,
-                                 stage=stage, step=step)
-        names = ["diff_rgb", "spec_rgb", "blend"]
-        if stage != 0:
-            names += ["diff_rgb_pbr", "spec_rgb_pbr", "spec_ref",
-                      "spec_light", "albedo", "metallic", "roughness"]
-        chans = [tex[k] for k in names]
-        norm_orient = torch.clamp(
-            torch.sum(s_dirs * s_normal, -1, keepdim=True), min=0.0)
-        chans += [s_normal, s_tmid[:, None], torch.ones_like(s_tmid)[:, None],
-                  norm_orient]
-        acc = volrend.accumulate_along_rays(
-            mc["s_weights"], mc["s_ridx"], torch.cat(chans, dim=-1), n_rays)
-        maps, i = {}, 0
-        for k, c in zip(names + ["normal", "depth", "acc"],
-                        [c.shape[-1] for c in chans]):
-            maps[k] = acc[:, i:i + c]
-            i += c
+            tex = self.texture.apply(mc["s_feature"], s_dirs, s_normal,
+                                     mc["s_pos"], emitter=self.emitter,
+                                     mips=mips, stage=stage, step=step)
+            names = ["diff_rgb", "spec_rgb", "blend"]
+            if stage != 0:
+                names += ["diff_rgb_pbr", "spec_rgb_pbr", "spec_ref",
+                          "spec_light", "albedo", "metallic", "roughness"]
+            chans = [tex[k] for k in names]
+            norm_orient = torch.clamp(
+                torch.sum(s_dirs * s_normal, -1, keepdim=True), min=0.0)
+            chans += [s_normal, s_tmid[:, None],
+                      torch.ones_like(s_tmid)[:, None], norm_orient]
+            acc = volrend.accumulate_along_rays(
+                mc["s_weights"], mc["s_ridx"], torch.cat(chans, dim=-1),
+                n_rays)
+            maps, i = {}, 0
+            for k, c in zip(names + ["normal", "depth", "acc", "norm_orient"],
+                            [c.shape[-1] for c in chans]):
+                maps[k] = acc[:, i:i + c]
+                i += c
 
-        sec_maps = {"spec_rgb": maps["spec_rgb"]}
-        if stage != 0:
-            sec_maps.update({k: maps[k] for k in (
-                "spec_rgb_pbr", "spec_ref", "spec_light", "roughness")})
-        sec_maps, included, sec_live = self._apply_secondary(
-            rays_o, rays_d, occ_binary, step, levels=levels,
-            secondary_frac=secondary_frac, stage=stage,
-            normal_map=maps["normal"], depth_map=maps["depth"],
-            acc_map=maps["acc"], maps=sec_maps, included=mc["included"],
-            bake=bake)
-        out = self._assemble_out(
-            diff_rgb_map=maps["diff_rgb"], maps=sec_maps,
-            blend_map=maps["blend"], normal_map=maps["normal"],
-            depth_map=maps["depth"], acc_map=maps["acc"],
-            num_samples=rs.num_live, included=included, inv_s=mc["inv_s"],
-            background_color=background_color, stage=stage,
-            diff_rgb_pbr_map=maps.get("diff_rgb_pbr"),
-            albedo_map=maps.get("albedo"), metallic_map=maps.get("metallic"))
-        # eval-capacity statistics: live samples in the buffer, samples of
-        # weight > 1e-5 and live secondary samples (before compaction)
-        out["stat_live"] = rs.num_live
-        out["stat_vis"] = mc["vis"].sum()
-        if self.indirect_pred:
-            out["stat_secondary_live"] = sec_live
-        return out
+            sec_maps = {"spec_rgb": maps["spec_rgb"]}
+            if stage != 0:
+                sec_maps.update({k: maps[k] for k in (
+                    "spec_rgb_pbr", "spec_ref", "spec_light", "roughness")})
+            sec_maps, included, sec_live = self._apply_secondary(
+                rays_o, rays_d, occ_binary, step, levels=levels,
+                secondary_frac=secondary_frac, stage=stage,
+                normal_map=maps["normal"], depth_map=maps["depth"],
+                acc_map=maps["acc"], maps=sec_maps, included=mc["included"],
+                bake=bake)
+            out = self._assemble_out(
+                diff_rgb_map=maps["diff_rgb"], maps=sec_maps,
+                blend_map=maps["blend"], normal_map=maps["normal"],
+                depth_map=maps["depth"], acc_map=maps["acc"],
+                num_samples=rs.num_live, included=included, inv_s=mc["inv_s"],
+                background_color=background_color, stage=stage,
+                diff_rgb_pbr_map=maps.get("diff_rgb_pbr"),
+                albedo_map=maps.get("albedo"),
+                metallic_map=maps.get("metallic"))
+            if train:
+                geo = mc["geo"]
+                out.update({
+                    "sdf_samples": geo["sdf"],
+                    "sdf_grad_samples": geo["grad"],
+                    "samples_valid": rs.valid,
+                    "weights": mc["weights"],
+                    "points": mc["t_mid"],
+                    "intervals": mc["dists"],
+                    "ray_indices": rs.ray_indices,
+                    "ray_start": rs.ray_start,
+                    "normals_orientation_loss_map": maps["norm_orient"],
+                })
+                if "laplace" in geo:
+                    # the probe ran on every laplace_stride-th sample
+                    out["sdf_laplace_samples"] = geo["laplace"]
+                    out["sdf_laplace_valid"] = \
+                        rs.valid[::self.geometry.laplace_stride]
+                return out
+            # eval-capacity statistics: live samples in the buffer,
+            # samples of weight > 1e-5 and live secondary samples (before
+            # compaction)
+            out["stat_live"] = rs.num_live
+            out["stat_vis"] = mc["vis"].sum()
+            if self.indirect_pred:
+                out["stat_secondary_live"] = sec_live
+            return out

@@ -22,3 +22,8 @@ class Variance(nn.Module):
 
     def inv_s(self):
         return torch.clamp(torch.exp(self.variance * 10.0), 1e-6, 1e6)
+
+    def post_update(self, step):
+        """Buffer upkeep after the optimizer step: nothing without
+        modulation (the JAX ``post_update`` tracks ``prev_inv_s`` only
+        when ``modulate`` is on)."""

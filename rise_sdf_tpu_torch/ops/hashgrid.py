@@ -1,13 +1,15 @@
 """Multiresolution hash-grid encoding (counterpart of
-``rise_sdf_tpu/ops/hashgrid.py``, the plain-encode path).
+``rise_sdf_tpu/ops/hashgrid.py``: the plain encode, ``encode_with_grad``
+and ``encode_axis_probes``).
 
 Level resolutions follow instant-ngp, ``res_l = floor(base * b^l)``;
 levels whose dense grid fits the table index densely, the rest through
 the instant-ngp spatial hash.  The tables are one ``[L, T, F]``
-parameter.  One encode builds a single ``[N, L_open, 8]`` row-index
+parameter.  Each encode builds a single ``[N, L_open, K]`` row-index
 tensor into the flattened ``[L*T, F]`` table (level l offset by
-``l*T``) and gathers it through ``TableGradLookup``, so the backward is
-one K1 launch for all levels and never materialises a per-level slice
+``l*T``; K = 8 cell corners, or the 32-point probe neighbourhood) and
+gathers it through ``TableGradLookup``, so the backward is one K1
+launch for all levels and never materialises a per-level slice
 gradient.
 """
 
@@ -64,6 +66,7 @@ class HashGridEncoding(nn.Module):
         self.register_buffer("dense_stride", torch.tensor(
             [r + 1 for r in self.resolutions], dtype=torch.int64),
             persistent=False)
+        self.register_buffer("off32", _off32(), persistent=False)
         self.reset_parameters()
 
     @torch.no_grad()
@@ -95,68 +98,192 @@ class HashGridEncoding(nn.Module):
             return int(lo), int(min(hi, n_levels))
         return 0, int(min(levels, n_levels))
 
+
     # ------------------------------------------------------------------ #
-    def _flat_index(self, c: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
-        """Per-axis integer corners ``c`` [N, hi-lo, 2, 3] (int64) of
-        levels [lo, hi), all dense or all hashed -> [N, hi-lo, 8] rows of
-        the level's table (corner order cx-major, as the JAX encode).
+    def _cell(self, x: torch.Tensor, lo: int, hi: int):
+        """Cell corner ``i0`` [N, Lo, 3] (int64, in [0, res - 1]) and the
+        fractions ``w`` [N, Lo, 3] of ``x`` [N, 3] at levels [lo, hi).
+        floor has zero gradient: x-gradients flow through ``w``."""
+        res = self.level_res[lo:hi].to(x.dtype)
+        pos = x[:, None, :] * res[None, :, None]
+        i0 = torch.minimum(torch.floor(pos.detach()).clamp_(min=0.0),
+                           (res - 1.0)[None, :, None])
+        return i0.long(), pos - i0
 
-        The hash is taken in int64 and masked with ``T-1``: the low 19
-        bits equal those of the JAX uint32 wraparound."""
-        cx, cy, cz = c[..., 0], c[..., 1], c[..., 2]          # [N, Lr, 2]
+    def _grid_rows(self, cx, cy, cz, lo: int, hi: int) -> torch.Tensor:
+        """Integer grid points (per-axis int64 tensors that broadcast,
+        level along dim 1) of levels [lo, hi), all dense or all hashed ->
+        rows of the level's table.  The hash is taken in int64 and masked
+        with ``T-1``: the low 19 bits equal those of the JAX uint32
+        wraparound."""
         if self.dense[lo]:
-            s = self.dense_stride[lo:hi].view(-1, 1, 1, 1)
-            flat = (cx[..., :, None, None]
-                    + s * (cy[..., None, :, None]
-                           + s * cz[..., None, None, :]))
-        else:
-            flat = ((cx * _PRIMES[0])[..., :, None, None]
-                    ^ (cy * _PRIMES[1])[..., None, :, None]
-                    ^ (cz * _PRIMES[2])[..., None, None, :]) \
-                & (self.table_size - 1)
-        return flat.reshape(*flat.shape[:2], 8)
+            s = self.dense_stride[lo:hi].view(-1, *[1] * (cx.dim() - 2))
+            return cx + s * (cy + s * cz)
+        return ((cx * _PRIMES[0]) ^ (cy * _PRIMES[1]) ^ (cz * _PRIMES[2])) \
+            & (self.table_size - 1)
 
-    @staticmethod
-    def _corner_weights(w: torch.Tensor) -> torch.Tensor:
-        """Fractions [N, L, 3] -> trilinear weights [N, L, 8] (cx-major)."""
-        wx = torch.stack([1.0 - w[..., 0], w[..., 0]], -1)
-        wy = torch.stack([1.0 - w[..., 1], w[..., 1]], -1)
-        wz = torch.stack([1.0 - w[..., 2], w[..., 2]], -1)
-        cw = (wx[..., :, None, None] * wy[..., None, :, None]
-              * wz[..., None, None, :])
-        return cw.reshape(*w.shape[:2], 8)
+    def _rows_by_band(self, fn, lo: int, hi: int) -> torch.Tensor:
+        """``fn(a, b)`` -> [N, b - a, K] rows over the dense and the
+        hashed part of [lo, hi) (the dense levels are a prefix), joined
+        along the level axis."""
+        split = min(max(self.n_dense, lo), hi)
+        parts = [fn(a, b) for a, b in ((lo, split), (split, hi)) if b > a]
+        return parts[0] if len(parts) == 1 else torch.cat(parts, 1)
+
+    def _corner_rows(self, i0: torch.Tensor, lo: int, hi: int):
+        """The 8 cell corners of ``i0`` [N, Lo, 3] -> [N, Lo, 8] rows
+        (cx-major, as the JAX encode)."""
+        def rows(a, b):
+            c = i0[:, a - lo:b - lo]
+            cx, cy, cz = (torch.stack([c[..., k], c[..., k] + 1], -1)
+                          for k in range(3))
+            flat = self._grid_rows(cx[..., :, None, None],
+                                   cy[..., None, :, None],
+                                   cz[..., None, None, :], a, b)
+            return flat.flatten(-3)
+        return self._rows_by_band(rows, lo, hi)
+
+    def _lookup(self, flat: torch.Tensor, lo: int) -> torch.Tensor:
+        """[N, Lo, K] rows of levels lo, lo + 1, ... -> [N, Lo, K, F]
+        values: one gather from the flattened ``[L*T, F]`` table (G1 on
+        the card), whose table gradient is one K1 launch."""
+        L, F, T = self.n_levels, self.n_features_per_level, self.table_size
+        offs = torch.arange(lo, lo + flat.shape[1], device=flat.device,
+                            dtype=torch.int64) * T
+        rows = (flat + offs[None, :, None]).to(torch.int32)
+        return table_grad_lookup(self.table.view(L * T, F), rows)
+
+    def _level_out(self, feats: torch.Tensor, lo: int, hi: int, step):
+        """[..., N, Lo, F] features of levels [lo, hi) -> [..., N, L*F]:
+        the progressive mask applied, closed slots zero."""
+        if self.progressive:  # all-open grids skip the exact x1.0
+            mask = self.level_mask(step if step is not None else 10 ** 9,
+                                   feats.device)
+            feats = feats * mask[lo:hi].to(feats.dtype)[:, None]
+        L, F = self.n_levels, self.n_features_per_level
+        if hi - lo < L:
+            pad = list(feats.shape)
+            pad[-2] = L
+            out = feats.new_zeros(pad)
+            out[..., lo:hi, :] = feats
+            feats = out
+        return feats.flatten(-2)
 
     def forward(self, x: torch.Tensor, step=None, levels=None) -> torch.Tensor:
         """Encode ``x`` [N, 3] in [0,1]^3 -> [N, L*F] features
         (level-major).  ``levels`` (count or (lo, hi)) skips the gathers
         of levels outside the range; their feature slots are zeros."""
         lo, hi = self._level_range(levels, self.n_levels)
-        n, L, F, T = x.shape[0], self.n_levels, self.n_features_per_level, \
-            self.table_size
         if hi <= lo:
-            return x.new_zeros((n, L * F))
-        res = self.level_res[lo:hi].to(x.dtype)
-        pos = x[:, None, :] * res[None, :, None]              # [N, Lo, 3]
-        # floor has zero gradient: x-gradients flow through the weights
-        i0 = torch.minimum(torch.floor(pos.detach()).clamp_(min=0.0),
-                           (res - 1.0)[None, :, None])
-        w = pos - i0
-        i0 = i0.long()
-        corners = torch.stack([i0, i0 + 1], dim=2)            # [N, Lo, 2, 3]
-        # dense levels are a prefix of the range
-        split = min(max(self.n_dense, lo), hi)
-        parts = [self._flat_index(corners[:, a - lo:b - lo], a, b)
-                 for a, b in ((lo, split), (split, hi)) if b > a]
-        flat = parts[0] if len(parts) == 1 else torch.cat(parts, 1)
-        offs = torch.arange(lo, hi, device=x.device, dtype=torch.int64) * T
-        rows = (flat + offs[None, :, None]).to(torch.int32)   # [N, Lo, 8]
-        vals = table_grad_lookup(self.table.view(L * T, F), rows)
-        feats = (self._corner_weights(w)[..., None] * vals).sum(2)
-        if self.progressive:  # all-open grids skip the exact x1.0
-            mask = self.level_mask(step if step is not None else 10 ** 9,
-                                   feats.device)
-            feats = feats * mask[lo:hi].to(feats.dtype)[None, :, None]
-        if hi - lo < L:
-            feats = torch.cat([feats.new_zeros((n, lo, F)), feats,
-                               feats.new_zeros((n, L - hi, F))], 1)
-        return feats.reshape(n, L * F)
+            return x.new_zeros((x.shape[0], self.n_output_dims))
+        i0, w = self._cell(x, lo, hi)
+        vals = self._lookup(self._corner_rows(i0, lo, hi), lo)
+        feats = (_outer8(*_axis_pairs(w))[..., None] * vals).sum(2)
+        return self._level_out(feats, lo, hi, step)
+
+    def encode_with_grad(self, x: torch.Tensor, step=None, levels=None):
+        """Features and their x-space Jacobian for levels in range
+        (``encode_with_grad`` of the JAX encoding): ``(feats, (jx, jy,
+        jz))``, each [N, L*F].  The columns reuse the features' gathered
+        rows, so their table gradient rides the same K1 launch."""
+        lo, hi = self._level_range(levels, self.n_levels)
+        if hi <= lo:
+            z = x.new_zeros((x.shape[0], self.n_output_dims))
+            return z, (z, z, z)
+        i0, w = self._cell(x, lo, hi)
+        vals = self._lookup(self._corner_rows(i0, lo, hi), lo)
+        pairs = _axis_pairs(w)
+        feats = (_outer8(*pairs)[..., None] * vals).sum(2)
+        one = torch.ones_like(w[..., 0])
+        d = torch.stack([-one, one], -1)  # d/dw of (1 - w, w)
+        res = self.level_res[lo:hi].to(x.dtype)[None, :, None]
+        jac = []
+        for a in range(3):
+            dp = list(pairs)
+            dp[a] = d
+            jac.append(self._level_out(
+                (_outer8(*dp)[..., None] * vals).sum(2) * res, lo, hi, step))
+        return self._level_out(feats, lo, hi, step), tuple(jac)
+
+    def encode_axis_probes(self, u: torch.Tensor, u_probes: torch.Tensor,
+                           probe_axes, step=None, levels=None):
+        """A base point and axis-aligned FD probes from one 32-point
+        neighbourhood gather per level (``encode_axis_probes`` of the JAX
+        encoding).
+
+        ``u`` [N, 3] in [0,1]^3; ``u_probes`` [P, N, 3], probe ``p``
+        differing from ``u`` only along axis ``probe_axes[p]``, by at
+        most one cell of every level in range.  The 32 points are the 8
+        cell corners plus, per axis, the 8 points one cell before and
+        after; each probe's trilinear interpolation is a [32] weight row
+        over them.  One gather of [N, Lo, 32] rows (K1's layout period is
+        32 * Lo).  Returns [P+1, N, L*F], base first."""
+        lo, hi = self._level_range(levels, self.n_levels)
+        p_n, n = len(probe_axes), u.shape[0]
+        if u_probes.shape[0] != p_n:
+            raise ValueError(f"{u_probes.shape[0]} probes for {p_n} axes")
+        if hi <= lo:
+            return u.new_zeros((p_n + 1, n, self.n_output_dims))
+        i0, f = self._cell(u, lo, hi)
+        res = self.level_res[lo:hi].to(u.dtype)
+        w2 = _axis_pairs(f)
+        zero8 = f.new_zeros((n, hi - lo, 8))
+        rows = [torch.cat([_outer8(*w2), zero8, zero8, zero8], -1)]
+        pos4 = torch.arange(4, device=u.device)
+        for p, axis in enumerate(probe_axes):
+            pa = u_probes[p, :, axis][:, None] * res[None, :]   # [N, Lo]
+            i0p = torch.minimum(torch.floor(pa.detach()).clamp_(min=0.0),
+                                res - 1.0)
+            fp = (pa - i0p)[..., None]
+            ox = (i0p.long() - i0[..., axis])[..., None]  # in {-1, 0, 1}
+            # the probe's axis weights over positions -1, 0, 1, 2
+            w4 = (pos4 == ox + 1) * (1.0 - fp) + (pos4 == ox + 2) * fp
+            wb = list(w2)
+            wb[axis] = w4[..., 1:3]
+            others = [a for a in range(3) if a != axis]
+            blocks = [_outer8(*wb), zero8, zero8, zero8]
+            blocks[1 + axis] = _outer8(torch.stack([w4[..., 0], w4[..., 3]],
+                                                   -1),
+                                       w2[others[0]], w2[others[1]])
+            rows.append(torch.cat(blocks, -1))
+        w32 = torch.stack(rows)                        # [P+1, N, Lo, 32]
+        c = torch.minimum(
+            torch.clamp(i0[:, :, None, :] + self.off32, min=0),
+            (self.dense_stride[lo:hi] - 1).view(1, -1, 1, 1))  # [N, Lo, 32, 3]
+
+        def rows32(a, b):
+            cc = c[:, a - lo:b - lo]
+            return self._grid_rows(cc[..., 0], cc[..., 1], cc[..., 2], a, b)
+
+        vals = self._lookup(self._rows_by_band(rows32, lo, hi), lo)
+        feats = torch.einsum("pnlk,nlkf->pnlf", w32, vals)
+        return self._level_out(feats, lo, hi, step)
+
+
+def _axis_pairs(w: torch.Tensor):
+    """Fractions [..., 3] -> per axis the linear weights (1 - w, w),
+    three [..., 2] tensors."""
+    return [torch.stack([1.0 - w[..., a], w[..., a]], -1) for a in range(3)]
+
+
+def _outer8(wx, wy, wz) -> torch.Tensor:
+    """Three [..., 2] axis weights -> [..., 8] corner weights (cx-major,
+    matching the corner rows and the base block of the 32 points)."""
+    return (wx[..., :, None, None] * wy[..., None, :, None]
+            * wz[..., None, None, :]).flatten(-3)
+
+
+def _off32() -> torch.Tensor:
+    """[32, 3] offsets of the shared-probe neighbourhood: the 8 cell
+    corners, then per axis (x, y, z) the points at -1 and 2 on that axis
+    (e-major) with the other two axes at 0/1 in ascending order."""
+    off = [[a, b, c] for a in (0, 1) for b in (0, 1) for c in (0, 1)]
+    for axis in range(3):
+        others = [a for a in range(3) if a != axis]
+        for e in (-1, 2):
+            for o1 in (0, 1):
+                for o2 in (0, 1):
+                    p = [0, 0, 0]
+                    p[axis], p[others[0]], p[others[1]] = e, o1, o2
+                    off.append(p)
+    return torch.tensor(off, dtype=torch.int64)

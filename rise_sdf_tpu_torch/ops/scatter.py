@@ -119,10 +119,11 @@ class TableGradLookup(torch.autograd.Function):
     def backward(ctx, grad):
         (idx,) = ctx.saved_tensors
         f = grad.shape[-1]
-        # the encode's [N, L_open, 8] rows: one sample's levels and corners
-        # per row of the layout, consecutive samples along a ray
+        # the encodes' [N, L_open, 8] corner rows and [N, L_open, 32]
+        # probe-neighbourhood rows: one sample's levels per row of the
+        # layout, consecutive samples along a ray
         period = idx.shape[-2] * idx.shape[-1] \
-            if idx.dim() == 3 and idx.shape[-1] == 8 else 1
+            if idx.dim() == 3 and idx.shape[-1] in (8, 32) else 1
         d_table = scatter_add(idx.reshape(-1),
                               grad.reshape(-1, f).float().contiguous(),
                               ctx.table_size, period)

@@ -5,7 +5,9 @@
 model and system of ``configs/neus-blender.yaml`` at full width, trained
 on the procedural ``synthetic-sphere`` scene at the config's own
 800x800; ``split_mixed_occ_full`` is the model section of
-``configs/split-mixed-occ-tensoir.yaml``, the flagship.
+``configs/split-mixed-occ-tensoir.yaml``, the flagship, and
+``split_mixed_occ_train_full`` the whole config, trained on the
+synthetic sphere.
 """
 
 from __future__ import annotations
@@ -286,4 +288,58 @@ def split_mixed_occ_full():
                                           "nmf_format": False, "scale": 0.5,
                                           "bias": 0.25, "base_res": 512}},
         },
+    }
+
+
+def split_mixed_occ_train_full():
+    """The flagship's training config: ``configs/split-mixed-occ-tensoir.yaml``
+    with its interpolations resolved (the warmup milestone 500 and the
+    ExponentialLR gamma of ``calc_exp_lr_decay_rate(0.1, max_steps -
+    warmup)``), ``split_mixed_occ_full``'s model, trained on the
+    procedural ``synthetic-sphere`` at the config's own 800x800 in place
+    of TensoIR (a download)."""
+    max_steps, warmup = 80000, 500
+    scene = "synthetic-sphere"
+    return {
+        "name": f"split-mixed-occ-tensoir-{scene}",
+        "tag": "",
+        "seed": 42,
+        "dataset": {"name": scene, "img_wh": [800, 800], "n_images": 16,
+                    "near_plane": 2.0, "far_plane": 6.0, "relight_list": []},
+        "model": split_mixed_occ_full()["model"],
+        "system": {
+            "name": "split-occ-system",
+            "loss": {"lambda_rgb_mse": 10.0, "lambda_rgb_l1": 0.0,
+                     "lambda_rgb_phys_mse": 10.0, "lambda_rgb_phys_l1": 0.0,
+                     "lambda_mask": 0.1, "lambda_eikonal": 0.05,
+                     "lambda_sparsity": 0.01, "lambda_curvature": 1,
+                     "lambda_distortion": 0.0, "lambda_opaque": 0.0,
+                     "lambda_normal_orientation": 0.05,
+                     "lambda_emitter_distillation": 0.0,
+                     "sparsity_scale": 1.0},
+            "optimizer": {"name": "Adam",
+                          "args": {"lr": 0.005, "betas": [0.9, 0.999],
+                                   "eps": 1e-12},
+                          "params": {"geometry": {"lr": 0.005},
+                                     "texture": {"lr": 0.005},
+                                     "variance": {"lr": 0.001},
+                                     "emitter": {"lr": 0.01}}},
+            "warmup_steps": warmup,
+            "scheduler": {
+                "name": "SequentialLR", "interval": "step",
+                "milestones": [warmup],
+                "schedulers": [
+                    {"name": "LinearLR",
+                     "args": {"start_factor": 0.01, "end_factor": 1.0,
+                              "total_iters": warmup}},
+                    {"name": "ExponentialLR",
+                     "args": {"gamma": 0.1 ** (1 / (max_steps - warmup))}},
+                ]},
+        },
+        "checkpoint": {"save_top_k": -1, "every_n_train_steps": max_steps},
+        "export": {"chunk_size": 2097152, "export_vertex_color": True},
+        "trainer": {"max_steps": max_steps, "log_every_n_steps": 100,
+                    "num_sanity_val_steps": 0, "val_check_interval": 5000,
+                    "limit_train_batches": 1.0, "limit_val_batches": 3,
+                    "enable_progress_bar": True, "precision": 32},
     }

@@ -3,4 +3,4 @@ from ..registry import systems as _registry
 make = _registry.make
 register = _registry.register
 
-from . import neus  # noqa: E402,F401
+from . import neus, split_occ  # noqa: E402,F401

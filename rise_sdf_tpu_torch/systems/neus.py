@@ -2,9 +2,11 @@
 ``rise_sdf_tpu/systems/neus.py``, single device).
 
 One train step: random ray batch on the device -> occupancy-pruned
-march -> field and analytic gradient -> losses -> backward (the
-hash-table gradient through kernel K1) -> finite-grads guard -> Adam and
-the LR schedule.  The occupancy-grid EMA sweep runs every 16 steps.
+march -> field and its gradient -> losses -> backward (the hash-table
+gradient through kernel K1) -> finite-grads guard -> Adam and the LR
+schedule.  The occupancy-grid EMA sweep runs every 16 steps.  Each step
+takes the JAX fit's per-step flags: the open hash levels and the sample
+buffer (``train_options``).
 """
 
 from __future__ import annotations
@@ -20,7 +22,12 @@ from .base import BaseSystem
 from .criterions import psnr
 from .optim import make_optimizer
 from ..ops import grid as occ_grid
+from ..utils.color import rgb_to_srgb
+from ..utils.misc import interleave_order
 from ..utils.rays import get_rays
+
+
+OCC_UPDATE_EVERY = 16  # steps between occupancy-grid sweeps in ``fit``
 
 
 def _step_seed(seed: int, k: int) -> int:
@@ -36,16 +43,25 @@ class NeuSSystem(BaseSystem):
         mc = self.config["model"]
         self.train_num_rays = int(mc.get("max_train_num_rays",
                                          mc.get("train_num_rays", 4096)))
-        if mc.get("dynamic_ray_sampling", False):
-            raise NotImplementedError("dynamic ray sampling is not ported")
         default_cap = min(
             self.train_num_rays * int(mc["num_samples_per_ray"]), 1 << 20)
+        if mc.get("dynamic_ray_sampling", False):
+            # the sample budget of train_num_rays rays: the march drops
+            # the rays of max_train_num_rays that do not fit
+            default_cap = int(mc.get("train_num_rays", 256)) \
+                * int(mc["num_samples_per_ray"])
         self.capacity = int(mc.get("train_sample_capacity", default_cap))
+        # with the visibility prefilter on, the buffer holds only visible
+        # samples, so a smaller one keeps every ray
+        self.capacity_prefiltered = int(
+            mc.get("train_sample_capacity_prefiltered", self.capacity))
         self.eval_chunk = int(mc.get("ray_chunk", 4096))
         self.eval_capacity = self.eval_chunk * int(
             mc.get("eval_samples_per_ray", 128))
+        self.eval_ray_interleave = mc.get("eval_ray_interleave", False)
         self.grid_prune = bool(mc.get("grid_prune", True))
         self.background_color_mode = mc.get("background_color", "random")
+        self.bg_srgb = False  # the split system composites bg in sRGB
         self.optimizer = self.scheduler = None
         self.skipped_updates = 0
 
@@ -89,7 +105,8 @@ class NeuSSystem(BaseSystem):
             bg = torch.zeros(3, device=self.device)
         else:
             bg = torch.rand(3, **kw)
-        rgb = rgb * mask[:, None] + bg[None, :] * (1 - mask[:, None])
+        bg_rgb = rgb_to_srgb(bg) if self.bg_srgb else bg
+        rgb = rgb * mask[:, None] + bg_rgb[None, :] * (1 - mask[:, None])
         return {"rays": torch.cat([rays_o, rays_d], -1), "rgb": rgb,
                 "mask": mask, "bg": bg}
 
@@ -134,12 +151,12 @@ class NeuSSystem(BaseSystem):
         return loss, losses
 
     def forward_loss(self, batch, occ_binary, step, generator=None,
-                     capacity: Optional[int] = None):
+                     capacity: Optional[int] = None, levels=None):
         """Model forward + loss assembly -> (loss, aux)."""
         out = self.model(batch["rays"], occ_binary=occ_binary, step=step,
                          generator=generator, train=True,
                          capacity=capacity or self.capacity,
-                         background_color=batch["bg"])
+                         background_color=batch["bg"], levels=levels)
         loss, losses = self.compute_losses(out, batch, step)
         aux = dict(losses)
         aux["inv_s"] = out["inv_s"]
@@ -147,26 +164,43 @@ class NeuSSystem(BaseSystem):
         aux["num_rays"] = out["ray_included"].sum()
         return loss, aux
 
-    def train_step(self, state, batch, generator=None) -> Dict:
-        """One update on ``batch``; advances ``state["step"]``.
+    def train_options(self, step: int) -> Dict:
+        """``forward_loss``'s per-step options, as the JAX fit sets them:
+        the open hash levels (the geometry takes hybrid finite
+        differences only with an int count) and the sample buffer."""
+        return {"levels": self.model.open_levels(step),
+                "capacity": self.capacity}
 
-        Finite-grads guard: a non-finite gradient anywhere skips the
-        optimizer step and the LR-schedule step together (the JAX step
-        keeps the whole optax state, schedule count included) and counts
-        the skip in ``self.skipped_updates``."""
+    def train_step(self, state, batch, generator=None, **kw) -> Dict:
+        """One update on ``batch``; advances ``state["step"]``.  ``kw``
+        goes on to ``forward_loss`` (the curvature probe's
+        ``laplace_dirs``).
+
+        A parameter off this step's graph (the emitter and the roughness
+        head before the split-sum stage) takes a zero gradient, so that
+        Adam advances its moments and its step count as optax does for
+        every leaf.  Finite-grads guard: a non-finite gradient anywhere
+        skips the optimizer step and the LR-schedule step together (the
+        JAX step keeps the whole optax state, schedule count included)
+        and counts the skip in ``self.skipped_updates``."""
         step = int(state["step"])
         self.optimizer.zero_grad(set_to_none=True)
         loss, aux = self.forward_loss(batch, state["occ_binary"], step,
-                                      generator)
+                                      generator, **self.train_options(step),
+                                      **kw)
         loss.backward()
-        grads = [p.grad for p in self.model.parameters()
-                 if p.grad is not None]
-        ok = bool(torch.stack([torch.isfinite(g).all() for g in grads]).all())
+        params = [p for g in self.optimizer.param_groups for p in g["params"]]
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        ok = bool(torch.stack([torch.isfinite(p.grad).all()
+                               for p in params]).all())
         if ok:
             self.optimizer.step()
             self.scheduler.step()
         else:
             self.skipped_updates += 1
+        self.model.post_update(step)
         aux["loss"] = loss.detach()
         aux["skipped_nonfinite"] = 0.0 if ok else 1.0
         state["step"] = step + 1
@@ -188,7 +222,7 @@ class NeuSSystem(BaseSystem):
         t0 = time.time()
         start = int(state["step"])
         for step in range(start, max_steps):
-            if self.grid_prune and step % 16 == 0:
+            if self.grid_prune and step % OCC_UPDATE_EVERY == 0:
                 gen.manual_seed(_step_seed(seed, 2 * step + 1))
                 self.update_occupancy(state, gen)
             gen.manual_seed(_step_seed(seed, 2 * step))
@@ -206,8 +240,11 @@ class NeuSSystem(BaseSystem):
                 if on_log:
                     on_log(step, m)
                 else:
+                    phys = (f" phys={m['rgb_phys_mse']:.5f}"
+                            if "rgb_phys_mse" in m else "")
                     print(f"step {step}: loss={m['loss']:.4f} "
-                          f"mse={m['rgb_mse']:.5f} inv_s={m['inv_s']:.1f} "
+                          f"mse={m['rgb_mse']:.5f}{phys} "
+                          f"inv_s={m['inv_s']:.1f} "
                           f"rays={int(m['num_rays'])} "
                           f"samples={int(m['num_samples'])} "
                           f"sps={m['steps_per_sec']:.2f}", flush=True)
@@ -215,10 +252,16 @@ class NeuSSystem(BaseSystem):
         return state
 
     # ------------------------------------------------------------------ #
-    def render_chunk(self, state, rays, capacity: int):
+    def eval_context(self, state) -> Dict:
+        """Per-image inputs of ``render_chunk`` beyond the rays."""
+        return {}
+
+    def render_chunk(self, state, rays, mult: int = 1):
+        """One eval chunk into a buffer of ``mult`` times the eval
+        capacity."""
         out = self.model(rays, occ_binary=state["occ_binary"],
                          step=int(state["step"]), train=False,
-                         capacity=capacity,
+                         capacity=self.eval_capacity * mult,
                          background_color=torch.ones(3, device=self.device))
         keep = ["comp_rgb_full", "comp_normal", "opacity", "depth",
                 "ray_included"]
@@ -226,9 +269,10 @@ class NeuSSystem(BaseSystem):
 
     @torch.no_grad()
     def render_image(self, state, split, index: int) -> Dict[str, np.ndarray]:
-        """Serial chunk loop over one view.  A chunk whose rays overflow
-        the fixed sample buffer is rendered again with a 2x, then 4x
-        buffer."""
+        """Serial chunk loop over one view, in the configured ray
+        interleave.  A chunk whose rays overflow the fixed sample buffer
+        is rendered again with a 2x, then 4x buffer; ``ray_included``
+        says which rays fit in the end."""
         dirs = torch.as_tensor(split.directions, device=self.device)
         c2w = torch.as_tensor(split.all_c2w[index], device=self.device)
         rays_o, rays_d = get_rays(dirs, c2w)
@@ -236,8 +280,12 @@ class NeuSSystem(BaseSystem):
                                                    keepdim=True)
         rays = torch.cat([rays_o, rays_d], -1)
         n, chunk = rays.shape[0], self.eval_chunk
+        order, inv = interleave_order(n, chunk, self.eval_ray_interleave)
+        if order is not None:
+            rays = rays[torch.from_numpy(order).to(self.device)]
         outs = []
         with self.frozen_params():
+            ctx = self.eval_context(state)
             for s in range(0, n, chunk):
                 part = rays[s:s + chunk]
                 pad = chunk - part.shape[0]
@@ -245,20 +293,22 @@ class NeuSSystem(BaseSystem):
                     # edge-pad: duplicated real rays behave like their
                     # source (zero-direction rays would overflow the buffer)
                     part = torch.cat([part, part[-1:].expand(pad, -1)])
-                res = self.render_chunk(state, part, self.eval_capacity)
+                res = self.render_chunk(state, part, **ctx)
                 for mult in (2, 4):
                     if bool(res["ray_included"].all()):
                         break
-                    res = self.render_chunk(state, part,
-                                            self.eval_capacity * mult)
+                    res = self.render_chunk(state, part, mult, **ctx)
                 dropped = int((~res["ray_included"]).sum())
                 if dropped:
                     print(f"WARNING: eval chunk at ray {s}: {dropped} rays "
                           "overflowed the 4x sample buffer and were rendered "
                           "partially — metrics may be corrupted", flush=True)
                 outs.append({k: v[:chunk - pad] for k, v in res.items()})
-        return {k: torch.cat([o[k] for o in outs]).cpu().numpy()
-                for k in outs[0]}
+        img = {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
+        if inv is not None:
+            back = torch.from_numpy(inv).to(self.device)
+            img = {k: v[back] for k, v in img.items()}
+        return {k: v.cpu().numpy() for k, v in img.items()}
 
     def validate(self, state, n_images: Optional[int] = None):
         split = self.datamodule.val()

@@ -18,7 +18,8 @@ from rise_sdf_tpu_torch.ops.scatter import (
     scatter_add,
     scatter_add_plain,
 )
-from test_torch_streams import dense17_rows, ray_encode_rows
+from test_torch_streams import (dense17_rows, probe_encode_rows,
+                                ray_encode_rows)
 
 pytestmark = pytest.mark.cuda
 
@@ -159,6 +160,65 @@ def test_gather_rows_kernel_on_encode_rows(cuda):
     got = gather_rows(table, idx)
     want = table.index_select(0, idx.long())
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("cut", [0, 50], ids=["whole", "ragged"])
+def test_scatter_add_kernel_on_probe_rows_at_period_96(cuda, cut):
+    """K1 on the shared-probe encode's [N, 3, 32] rows (the hybrid-FD
+    fine band) with their layout's period 96, held to the float64
+    reference per entry; and the lookup's backward passes that period
+    and launches K1 once."""
+    rows, t = probe_encode_rows(4, 250)
+    idx = rows.reshape(-1)[:rows.numel() - cut].contiguous().to(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(7 + cut)
+    vals = torch.randn((idx.numel(), 2), generator=gen, device=cuda)
+    before = scatter_add.launches
+    got = scatter_add(idx, vals, t, 96)
+    torch.cuda.synchronize()
+    assert scatter_add.launches == before + 1
+    _assert_matches_f64(got, idx, vals, t)
+    if cut:
+        return
+    table = torch.randn((t, 2), generator=gen,
+                        device=cuda).requires_grad_(True)
+    cot = vals.view(*rows.shape, 2)
+    before = scatter_add.launches
+    (TableGradLookup.apply(table, rows.to(cuda)) * cot).sum().backward()
+    torch.cuda.synchronize()
+    assert scatter_add.launches == before + 1
+    _assert_matches_f64(table.grad, idx, vals, t)
+
+
+def test_hybrid_fd_geometry_launches_kernels(cuda):
+    """The flagship's FD geometry on the card: the coarse Jacobian
+    encode, the shared-probe encode and the curvature probe's fine
+    encode each gather through G1, and the backward of a loss on the
+    gradient and the curvature takes each table gradient through K1:
+    three launches each, no plain path."""
+    from rise_sdf_tpu_torch import models
+    from rise_sdf_tpu_torch.presets import tiny_split_config
+
+    cfg = tiny_split_config()["model"]["geometry"]
+    geo = models.make(cfg["name"], cfg)
+    gen = torch.Generator().manual_seed(0)
+    with torch.no_grad():  # off the sphere init, which reads xyz only
+        for p in geo.mlp.parameters():
+            p.add_(0.05 * torch.randn(p.shape, generator=gen))
+    geo.to(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.rand((4096, 3), generator=gen, device=cuda) * 2.4 - 1.2
+    dirs = torch.rand((4096, 3), generator=gen, device=cuda)
+    g1, k1 = gather_rows.launches, scatter_add.launches
+    out = geo(x, 30, with_laplace=True, laplace_dirs=dirs, levels=4,
+              create_graph=True)
+    assert gather_rows.launches == g1 + 3
+    gn = torch.sqrt(torch.sum(out["grad"] ** 2, -1) + 1e-12)
+    (torch.mean((gn - 1.0) ** 2) + torch.mean(out["laplace"])).backward()
+    torch.cuda.synchronize()
+    assert scatter_add.launches == k1 + 3
+    table = geo.encoding.encoding.table
+    assert bool(torch.isfinite(table.grad).all())
+    assert bool((table.grad != 0).any())
 
 
 def test_table_grad_lookup_forward_launches_gather(cuda):

@@ -257,7 +257,8 @@ def test_port_imports_no_jax_yaml_or_reference():
         "assert not bad, bad\n"
         "need = [p.__name__ + '.' + m for m in ('bench',\n"
         "        'models.split_mixed_occ', 'ops.sdf_bake', 'ops.prefilter',\n"
-        "        'ops.gather', 'ops.cubemap', 'models.light')]\n"
+        "        'ops.gather', 'ops.cubemap', 'models.light',\n"
+        "        'systems.split_occ', 'measure')]\n"
         "assert all(m in sys.modules for m in need), need\n"
         "print(len([m for m in sys.modules if m.startswith(p.__name__)]))\n")
     env = dict(os.environ, PYTHONPATH=REPO)

@@ -121,11 +121,13 @@ def test_scatter_add_rejects_bad_period(bad):
 
 @pytest.mark.parametrize("shape,period", [
     ((64, 16, 8), 128), ((64, 14, 8), 112), ((64, 1, 8), 8),
-    ((512, 8), 1), ((64, 4, 2), 1)])
+    ((512, 8), 1), ((64, 4, 2), 1),
+    ((64, 3, 32), 96), ((64, 1, 32), 32), ((64, 3, 16), 1)])
 def test_table_grad_lookup_backward_passes_layout_period(monkeypatch, shape,
                                                          period):
-    """The backward hands K1 the row stride of the encode's [N, L, 8]
-    layout, and 1 for any other shape (checked with a spy)."""
+    """The backward hands K1 the row stride of the encodes' [N, L, 8]
+    corner and [N, L, 32] probe-neighbourhood layouts, and 1 for any
+    other shape (checked with a spy)."""
     calls = []
 
     def spy(idx, vals, table_size, period=1):

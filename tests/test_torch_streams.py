@@ -44,6 +44,44 @@ def ray_encode_rows(n_rays, n_samples, seed=0):
     return seen["rows"], enc.n_levels * enc.table_size
 
 
+def probe_encode_rows(n_rays, n_samples, seed=0):
+    """[n_rays * n_samples, 3, 32] int32 rows of the shared-probe encode
+    (the hybrid-FD fine band, 3 levels of 32-point neighbourhoods) for
+    samples along a few rays, from the 16-level grid of
+    ``ray_encode_rows`` with levels 13-15 in the band, and the
+    flattened table's size."""
+    enc = hashgrid.HashGridEncoding(3, {
+        "n_levels": 16, "n_features_per_level": 2, "log2_hashmap_size": 12,
+        "base_resolution": 4, "per_level_scale": 1.3})
+    rng = np.random.default_rng(seed)
+    o = rng.uniform(0.3, 0.7, (n_rays, 1, 3))
+    d = rng.standard_normal((n_rays, 1, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    t = np.linspace(-0.25, 0.25, n_samples)[None, :, None]
+    u = np.clip(o + t * d, 0.0, 1.0).reshape(-1, 3).astype(np.float32)
+    eps = 1.0 / enc.resolutions[-1]
+    probes = np.repeat(u[None], 6, 0)
+    for p in range(6):
+        probes[p, :, p // 2] = np.clip(
+            probes[p, :, p // 2] + (eps if p % 2 == 0 else -eps), 0.0, 1.0)
+    seen = {}
+    lookup = hashgrid.table_grad_lookup
+
+    def recording_lookup(table, rows):
+        seen["rows"] = rows
+        return lookup(table, rows)
+
+    hashgrid.table_grad_lookup = recording_lookup
+    try:
+        with torch.no_grad():
+            enc.encode_axis_probes(torch.from_numpy(u),
+                                   torch.from_numpy(probes),
+                                   (0, 0, 1, 1, 2, 2), levels=(13, 16))
+    finally:
+        hashgrid.table_grad_lookup = lookup
+    return seen["rows"], enc.n_levels * enc.table_size
+
+
 def dense17_rows(n, seed=0):
     """[n, 1, 8] rows of a dense 17^3 level (resolution 16) for samples
     along one ray in steps shorter than a cell: runs of equal rows."""
@@ -90,3 +128,17 @@ def test_dense17_rows_repeat_and_pair_x_neighbours():
     assert _repeat_share(rows)[0] > 0.5
     r = rows.numpy()[:, 0]
     np.testing.assert_array_equal(r[:, 4:] - r[:, :4], 1)
+
+
+def test_probe_rows_hold_the_32_point_layout():
+    """The shared-probe encode's [N, 3, 32] rows: levels 13-15 of the
+    flattened table, the 8 cell corners first, and neighbouring samples
+    along a ray sharing rows down the columns."""
+    rows, t = probe_encode_rows(4, 250)
+    assert rows.dtype == torch.int32 and tuple(rows.shape) == (1000, 3, 32)
+    level = np.arange(13, 16)[None, :, None] * (t // 16)
+    r = rows.numpy()
+    assert ((r >= level) & (r < level + t // 16)).all()
+    corners, _ = ray_encode_rows(4, 250)
+    np.testing.assert_array_equal(r[:, :, :8], corners.numpy()[:, 13:])
+    assert (_repeat_share(rows) > 0.3).all()
