@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (Hopper, sm_90a).
 
     python3 chip_smoke.py [--steps 120] [--split-steps 32]
-                          [--save-streams FILE]
+                          [--test-views 4] [--save-streams FILE]
 
 Phases, each of which fails the run (non-zero exit) when it fails:
 
@@ -25,7 +25,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 5. small-input references, card against CPU: the tiny NeuS config's loss
    and gradients (K1 against the plain scatter), the tiny split config's
    eval render with prefilter, bands and the full bake (G1 against the
-   plain gather), and one tiny split train step at stage 0 and at stage
+   plain gather), the same render through ``forward_multi`` under the
+   learned light and a second light with the third bounce, and one tiny
+   split train step at stage 0 and at stage
    1 with the prefilter (hybrid FD, curvature probe, mips in the loss:
    loss and every gradient), all in float64;
 6. render slice: ``rise_sdf_tpu_torch.bench`` at 800x800 (the flagship
@@ -65,14 +67,33 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    ``1e-5 * S + 1e-7``; K1 (period 96) and G1 are then checked and timed
    on that step's shared-probe rows ``[N, 3, 32]`` (the probe stream).
    Steps 13010-13014 run under ``torch.profiler`` (K1's and G1's device
-   ms and launches per flagship step).
+   ms and launches per flagship step);
+9. test protocol: ``SplitOccSystem.test`` on the stage-1 state that
+   phase 8 leaves (step 13031), at ``split_mixed_occ_test_full``: the
+   calibrated compaction fractions, then ``--test-views`` 800x800 test
+   views (4) under the learned light and the ``warm`` and ``bright``
+   environments in one geometry pass per chunk (``forward_multi``, the
+   third bounce on); then view 0 again
+   in single-light mode, one render per light
+   (``rise_sdf_tpu_torch.measure.test_protocol``).  The counts are
+   zeroed just before and read just after: G1 must launch and K1 must
+   not (no table gradient at eval); every metric is finite, no ray is
+   dropped after escalation, and view 0's metrics in single-light mode
+   are within 1e-3 of the multi-emitter render's (the bound of the JAX
+   package's test of the two modes).  The script prints the largest
+   difference of each image and the share of pixels more than 1e-4
+   apart: on the card the float32 transmittance scan (``torch.cumsum``,
+   nondeterministic on CUDA) and the atomics of the accumulation move
+   last bits from run to run, and the secondary pass's thresholds turn
+   some into visible differences; on the CPU the modes are bit-equal
+   (``tests/test_torch_test_protocol.py``).
 
 ``--save-streams FILE`` saves both recorded streams for the same-call
 A/B against another tree, ``python -m rise_sdf_tpu_torch.kernel_ab``
 (``_ab/streams.pt``, about 1.7 GB, in the gitignored ``_ab/``).
 The last two lines are the kernels' JSON record (K1's and G1's entries
 also carry their times on the recorded streams and per NeuS and flagship
-train step) and
+train step, G1's its launches in the test protocol) and
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the package
 beside it, the script exits non-zero and prints no result.
 """
@@ -301,19 +322,28 @@ def render_reference_phase(torch, gather):
     d = d / torch.linalg.vector_norm(d, dim=-1, keepdim=True)
     rays = torch.cat([torch.tensor([[0.0, 0.0, -4.0]],
                                    dtype=torch.float64).expand(32, 3), d], -1)
-    runs = {}
+    runs, multi = {}, {}
     for dev in ("cpu", "cuda"):
         m = copy.deepcopy(model).double().to(dev).requires_grad_(False)
         before = gather.gather_rows.launches
         mips = m.emitter.build_mips()
         bake = m.bake_eval_sdf(20)
-        out = m(rays.to(dev), occ_binary=torch.ones(
+        kw = dict(occ_binary=torch.ones(
             m.grid_resolution ** 3, dtype=torch.bool, device=dev),
-            mips=mips, step=20, stage=1, capacity=768,
+            step=20, stage=1, capacity=768,
             background_color=torch.ones(3, dtype=torch.float64, device=dev),
             prefilter=True, banded=True, bake=bake)
+        out = m(rays.to(dev), mips=mips, **kw)
         runs[dev] = ({k: v.cpu() for k, v in out.items()},
                      gather.gather_rows.launches - before)
+        # a second light: the learned one brightened and channel-rolled
+        before = gather.gather_rows.launches
+        mips1 = m.emitter.build_mips(torch.roll(m.emitter.base * 1.7 + 0.05,
+                                                1, -1))
+        outs = m.forward_multi(rays.to(dev), mips_list=[mips, mips1],
+                               relight_flags=(False, True), **kw)
+        multi[dev] = ([{k: v.cpu() for k, v in o.items()} for o in outs],
+                      gather.gather_rows.launches - before)
     (cpu, _), (gpu, launches) = runs["cpu"], runs["cuda"]
     worst = max(float((gpu[k] - cpu[k]).abs().max())
                 for k in ("comp_rgb_full", "opacity", "depth"))
@@ -326,6 +356,25 @@ def render_reference_phase(torch, gather):
     if not (worst <= 1e-9 and same and launches > 0
             and bool(cpu["ray_included"].all())):
         fail("card and CPU disagree on the tiny split render")
+    (cpu, _), (gpu, launches) = multi["cpu"], multi["cuda"]
+    worst = max(float((g[k] - c[k]).abs().max()) for g, c in zip(gpu, cpu)
+                for k in ("comp_rgb_full", "opacity", "depth",
+                          "comp_rgb_phys_full"))
+    same = all(torch.equal(gpu[0][k], cpu[0][k]) for k in (
+        "ray_included", "stat_live", "stat_vis", "stat_secondary_live"))
+    lights = float((cpu[0]["comp_rgb_phys_full"]
+                    - cpu[1]["comp_rgb_phys_full"]).abs().max())
+    glossy = int(((cpu[0]["comp_roughness"] <= 0.3)
+                  & (cpu[0]["opacity"] > 0.5)).sum())
+    log(f"  tiny split forward_multi (learned + relight light) in float64: "
+        f"max |card - CPU| over comp_rgb_full, opacity, depth, "
+        f"comp_rgb_phys_full of both lights = {worst:.2e}; ray_included "
+        f"and stats equal: {same}; the lights differ by {lights:.3f}; "
+        f"{glossy} glossy pixels take the third bounce; G1 launches "
+        f"{launches}")
+    if not (worst <= 1e-9 and same and launches > 0 and lights > 1e-3
+            and glossy > 0):
+        fail("card and CPU disagree on the tiny multi-light render")
 
 
 def split_train_reference_phase(torch, gather, scatter):
@@ -732,7 +781,6 @@ def flagship_phase(torch, scatter, gather, steps):
         fail(f"flagship validation dropped {res['dropped_rays']} rays")
     if "rows" not in stream:
         fail(f"no probe stream recorded at step {recorded}")
-    del system, state
     torch.cuda.empty_cache()
     rows, vals = stream["rows"].cuda(), stream["vals"].cuda()
     idx = rows.reshape(-1)
@@ -742,7 +790,56 @@ def flagship_phase(torch, scatter, gather, steps):
                                 stream["table"].shape[0], what,
                                 rows.shape[-2] * rows.shape[-1])
     g1_rec = check_gather(torch, gather, stream["table"].cuda(), idx, what)
-    return k1_rec, g1_rec, prof, (k1, g1)
+    return k1_rec, g1_rec, prof, (k1, g1), (system, state)
+
+
+def test_protocol_phase(torch, gather, scatter, system, state, views):
+    """The test protocol on the flagship's stage-1 state (module
+    docstring, phase 9).  Returns G1's launches in the phase, the two
+    modes' seconds per view and G1's launches per multi-emitter view."""
+    from rise_sdf_tpu_torch import measure
+
+    torch.cuda.synchronize()
+    gather.gather_rows.launches = 0
+    scatter.scatter_add.launches = 0
+    t0 = time.perf_counter()
+    res = measure.test_protocol(system, state, views=views, log=log)
+    phase_s = time.perf_counter() - t0
+    g1, k1 = gather.gather_rows.launches, scatter.scatter_add.launches
+    shutil.rmtree(os.path.join("exp", "test_protocol"), ignore_errors=True)
+    multi, single = res["multi"], res["single"]
+    for name, run in (("multi-emitter", multi), ("single-light", single)):
+        log(f"  {name}: {run['views']} views, {run['s_per_view']:.2f} "
+            f"s/view ({run['render_s_per_view']:.2f} s/view rendering); "
+            f"fractions {run['fractions']}; chunks rendered "
+            f"{run['chunks']}; G1 launches {run['g1_launches']}, K1 "
+            f"launches {run['k1_launches']}")
+        log(f"    metrics {json.dumps(run['metrics'])}")
+    log(f"  single-light view 0 vs multi-emitter view 0: max |difference| "
+        f"{json.dumps(single['max_abs_diff'])}, share of pixels above 1e-4 "
+        f"{json.dumps(single['share_above_1e-4'])}; metrics within "
+        f"{single['max_metric_diff']:.2e}")
+    log(f"  phase {phase_s:.1f} s; G1 launches {g1}, K1 launches {k1}")
+    want = {"psnr", "phys_psnr", "phys_ssim", "albedo_psnr", "albedo_ssim",
+            "roughness_psnr", "normal_mae", "dropped_rays"} | {
+        f"relight_{m}_{light}" for m in ("psnr", "ssim")
+        for light in ("warm", "bright")}
+    for run in (multi, single):
+        if set(run["metrics"]) != want or not all(
+                np.isfinite(v) for v in run["metrics"].values()):
+            fail(f"test protocol metrics {run['metrics']}")
+        if run["metrics"]["dropped_rays"]:
+            fail(f"the test protocol dropped {run['metrics']['dropped_rays']}"
+                 " rays after escalation")
+        if run["g1_launches"] == 0 or run["k1_launches"] != 0:
+            fail(f"test protocol launched G1 {run['g1_launches']}, K1 "
+                 f"{run['k1_launches']} times")
+    if single["max_metric_diff"] > 1e-3:
+        fail("the single-light metrics differ from the multi-emitter ones")
+    return g1, {"multi_s_per_view": multi["s_per_view"],
+                "single_s_per_view": single["s_per_view"],
+                "multi_launches_per_view": multi["g1_launches"]
+                / multi["views"]}
 
 
 def check_recorded_step(torch, scatter, table, encodes, stream):
@@ -784,6 +881,9 @@ def main():
     ap.add_argument("--steps", type=int, default=120)
     ap.add_argument("--split-steps", type=int, default=32,
                     help="steps in each of the flagship's two windows")
+    ap.add_argument("--test-views", type=int, default=4,
+                    help="test views of the test protocol's multi-emitter "
+                         "run")
     ap.add_argument("--save-streams", metavar="FILE",
                     help="save the recorded streams (torch.save) for "
                          "python -m rise_sdf_tpu_torch.kernel_ab")
@@ -833,8 +933,15 @@ def main():
     log(f"flagship training: split-occ split_mixed_occ_train_full, "
         f"{args.split_steps} steps at stage 0 and at stage 1 + 1 view:")
     (k1["probe_stream"], g1["probe_stream"], split_step,
-     (k1["flagship_launches"], g1["flagship_launches"])) = flagship_phase(
-        torch, scatter, gather, args.split_steps)
+     (k1["flagship_launches"], g1["flagship_launches"]),
+     (system, state)) = flagship_phase(torch, scatter, gather,
+                                       args.split_steps)
+    log(f"test protocol: split_mixed_occ_test_full at step "
+        f"{int(state['step'])}, {args.test_views} views x (learned, warm, "
+        f"bright) + view 0 in single-light mode:")
+    g1["test_launches"], g1["test_protocol"] = test_protocol_phase(
+        torch, gather, scatter, system, state, args.test_views)
+    del system, state
     s1["launches"] = k1["launches"]
     for key, rec in (("k1", k1), ("g1", g1)):
         for name, prof in (("per_step", per_step),
@@ -847,7 +954,8 @@ def main():
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
     extra = ("train_stream", "render_stream", "per_step", "probe_stream",
-             "flagship_per_step", "flagship_launches")
+             "flagship_per_step", "flagship_launches", "test_launches",
+             "test_protocol")
     log(json.dumps({"kernels": [
         {"name": "scatter_add (K1)", "route": "cuda", "source": SRC_K1,
          "replaces": REPLACES_K1, **{k: k1[k] for k in keys},

@@ -4,15 +4,24 @@ in ``rise_sdf_tpu/datasets/synthetic.py``).
 Ray-traces a sphere with spatially-varying albedo under an analytic
 environment, so training runs with no data files.  The arithmetic is the
 JAX package's, step for step, so the images are bit-identical.
+
+Every split keeps the albedo, roughness and normal maps.  With
+``relight_list`` the test split also renders the scene under each named
+analytic environment (``warm``, ``bright``) as relighting ground truth
+and writes that environment as a Blender lat-long EXR under
+``hdr_filepath`` (overwritten every time), where the emitter's
+``relight_params`` loads it.
 """
 
 from __future__ import annotations
 
 import math
+import os
 
 import numpy as np
 
 from . import register
+from ..utils.exr import write_exr
 from ..utils.rays import get_ray_directions
 
 SPHERE_RADIUS = 0.5
@@ -30,11 +39,14 @@ def look_at(eye: np.ndarray) -> np.ndarray:
     return np.stack([right, true_up, -forward, eye], axis=1).astype(np.float32)
 
 
-def camera_poses(n: int, radius: float = 4.0, seed: int = 0) -> np.ndarray:
+def camera_poses(n: int, radius: float = 4.0, seed: int = 0,
+                 phase: float = 0.0) -> np.ndarray:
+    """``n`` cameras on an azimuth ladder; ``phase`` (in pose-index
+    units) rotates it, so phases 0 and 0.5 give 2n distinct views."""
     rng = np.random.default_rng(seed)
     poses = []
     for i in range(n):
-        theta = 2 * math.pi * i / n
+        theta = 2 * math.pi * (i + phase) / n
         phi = math.pi / 4 + 0.3 * math.sin(3 * theta) \
             + 0.05 * rng.standard_normal()
         eye = radius * np.array([
@@ -54,6 +66,46 @@ def env_radiance(d: np.ndarray) -> np.ndarray:
     sun = np.array([1.0, 0.95, 0.8]) * np.maximum(
         (d @ sun_dir), 0.0)[..., None] ** 16 * 2.0
     return (sky + sun).astype(np.float32)
+
+
+def env_radiance_warm(d: np.ndarray) -> np.ndarray:
+    """Alternate analytic environment (warm sunset) for relighting."""
+    horizon = np.array([0.9, 0.5, 0.25]) * (1.0 - np.abs(d[..., 2:3])) ** 2
+    sky = np.array([0.25, 0.3, 0.5]) * (0.4 + 0.6 * d[..., 2:3])
+    sun_dir = np.array([-0.7, 0.2, 0.25])
+    sun_dir = sun_dir / np.linalg.norm(sun_dir)
+    sun = np.array([1.2, 0.7, 0.35]) * np.maximum(
+        (d @ sun_dir), 0.0)[..., None] ** 24 * 3.0
+    return (horizon + sky + sun).astype(np.float32)
+
+
+def env_radiance_bright(d: np.ndarray) -> np.ndarray:
+    """High-contrast environment (a broad bright sun)."""
+    sky = np.array([0.5, 0.6, 0.8]) * (0.5 + 0.5 * d[..., 2:3])
+    sun_dir = np.array([0.5, 0.3, 0.8])
+    sun_dir = sun_dir / np.linalg.norm(sun_dir)
+    sun = np.array([1.0, 0.95, 0.8]) * np.maximum(
+        (d @ sun_dir), 0.0)[..., None] ** 8 * 6.0
+    return (sky + sun).astype(np.float32)
+
+
+_ENVS = {"default": env_radiance, "warm": env_radiance_warm,
+         "bright": env_radiance_bright}
+
+
+def write_env_latlong_exr(path: str, env_fn, height: int = 128):
+    """Write an environment function as a Blender-convention lat-long
+    EXR (``height`` x 2 ``height``)."""
+    h, w = height, 2 * height
+    v = (np.arange(h) + 0.5) / h
+    u = (np.arange(w) + 0.5) / w
+    uu, vv = np.meshgrid(u, v)
+    theta = vv * math.pi
+    phi = -(uu * 2.0 - 1.0) * math.pi
+    d = np.stack([np.sin(theta) * np.cos(phi),
+                  np.sin(theta) * np.sin(phi),
+                  np.cos(theta)], -1)
+    write_exr(path, env_fn(d).astype(np.float32))
 
 
 def sphere_albedo(p: np.ndarray) -> np.ndarray:
@@ -118,14 +170,33 @@ class SyntheticSplit:
         self.directions = get_ray_directions(
             self.w, self.h, self.focal, self.focal, self.w // 2, self.h // 2)
         seed = {"train": 0, "val": 1, "test": 2}.get(split, 3)
-        self.all_c2w = camera_poses(n_images, seed=seed)
-        imgs, masks = [], []
-        for i in range(n_images):
-            rgb, m, _, _, _ = render_image(self.all_c2w[i], self.directions)
-            imgs.append(rgb)
-            masks.append(m)
-        self.all_images = np.stack(imgs)
-        self.all_fg_masks = np.stack(masks)
+        self.all_c2w = camera_poses(
+            n_images, seed=seed, phase=float(config.get("pose_phase", 0.0)))
+        self.env_name = str(config.get("env", "default"))
+        views = [render_image(c2w, self.directions,
+                              env_fn=_ENVS[self.env_name])
+                 for c2w in self.all_c2w]
+        (self.all_images, self.all_fg_masks, self.all_albedo,
+         self.all_roughness, self.all_normals) = (
+            np.stack(v) for v in zip(*views))
+        # relighting ground truth, consumed by the test protocol only
+        self.relight_images = {}
+        relight_list = list(config.get("relight_list", []) or [])
+        if relight_list and split == "test":
+            hdr_dir = config.get("hdr_filepath")
+            if not hdr_dir:
+                raise ValueError("relight_list needs hdr_filepath, the "
+                                 "directory of the environment EXRs")
+            os.makedirs(hdr_dir, exist_ok=True)
+            for light in relight_list:
+                env_fn = _ENVS[light]
+                # always overwrite: a stale file would skew the relight
+                # metrics against ground truth rendered anew
+                write_env_latlong_exr(os.path.join(hdr_dir, f"{light}.exr"),
+                                      env_fn)
+                self.relight_images[light] = np.stack([
+                    render_image(c2w, self.directions, env_fn=env_fn)[0]
+                    for c2w in self.all_c2w])
 
     def __len__(self):
         return len(self.all_images)

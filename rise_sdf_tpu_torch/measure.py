@@ -1,7 +1,8 @@
 """Kernel timing and the training slices' rates on one NVIDIA GPU,
 shared by ``chip_smoke.py`` and ``rise_sdf_tpu_torch.kernel_ab``.
 
-    python -m rise_sdf_tpu_torch.measure [--preset neus|split] [--steps N]
+    python -m rise_sdf_tpu_torch.measure [--preset neus|split|test]
+                                         [--steps N]
 
 ``--preset neus`` (the default) trains ``neus_sphere_full`` (hash grid
 16 x 2^19 x 2, 4096 rays x 1024 samples into a 1,048,576-sample buffer)
@@ -23,6 +24,20 @@ per step from ``torch.profiler`` over stage-1 steps 13,010-13,014 (after
 the window's first sweep at 13,008), peak device memory, PSNR, phys PSNR
 and dropped rays.
 
+``--preset test`` trains the flagship's stage-1 window (``--steps``, 32,
+from a fresh init at ``SPLIT_STAGE1_STEP``), then runs the test protocol
+(``SplitOccSystem.test``) on that state at ``split_mixed_occ_test_full``:
+4 test views at 800x800 under the learned light and the ``warm`` and
+``bright`` environments, one geometry pass per chunk for all three
+(multi-emitter mode), then view 0 again in single-light mode (one render
+per light).  Its JSON line: seconds per view of each mode (the whole
+protocol, and its renders alone), the calibrated fractions, the rays
+dropped after escalation, the metrics, G1's and K1's launches during
+each run, the single-light run against the multi-emitter run's view 0
+(the largest difference of each image and of the metrics), and device
+ms per view by kernel (G1's among them) from ``torch.profiler`` over
+view 1 of the multi-emitter run.
+
 Without CUDA it raises.
 """
 
@@ -32,6 +47,7 @@ import argparse
 import json
 import os
 import shutil
+import sys
 import time
 
 import numpy as np
@@ -223,6 +239,142 @@ def train_split(system, steps, seed, on_log=None):
     return state, out, per_step
 
 
+def test_system(trained, multi=True, n_images=None):
+    """The split-occ system at ``split_mixed_occ_test_full`` (in
+    multi-emitter mode or not, with ``n_images`` test views) with the
+    parameters of the ``trained`` system."""
+    from . import datasets, systems
+    from .presets import split_mixed_occ_test_full
+
+    cfg = split_mixed_occ_test_full()
+    cfg["system"]["multi_emitter_eval"] = multi
+    if n_images:
+        cfg["dataset"]["n_images"] = n_images
+    system = systems.make(cfg["system"]["name"], cfg,
+                          datasets.make(cfg["dataset"]["name"],
+                                        cfg["dataset"]),
+                          save_dir=os.path.join("exp", "test_protocol"),
+                          device=trained.device)
+    system.model.load_state_dict(trained.model.state_dict())
+    return system
+
+
+def run_test(system, state, profile_view=None, log=print):
+    """``system.test`` timed on the card: the metrics (``dropped_rays``
+    among them), the calibrated fractions, seconds per view of the whole
+    protocol (metrics and image files included) and of its renders
+    alone, G1's and K1's launches, the chunks rendered at each buffer
+    size (1x, and 2x and 4x escalations), the rendered images, and with
+    ``profile_view`` the device ms by kernel of that view's renders
+    (``torch.profiler``, CUDA activity only: a view is some 10^5
+    kernels) and their seconds under it, which the per-view rates leave
+    out.  Logs each render's seconds."""
+    from .bench import _kernel_times, _sync
+    from .ops.gather import gather_rows
+    from .ops.scatter import scatter_add
+
+    render, images, times = system.render_image, [], {}
+    seconds = {"render": 0.0, "profiled": 0.0}
+
+    def timed(state_, split, index, **kw):
+        _sync(system.device)
+        t0 = time.perf_counter()
+        if index != profile_view:
+            out = render(state_, split, index, **kw)
+        else:
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                out = render(state_, split, index, **kw)
+                _sync(system.device)
+            for k, (t, c) in _kernel_times(prof).items():
+                ms, n = times.get(k, (0.0, 0))
+                times[k] = (ms + t, n + c)
+        _sync(system.device)
+        dt = time.perf_counter() - t0
+        seconds["profiled" if index == profile_view else "render"] += dt
+        what = "all lights" if kw.get("n_relights") else \
+            "a relight light" if kw.get("relighting") else "learned light"
+        log(f"    view {index}, {what}: {dt:.2f} s"
+            + (" (profiled)" if index == profile_view else ""))
+        images.append(out)
+        return out
+
+    chunk, chunks = system.render_chunk, {1: 0, 2: 0, 4: 0}
+
+    def counted(state_, rays, mult=1, **kw):
+        chunks[mult] += 1
+        return chunk(state_, rays, mult, **kw)
+
+    system.render_image, system.render_chunk = timed, counted
+    g1, k1 = gather_rows.launches, scatter_add.launches
+    _sync(system.device)
+    t0 = time.perf_counter()
+    try:
+        metrics = system.test(state, export=False)
+    finally:
+        del system.render_image, system.render_chunk
+    _sync(system.device)
+    views = len(system.datamodule.test())
+    timed_views = views - (profile_view is not None and profile_view < views)
+    res = {"views": views,
+           "s_per_view": (time.perf_counter() - t0 - seconds["profiled"])
+           / timed_views,
+           "render_s_per_view": seconds["render"] / timed_views,
+           "fractions": dict(system.eval_fractions), "metrics": metrics,
+           "g1_launches": gather_rows.launches - g1,
+           "k1_launches": scatter_add.launches - k1,
+           "chunks": {f"{m}x": n for m, n in chunks.items()},
+           "images": images}
+    if times:
+        top = sorted(times.items(), key=lambda kv: -kv[1][0])
+        res["profile"] = {
+            "view": profile_view, "wall_s": seconds["profiled"],
+            "device_ms": sum(t for t, _ in times.values()),
+            "g1_ms": sum(t for k, (t, _) in times.items()
+                         if "gather_rows" in k),
+            "g1_launches": sum(c for k, (_, c) in times.items()
+                               if "gather_rows" in k),
+            "launches": sum(c for _, c in times.values()),
+            "top": [[k[:80], t, c] for k, (t, c) in top[:8]]}
+    return res
+
+
+def test_protocol(trained, state, views=None, profile_view=None,
+                  log=print):
+    """The test protocol on ``state`` of the ``trained`` flagship: the
+    preset's 4 views (or ``views``) in multi-emitter mode (with
+    ``profile_view`` profiled), then view 0 in single-light mode.  The
+    single-light run's images and metrics are held against the
+    multi-emitter run's view 0: the largest difference of each image and
+    the share of its pixels more than 1e-4 apart, and the largest
+    difference of the metrics."""
+    multi = run_test(test_system(trained, n_images=views), state,
+                     profile_view=profile_view, log=log)
+    log(f"  multi-emitter: {multi['s_per_view']:.2f} s/view "
+        f"({multi['render_s_per_view']:.2f} s/view rendering)")
+    single_system = test_system(trained, multi=False, n_images=1)
+    single = run_test(single_system, state, log=log)
+    view0 = multi["images"][0]
+    names = ["comp_rgb_phys_full"] + [f"relight{j}/comp_rgb_phys_full"
+                                      for j in range(len(
+                                          single_system.relight_list))]
+    # the single-light run renders view 0 once per light, in this order
+    diffs = {name: np.abs(img["comp_rgb_phys_full"] - view0[name]).max(-1)
+             for name, img in zip(names, single["images"])}
+    single["max_abs_diff"] = {k: float(d.max()) for k, d in diffs.items()}
+    single["share_above_1e-4"] = {k: float((d > 1e-4).mean())
+                                  for k, d in diffs.items()}
+    # view 0's metrics from the multi-emitter render (the one-view
+    # split's camera is the four-view split's first)
+    view0_metrics = single_system.view_metrics(
+        single_system.datamodule.test(), 0, view0)
+    single["max_metric_diff"] = max(
+        abs(single["metrics"][k] - v) for k, v in view0_metrics.items())
+    for run in (multi, single):
+        del run["images"]
+    return {"multi": multi, "single": single}
+
+
 def _split_main(steps):
     from . import datasets, systems
     from .presets import split_mixed_occ_train_full
@@ -247,12 +399,36 @@ def _split_main(steps):
             "skipped": system.skipped_updates, **per_step}
 
 
+def _test_main(steps):
+    from . import datasets, systems
+    from .presets import split_mixed_occ_train_full
+
+    cfg = split_mixed_occ_train_full()
+    seed = int(cfg["seed"])
+    save = os.path.join("exp", "measure")
+    system = systems.make(cfg["system"]["name"], cfg,
+                          datasets.make(cfg["dataset"]["name"],
+                                        cfg["dataset"]),
+                          save_dir=save, device="cuda")
+    state = system.init_state(seed)
+    state["step"] = SPLIT_STAGE1_STEP
+    state, _, rate, _ = train(system, steps, seed, state,
+                              profile_from=SPLIT_STAGE1_STEP + steps)
+    res = test_protocol(system, state, profile_view=1,
+                        log=lambda msg: print(msg, file=sys.stderr,
+                                              flush=True))
+    shutil.rmtree(save, ignore_errors=True)
+    shutil.rmtree(os.path.join("exp", "test_protocol"), ignore_errors=True)
+    return {"step": int(state["step"]), "stage1_steps_per_s": rate, **res}
+
+
 def main(argv=None):
     from . import datasets, systems
     from .presets import neus_sphere_full
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--preset", choices=("neus", "split"), default="neus")
+    ap.add_argument("--preset", choices=("neus", "split", "test"),
+                    default="neus")
     ap.add_argument("--steps", type=int, default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -261,6 +437,8 @@ def main(argv=None):
     torch.backends.cudnn.allow_tf32 = False
     if args.preset == "split":
         res = _split_main(args.steps or 32)
+    elif args.preset == "test":
+        res = _test_main(args.steps or 32)
     else:
         cfg = neus_sphere_full()
         seed = int(cfg.get("seed", 42))

@@ -8,23 +8,41 @@ one GGX-filtered map per level (``ops/prefilter.py``, whose filter bank
 is built on the host when the module is made).  ``eval_mip`` is a
 bilinear lookup in the diffuse map, or a trilinear lookup over the
 specular levels through their flattened atlas.
+
+With ``hdr_filepath`` the base starts from a lat-long ``.exr`` file
+(clamped to [0, 1] when ``clamp``; NMF's mirrored azimuth when
+``nmf_format``); ``relight_params`` loads a relighting environment the
+same way, without the clamp, and ``build_mips(base)`` filters it.
 """
 
 from __future__ import annotations
 
 from typing import List, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
 from . import register
 from ..ops import prefilter
-from ..ops.cubemap import avg_pool_cubemap, mips_atlas, sample_cubemap, \
+from ..ops.cubemap import avg_pool_cubemap, blender_latlong_to_cubemap, \
+    cubemap_to_latlong, mips_atlas, nmf_latlong_to_cubemap, sample_cubemap, \
     sample_cubemap_mips_atlas
+from ..utils.exr import read_exr
 
 MIN_ROUGHNESS = prefilter.MIN_ROUGHNESS
 MAX_ROUGHNESS = prefilter.MAX_ROUGHNESS
 LIGHT_MIN_RES = prefilter.LIGHT_MIN_RES
+
+
+def load_hdr_image(path: str) -> np.ndarray:
+    """A lat-long ``.exr`` image as float32 RGB [H, W, 3].  Radiance
+    ``.hdr`` (RGBE) files need a reader the port does not have yet."""
+    if path.endswith(".exr"):
+        return np.ascontiguousarray(read_exr(path)[..., :3])
+    raise NotImplementedError(
+        f"{path}: only .exr environment maps are read; .hdr (RGBE) files "
+        "wait for an RGBE reader (ROADMAP.md, Queue 1)")
 
 
 class EnvMips(NamedTuple):
@@ -42,8 +60,9 @@ class EnvLightMipCube(nn.Module):
         self.base_res = int(ec.get("base_res", 512))
         self.scale = float(ec.get("scale", 0.5))
         self.bias = float(ec.get("bias", 0.25))
-        if ec.get("hdr_filepath") is not None:
-            raise NotImplementedError("HDR environment files are not ported")
+        self.clamp = bool(ec.get("clamp", False))
+        self.nmf_format = bool(ec.get("nmf_format", False))
+        self.hdr_filepath = ec.get("hdr_filepath", None)
         self.n_levels = 1
         r = self.base_res
         while r > LIGHT_MIN_RES:
@@ -58,8 +77,30 @@ class EnvLightMipCube(nn.Module):
 
     @torch.no_grad()
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
-        self.base.copy_(torch.rand(self.base.shape, generator=generator)
-                        * self.scale + self.bias)
+        """Uniform in [bias, bias + scale), or the ``hdr_filepath`` map."""
+        if self.hdr_filepath is None:
+            self.base.copy_(torch.rand(self.base.shape, generator=generator)
+                            * self.scale + self.bias)
+            return
+        latlong = torch.from_numpy(load_hdr_image(self.hdr_filepath))
+        if self.clamp:
+            latlong = torch.clamp(latlong, 0.0, 1.0)
+        self.base.copy_(self._to_cubemap(latlong.to(self.base.device)))
+
+    def _to_cubemap(self, latlong):
+        conv = nmf_latlong_to_cubemap if self.nmf_format \
+            else blender_latlong_to_cubemap
+        return conv(latlong, self.base_res).float()
+
+    def relight_params(self, file_name: str) -> dict:
+        """``{"base": [6, R, R, 3]}`` of the lat-long file, on the base's
+        device (not clamped, not trainable)."""
+        latlong = torch.from_numpy(load_hdr_image(file_name))
+        return {"base": self._to_cubemap(latlong.to(self.base.device))}
+
+    def generate_image(self):
+        """The learned light as a 512 x 1024 lat-long image (y up)."""
+        return cubemap_to_latlong(self.base.detach(), (512, 1024))
 
     def _device_filters(self, device, dtype):
         """The diffuse matrix and the specular filters as tensors on
@@ -72,13 +113,14 @@ class EnvLightMipCube(nn.Module):
                 [prefilter.to_torch(f, device, dtype) for f in self.filters])
         return self._on_device[key]
 
-    def build_mips(self) -> EnvMips:
-        """Differentiable mip build (reference ``light.py:169-180``)."""
-        chain = [self.base]
+    def build_mips(self, base: Optional[torch.Tensor] = None) -> EnvMips:
+        """Differentiable mip build (reference ``light.py:169-180``) of
+        the learned base, or of ``base`` (a relighting environment)."""
+        base = self.base if base is None else base
+        chain = [base]
         while chain[-1].shape[1] > LIGHT_MIN_RES:
             chain.append(avg_pool_cubemap(chain[-1]))
-        matrix, filters = self._device_filters(self.base.device,
-                                               self.base.dtype)
+        matrix, filters = self._device_filters(base.device, base.dtype)
         diffuse = prefilter.apply_diffuse_filter(chain[-1], matrix)
         specular = [prefilter.apply_specular_level_filter(f, chain)
                     for f in filters]

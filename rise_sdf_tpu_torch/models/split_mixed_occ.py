@@ -8,7 +8,9 @@ rays), the geometry, NeuS weights, the eval visibility compaction of
 the texture stage, the five-head texture with split-sum shading, one
 fused accumulation, and the secondary pass: transmittance along the
 mirror rays (compacted to a fixed budget), blended with the secondary
-radiance head.
+radiance head; under ``relighting`` glossy pixels shade the third mirror
+bounce under the given light instead.  ``forward_multi`` renders any
+number of lights from one geometry pass.
 
 Training (``train=True``) marches stratified when ``randomized``,
 takes the configured gradient (hybrid finite differences for the
@@ -27,8 +29,8 @@ kept entry its slot, the scatter sends the rest to one spare slot past
 the buffer (``.at[dest].set(..., mode="drop")``), and a ray whose
 entries overflow is reported in ``ray_included``.
 
-Stages 0 and 1 are served; relighting, ``forward_multi`` and the
-sphere-traced ``forward_surface`` are not ported yet.
+Stages 0 and 1 are served; the sphere-traced ``forward_surface`` is not
+ported.
 """
 
 from __future__ import annotations
@@ -104,6 +106,8 @@ class SplitMixedOccModel(nn.Module):
         self.split_sum_kick_in_step = int(
             config.get("split_sum_kick_in_step", 0))
         self.indirect_pred = bool(config.get("indirect_pred", True))
+        self.relighting_threshold = float(
+            config.get("relighting_threshold", 0.3))
         self.register_buffer("aabb_min", torch.full((3,), -self.radius),
                              persistent=False)
         self.register_buffer("aabb_max", torch.full((3,), self.radius),
@@ -232,9 +236,13 @@ class SplitMixedOccModel(nn.Module):
 
     def _secondary_geom(self, rays_o, rays_d, occ_binary, step, *, levels,
                         secondary_frac, normal_map, depth_map, acc_map,
-                        included, bake):
-        """Transmittance and depth along the mirror rays, and the
-        secondary radiance head at the primary hit."""
+                        included, bake, need_third: bool = False):
+        """The light-independent half of the secondary pass, computed once
+        per geometry pass: transmittance and depth along the mirror rays,
+        the secondary radiance head at the primary hit and, with
+        ``need_third`` (relighting), the third-bounce hit ``sec_o +
+        depth * sec_d``: its analytic normal (a gradient with respect to
+        the positions only) and its material cache."""
         sec_valid = acc_map[:, 0] > 0.5
         if not self.indirect_pred:
             return {"included": included,
@@ -245,20 +253,34 @@ class SplitMixedOccModel(nn.Module):
         sec_d = 2.0 * torch.sum(wo * normal_map, -1, keepdim=True) \
             * normal_map - wo
         with torch.no_grad():
-            tr, _, sec_inc, sec_live = self.compute_indirect_radiance(
-                sec_o, sec_d, occ_binary, step, levels=levels,
-                frac=secondary_frac, bake=bake)
+            tr, sec_depth, sec_inc, sec_live = \
+                self.compute_indirect_radiance(
+                    sec_o, sec_d, occ_binary, step, levels=levels,
+                    frac=secondary_frac, bake=bake)
         # overflow matters only where the secondary result is blended in
         included = included & (sec_inc | ~sec_valid)
         sec_geo = self.geometry(sec_o, step, with_grad=False,
                                 with_feature=True, levels=levels)
         sec_rgb = self.texture.secondary_shading(
             sec_geo["feature"], sec_d, normal_map, step=step)
-        return {"sec_valid": sec_valid, "tr": tr, "sec_rgb": sec_rgb,
-                "sec_live": sec_live, "included": included}
+        sg = {"sec_valid": sec_valid, "tr": tr, "sec_rgb": sec_rgb,
+              "sec_live": sec_live, "included": included}
+        if need_third:
+            third_o = sec_o + sec_depth * sec_d
+            tg = self.geometry(third_o, step, with_grad=True,
+                               with_feature=True, grad_mode="analytic",
+                               levels=levels)
+            sg["third_cache"] = self.texture.secondary_pbr_cache(
+                tg["feature"], sec_d, _normalize(tg["grad"]), third_o,
+                step=step)
+        return sg
 
-    def _secondary_shade(self, sg, maps, *, stage):
-        """Blend the indirect radiance into the specular maps."""
+    def _secondary_shade(self, sg, maps, *, stage, relighting: bool = False,
+                         mips=None):
+        """The per-light half: blend the indirect radiance into the
+        specular maps; when ``relighting``, glossy pixels (roughness at
+        most ``relighting_threshold``) instead blend the third-bounce
+        hit shaded under this light into the specular light."""
         maps = dict(maps)
         if not self.indirect_pred:
             return maps
@@ -266,22 +288,21 @@ class SplitMixedOccModel(nn.Module):
         tr, sec_rgb = sg["tr"], sg["sec_rgb"]
         maps["spec_rgb"] = torch.where(
             mask, tr * maps["spec_rgb"] + (1 - tr) * sec_rgb, maps["spec_rgb"])
-        if stage != 0:
+        if stage == 0:
+            return maps
+        if not relighting:
             maps["spec_rgb_pbr"] = torch.where(
                 mask, tr * maps["spec_rgb_pbr"] + (1 - tr) * sec_rgb,
                 maps["spec_rgb_pbr"])
+            return maps
+        rough_mask = mask & (maps["roughness"] <= self.relighting_threshold)
+        third_rgb = self.texture.secondary_shade_pbr_cached(
+            sg["third_cache"], self.emitter, mips)
+        maps["spec_light"] = torch.where(
+            rough_mask, tr * maps["spec_light"] + (1 - tr) * third_rgb,
+            maps["spec_light"])
+        maps["spec_rgb_pbr"] = maps["spec_ref"] * maps["spec_light"]
         return maps
-
-    def _apply_secondary(self, rays_o, rays_d, occ_binary, step, *, levels,
-                         secondary_frac, stage, normal_map, depth_map,
-                         acc_map, maps, included, bake):
-        sg = self._secondary_geom(
-            rays_o, rays_d, occ_binary, step, levels=levels,
-            secondary_frac=secondary_frac, normal_map=normal_map,
-            depth_map=depth_map, acc_map=acc_map, included=included,
-            bake=bake)
-        maps = self._secondary_shade(sg, maps, stage=stage)
-        return maps, sg["included"], sg["sec_live"]
 
     @staticmethod
     def _assemble_out(*, diff_rgb_map, maps, blend_map, normal_map,
@@ -438,6 +459,23 @@ class SplitMixedOccModel(nn.Module):
         mc["included"] = included
         return mc
 
+    @staticmethod
+    def _split_maps(acc, names, widths):
+        """Cut the accumulated ``acc`` [R, sum widths] into named maps."""
+        maps, i = {}, 0
+        for k, c in zip(names, widths):
+            maps[k] = acc[:, i:i + c]
+            i += c
+        return maps
+
+    def _eval_stats(self, out, mc, sec_live):
+        """Eval-capacity statistics: live samples in the buffer, samples
+        of weight > 1e-5 and live secondary samples (before compaction)."""
+        out["stat_live"] = mc["rs"].num_live
+        out["stat_vis"] = mc["vis"].sum()
+        if self.indirect_pred:
+            out["stat_secondary_live"] = sec_live
+
     def forward(self, rays, *, occ_binary, mips, step, stage: int = 0,
                 train: bool = False, relighting: bool = False,
                 capacity: int, background_color, levels=None,
@@ -450,12 +488,14 @@ class SplitMixedOccModel(nn.Module):
         None); the other options are the JAX ``forward``'s.  Eval
         (``train=False``) runs under ``no_grad``, the geometry taking its
         analytic normals with respect to the sample positions only.
-        Training draws the stratified march offsets (when ``randomized``)
-        and the curvature probe's directions from ``generator``, unless
+        ``relighting`` (eval, stage 1) shades the third mirror bounce of
+        glossy pixels under ``mips`` (``_secondary_shade``).  Training
+        draws the stratified march offsets (when ``randomized``) and the
+        curvature probe's directions from ``generator``, unless
         ``laplace_dirs`` [ceil(capacity / laplace_stride), 3] gives the
         directions (uniform [0, 1)^3, as the JAX probe draws them)."""
-        if relighting:
-            raise NotImplementedError("relighting is not ported yet")
+        if relighting and train:
+            raise ValueError("relighting is an eval render (train=False)")
         with torch.set_grad_enabled(train):
             mc = self._march_compact(
                 rays, occ_binary=occ_binary, step=step, train=train,
@@ -483,55 +523,127 @@ class SplitMixedOccModel(nn.Module):
             acc = volrend.accumulate_along_rays(
                 mc["s_weights"], mc["s_ridx"], torch.cat(chans, dim=-1),
                 n_rays)
-            maps, i = {}, 0
-            for k, c in zip(names + ["normal", "depth", "acc", "norm_orient"],
-                            [c.shape[-1] for c in chans]):
-                maps[k] = acc[:, i:i + c]
-                i += c
+            maps = self._split_maps(
+                acc, names + ["normal", "depth", "acc", "norm_orient"],
+                [c.shape[-1] for c in chans])
 
             sec_maps = {"spec_rgb": maps["spec_rgb"]}
             if stage != 0:
                 sec_maps.update({k: maps[k] for k in (
                     "spec_rgb_pbr", "spec_ref", "spec_light", "roughness")})
-            sec_maps, included, sec_live = self._apply_secondary(
+            sg = self._secondary_geom(
                 rays_o, rays_d, occ_binary, step, levels=levels,
-                secondary_frac=secondary_frac, stage=stage,
-                normal_map=maps["normal"], depth_map=maps["depth"],
-                acc_map=maps["acc"], maps=sec_maps, included=mc["included"],
-                bake=bake)
+                secondary_frac=secondary_frac, normal_map=maps["normal"],
+                depth_map=maps["depth"], acc_map=maps["acc"],
+                included=mc["included"], bake=bake,
+                need_third=stage != 0 and relighting)
+            sec_maps = self._secondary_shade(sg, sec_maps, stage=stage,
+                                             relighting=relighting, mips=mips)
             out = self._assemble_out(
                 diff_rgb_map=maps["diff_rgb"], maps=sec_maps,
                 blend_map=maps["blend"], normal_map=maps["normal"],
                 depth_map=maps["depth"], acc_map=maps["acc"],
-                num_samples=rs.num_live, included=included, inv_s=mc["inv_s"],
-                background_color=background_color, stage=stage,
-                diff_rgb_pbr_map=maps.get("diff_rgb_pbr"),
+                num_samples=rs.num_live, included=sg["included"],
+                inv_s=mc["inv_s"], background_color=background_color,
+                stage=stage, diff_rgb_pbr_map=maps.get("diff_rgb_pbr"),
                 albedo_map=maps.get("albedo"),
                 metallic_map=maps.get("metallic"))
-            if train:
-                geo = mc["geo"]
-                out.update({
-                    "sdf_samples": geo["sdf"],
-                    "sdf_grad_samples": geo["grad"],
-                    "samples_valid": rs.valid,
-                    "weights": mc["weights"],
-                    "points": mc["t_mid"],
-                    "intervals": mc["dists"],
-                    "ray_indices": rs.ray_indices,
-                    "ray_start": rs.ray_start,
-                    "normals_orientation_loss_map": maps["norm_orient"],
-                })
-                if "laplace" in geo:
-                    # the probe ran on every laplace_stride-th sample
-                    out["sdf_laplace_samples"] = geo["laplace"]
-                    out["sdf_laplace_valid"] = \
-                        rs.valid[::self.geometry.laplace_stride]
+            if not train:
+                self._eval_stats(out, mc, sg["sec_live"])
                 return out
-            # eval-capacity statistics: live samples in the buffer,
-            # samples of weight > 1e-5 and live secondary samples (before
-            # compaction)
-            out["stat_live"] = rs.num_live
-            out["stat_vis"] = mc["vis"].sum()
-            if self.indirect_pred:
-                out["stat_secondary_live"] = sec_live
+            geo = mc["geo"]
+            out.update({
+                "sdf_samples": geo["sdf"],
+                "sdf_grad_samples": geo["grad"],
+                "samples_valid": rs.valid,
+                "weights": mc["weights"],
+                "points": mc["t_mid"],
+                "intervals": mc["dists"],
+                "ray_indices": rs.ray_indices,
+                "ray_start": rs.ray_start,
+                "normals_orientation_loss_map": maps["norm_orient"],
+            })
+            if "laplace" in geo:
+                # the probe ran on every laplace_stride-th sample
+                out["sdf_laplace_samples"] = geo["laplace"]
+                out["sdf_laplace_valid"] = \
+                    rs.valid[::self.geometry.laplace_stride]
             return out
+
+    @torch.no_grad()
+    def forward_multi(self, rays, *, occ_binary, mips_list, step,
+                      relight_flags, stage: int = 1, capacity: int,
+                      background_color, levels=None, secondary_frac=None,
+                      vis_frac=None, prefilter: bool = False,
+                      banded: bool = False, bake=None):
+        """Multi-emitter eval: one geometry pass (march, geometry, NeuS
+        weights, visibility compaction, the material heads, the
+        secondary transmittance and the third-bounce hit) shaded under
+        each of ``mips_list``; returns one ``forward``-style dict per
+        light.  ``relight_flags[i]`` pairs with ``mips_list[i]`` (False:
+        the training emitter's render; True: a relight render with the
+        third bounce).  Per light only ``shade_cached`` (two mip-cubemap
+        lookups), a 9-channel accumulation and ``_secondary_shade`` run;
+        the same helpers as ``forward`` give the same numbers.  The
+        calibration statistics ride on output 0."""
+        if len(mips_list) != len(relight_flags) or not mips_list:
+            raise ValueError("one relight flag per mips, at least one")
+        n_rays = rays.shape[0]
+        rays_o, rays_d = rays[:, 0:3], rays[:, 3:6]
+        mc = self._march_compact(
+            rays, occ_binary=occ_binary, step=step, train=False,
+            capacity=capacity, levels=levels, prefilter=prefilter,
+            banded=banded, vis_frac=vis_frac, bake=bake, generator=None,
+            laplace_dirs=None)
+        s_weights, s_ridx = mc["s_weights"], mc["s_ridx"]
+        s_normal, s_tmid = mc["s_normal"], mc["s_tmid"]
+        texc = self.texture.material_cache(
+            mc["s_feature"], mc["s_dirs"], s_normal, mc["s_pos"],
+            stage=stage, step=step)
+
+        # the light-independent channels, accumulated once
+        names = ["diff_rgb", "spec_rgb", "blend"]
+        if stage != 0:
+            names += ["spec_ref", "albedo", "metallic", "roughness"]
+        chans = [texc[k] for k in names]
+        chans += [s_normal, s_tmid[:, None], torch.ones_like(s_tmid)[:, None]]
+        acc = volrend.accumulate_along_rays(
+            s_weights, s_ridx, torch.cat(chans, dim=-1), n_rays)
+        maps = self._split_maps(acc, names + ["normal", "depth", "acc"],
+                                [c.shape[-1] for c in chans])
+        sg = self._secondary_geom(
+            rays_o, rays_d, occ_binary, step, levels=levels,
+            secondary_frac=secondary_frac, normal_map=maps["normal"],
+            depth_map=maps["depth"], acc_map=maps["acc"],
+            included=mc["included"], bake=bake,
+            need_third=stage != 0 and any(relight_flags))
+
+        outs = []
+        for mips, relighting in zip(mips_list, relight_flags):
+            sec_maps = {"spec_rgb": maps["spec_rgb"]}
+            diff_rgb_pbr_map = None
+            if stage != 0:
+                shade = self.texture.shade_cached(texc, self.emitter, mips,
+                                                  stage=stage)
+                acc_l = volrend.accumulate_along_rays(
+                    s_weights, s_ridx,
+                    torch.cat([shade["diff_rgb_pbr"], shade["spec_rgb_pbr"],
+                               shade["spec_light"]], -1), n_rays)
+                diff_rgb_pbr_map = acc_l[:, 0:3]
+                sec_maps.update(spec_rgb_pbr=acc_l[:, 3:6],
+                                spec_light=acc_l[:, 6:9],
+                                spec_ref=maps["spec_ref"],
+                                roughness=maps["roughness"])
+            sec_maps = self._secondary_shade(sg, sec_maps, stage=stage,
+                                             relighting=relighting, mips=mips)
+            outs.append(self._assemble_out(
+                diff_rgb_map=maps["diff_rgb"], maps=sec_maps,
+                blend_map=maps["blend"], normal_map=maps["normal"],
+                depth_map=maps["depth"], acc_map=maps["acc"],
+                num_samples=mc["rs"].num_live, included=sg["included"],
+                inv_s=mc["inv_s"], background_color=background_color,
+                stage=stage, diff_rgb_pbr_map=diff_rgb_pbr_map,
+                albedo_map=maps.get("albedo"),
+                metallic_map=maps.get("metallic")))
+        self._eval_stats(outs[0], mc, sg["sec_live"])
+        return outs

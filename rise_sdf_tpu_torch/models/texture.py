@@ -5,7 +5,10 @@
   diffuse, roughness, blend + metallic, NN specular, secondary
   radiance) with split-sum shading against the mip-cubemap emitter and
   the FG table (``ops/fg_lut.py``).  ``apply`` is ``material_cache``
-  (everything that does not depend on the light) then ``shade_cached``.
+  (everything that does not depend on the light) then ``shade_cached``;
+  the relighting third bounce splits the same way
+  (``secondary_pbr_cache``, then ``secondary_shade_pbr_cached`` per
+  light).
 """
 
 from __future__ import annotations
@@ -90,6 +93,22 @@ class VolumeMixedMipSplitOcc(nn.Module):
                 act(self.roughness(inp)), act(met2[..., :1]),
                 act(met2[..., 1:]))
 
+    def _split_sum(self, albedo, roughness, metallic, normals, wo, nov,
+                   emitter, mips):
+        """Split-sum shading: (diffuse, specular, specular reflectance,
+        specular light), the specular light looked up along ``wo``."""
+        diff_rgb_pbr = (1 - metallic) * albedo * emitter.eval_mip(mips,
+                                                                  normals)
+        specular_albedo = 0.04 * (1 - metallic) + metallic * albedo
+        specular_light = emitter.eval_mip(mips, wo, specular=True,
+                                          roughness=roughness)
+        fg_uv = torch.cat([torch.clamp(nov, 0.0, 1.0),
+                           torch.clamp(roughness, 0.0, 1.0)], -1)
+        fg = sample_texture2d(self.fg, fg_uv)
+        specular_ref = specular_albedo * fg[..., 0:1] + fg[..., 1:2]
+        return diff_rgb_pbr, specular_ref * specular_light, specular_ref, \
+            specular_light
+
     def material_cache(self, features, dirs, normals, positions,
                        stage: int = 0, step=None):
         """The light-independent part of ``apply``: the material heads,
@@ -148,3 +167,30 @@ class VolumeMixedMipSplitOcc(nn.Module):
         enc = self.dir_encoding((rays_d + 1.0) / 2.0, step)
         inp = torch.cat([features, enc] + list(args), -1)
         return self.color_activation(self.secondary(inp))
+
+    def secondary_pbr_cache(self, features, dirs, normals, positions,
+                            step=None):
+        """The light-independent half of ``secondary_shading_pbr``: the
+        material heads at the third-bounce hit."""
+        nov = torch.sum(normals * -dirs, -1, keepdim=True)
+        _, albedo, roughness, _, metallic = self._material_heads(
+            features, positions, step)
+        return {"albedo": albedo, "roughness": roughness,
+                "metallic": metallic, "normals": normals, "dirs": dirs,
+                "nov": nov}
+
+    def secondary_shade_pbr_cached(self, cache, emitter, mips):
+        """Split-sum radiance at the third-bounce hit under one light.
+        The specular light is looked up along the incoming direction
+        ``dirs`` (the mirror bounce), as the reference does."""
+        diff, spec, _, _ = self._split_sum(
+            cache["albedo"], cache["roughness"], cache["metallic"],
+            cache["normals"], cache["dirs"], cache["nov"], emitter, mips)
+        return diff + spec
+
+    def secondary_shading_pbr(self, features, dirs, normals, positions,
+                              emitter, mips, step=None):
+        """Full split sum at a secondary hit: cache, then shade."""
+        return self.secondary_shade_pbr_cached(
+            self.secondary_pbr_cache(features, dirs, normals, positions,
+                                     step), emitter, mips)

@@ -13,6 +13,7 @@ Bilinear filtering is face-local with clamped uv, as in the JAX package.
 
 from __future__ import annotations
 
+import math
 from typing import List, Sequence, Tuple
 
 import numpy as np
@@ -187,3 +188,73 @@ def sample_texture2d(tex, uv):
     top = tap(v0, u0) * (1 - wu) + tap(v0, u1) * wu
     bot = tap(v1, u0) * (1 - wu) + tap(v1, u1) * wu
     return top * (1 - wv) + bot * wv
+
+
+# --------------------------------------------------------------------- #
+# lat-long conversions (Blender and NMF conventions).  Lat-long images
+# are [H, W, C].
+# --------------------------------------------------------------------- #
+
+
+def _sample_latlong(latlong, tu, tv):
+    """Bilinear lookup of a lat-long image at (tu, tv) in [0, 1]: the
+    azimuth wraps, the polar angle clamps."""
+    h, w = latlong.shape[0], latlong.shape[1]
+    fu = tu * w - 0.5
+    fv = tv * h - 0.5
+    u0 = torch.floor(fu).long()
+    v0 = torch.clamp(torch.floor(fv).long(), 0, h - 1)
+    v1 = torch.clamp(v0 + 1, 0, h - 1)
+    wu = (fu - u0)[..., None]
+    wv = (fv - v0)[..., None]
+    u0w = torch.remainder(u0, w)
+    u1w = torch.remainder(u0 + 1, w)
+    flat = latlong.reshape(h * w, -1)
+
+    def tap(vi, ui):
+        return _rows(flat, vi * w + ui)
+
+    top = tap(v0, u0w) * (1 - wu) + tap(v0, u1w) * wu
+    bot = tap(v1, u0w) * (1 - wu) + tap(v1, u1w) * wu
+    return top * (1 - wv) + bot * wv
+
+
+def _latlong_uv(res: int, device, nmf: bool):
+    dirs = face_directions(res, device)
+    tu = torch.atan2(-dirs[..., 1], dirs[..., 0]) / (2 * math.pi) + 0.5
+    if nmf:  # NMF mirrors the azimuth
+        tu = torch.where(tu < 0.5, 0.5 - tu, 1.5 - tu)
+    tv = torch.acos(torch.clamp(dirs[..., 2], -1, 1)) / math.pi
+    return tu, tv
+
+
+def blender_latlong_to_cubemap(latlong, res: int):
+    """[H, W, C] lat-long (Blender convention) -> [6, res, res, C]."""
+    return _sample_latlong(latlong, *_latlong_uv(res, latlong.device, False))
+
+
+def nmf_latlong_to_cubemap(latlong, res: int):
+    """[H, W, C] lat-long (NMF's mirrored azimuth) -> [6, res, res, C]."""
+    return _sample_latlong(latlong, *_latlong_uv(res, latlong.device, True))
+
+
+def _latlong_grid(out_hw, device):
+    h, w = out_hw
+    gy = (torch.arange(h, dtype=torch.float32, device=device) + 0.5) / h
+    gx = ((torch.arange(w, dtype=torch.float32, device=device) + 0.5) / w) \
+        * 2.0 - 1.0
+    gy, gx = torch.meshgrid(gy, gx, indexing="ij")
+    return (torch.sin(gy * math.pi), torch.cos(gy * math.pi),
+            torch.sin(gx * math.pi), torch.cos(gx * math.pi))
+
+
+def cubemap_to_blender_latlong(cubemap, out_hw):
+    """[6, N, N, C] -> [H, W, C] lat-long, Blender convention."""
+    st, ct, sp, cp = _latlong_grid(out_hw, cubemap.device)
+    return sample_cubemap(cubemap, torch.stack([st * cp, -st * sp, ct], -1))
+
+
+def cubemap_to_latlong(cubemap, out_hw):
+    """[6, N, N, C] -> [H, W, C] lat-long, y up (the envmap dumps)."""
+    st, ct, sp, cp = _latlong_grid(out_hw, cubemap.device)
+    return sample_cubemap(cubemap, torch.stack([st * sp, ct, -st * cp], -1))

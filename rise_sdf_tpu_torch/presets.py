@@ -7,10 +7,18 @@ on the procedural ``synthetic-sphere`` scene at the config's own
 800x800; ``split_mixed_occ_full`` is the model section of
 ``configs/split-mixed-occ-tensoir.yaml``, the flagship, and
 ``split_mixed_occ_train_full`` the whole config, trained on the
-synthetic sphere.
+synthetic sphere; ``split_mixed_occ_test_full`` adds the config's test
+protocol on the sphere's test split (relighting under two analytic
+environments) and ``tiny_split_test_config`` is its tiny counterpart.
 """
 
 from __future__ import annotations
+
+import os
+
+# where the test presets' environment EXRs go (gitignored)
+ENV_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_cache",
+                       "envmaps")
 
 
 def tiny_mlp(layers=1, neurons=16, sphere=False):
@@ -343,3 +351,30 @@ def split_mixed_occ_train_full():
                     "limit_train_batches": 1.0, "limit_val_batches": 3,
                     "enable_progress_bar": True, "precision": 32},
     }
+
+
+def _test_protocol(cfg, hdr_filepath, n_images):
+    """``cfg`` with the flagship yaml's test protocol on the synthetic
+    sphere: albedo and roughness ground truth, relighting under the
+    analytic ``warm`` and ``bright`` environments (written as EXRs under
+    ``hdr_filepath``), ``n_images`` test views."""
+    cfg["dataset"].update({
+        "relight_list": ["warm", "bright"], "hdr_filepath": hdr_filepath,
+        "n_images": n_images, "has_albedo": True, "has_roughness": True})
+    return cfg
+
+
+def split_mixed_occ_test_full(hdr_filepath: str = ENV_DIR):
+    """``split_mixed_occ_train_full`` with the flagship's test protocol at
+    800x800 (``derive_compaction`` on, as the model section sets it).
+    Cut in depth: 4 test views where the reference protocol renders
+    TensoIR's 200."""
+    return _test_protocol(split_mixed_occ_train_full(), hdr_filepath, 4)
+
+
+def tiny_split_test_config(hdr_filepath: str = ENV_DIR):
+    """``tiny_split_config`` with the test protocol (2 views at 32x32)
+    and ``derive_compaction`` on."""
+    cfg = _test_protocol(tiny_split_config(), hdr_filepath, 2)
+    cfg["model"]["derive_compaction"] = True
+    return cfg

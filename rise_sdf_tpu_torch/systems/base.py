@@ -16,6 +16,7 @@ from typing import Optional
 import torch
 
 from .. import bridge, models
+from ..utils.saving import Saver
 
 
 class BaseSystem:
@@ -35,6 +36,7 @@ class BaseSystem:
         self.model = models.make(config["model"]["name"],
                                  config["model"]).to(self.device)
         self.save_dir = save_dir
+        self.saver = Saver(save_dir)
         self.ckpt_dir = ckpt_dir or os.path.join(save_dir, "ckpt")
         self.prepare()
 

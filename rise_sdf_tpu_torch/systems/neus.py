@@ -252,7 +252,7 @@ class NeuSSystem(BaseSystem):
         return state
 
     # ------------------------------------------------------------------ #
-    def eval_context(self, state) -> Dict:
+    def eval_context(self, state, emitter_base=None) -> Dict:
         """Per-image inputs of ``render_chunk`` beyond the rays."""
         return {}
 
@@ -267,25 +267,38 @@ class NeuSSystem(BaseSystem):
                 "ray_included"]
         return {k: out[k] for k in keep}
 
-    @torch.no_grad()
-    def render_image(self, state, split, index: int) -> Dict[str, np.ndarray]:
-        """Serial chunk loop over one view, in the configured ray
-        interleave.  A chunk whose rays overflow the fixed sample buffer
-        is rendered again with a 2x, then 4x buffer; ``ray_included``
-        says which rays fit in the end."""
+    def view_rays(self, split, index: int):
+        """View ``index``'s unit rays [H * W, 6] on the device, in the
+        configured eval interleave, and the inverse permutation (None
+        when the rays keep their order)."""
         dirs = torch.as_tensor(split.directions, device=self.device)
         c2w = torch.as_tensor(split.all_c2w[index], device=self.device)
         rays_o, rays_d = get_rays(dirs, c2w)
         rays_d = rays_d / torch.linalg.vector_norm(rays_d, dim=-1,
                                                    keepdim=True)
         rays = torch.cat([rays_o, rays_d], -1)
+        order, inv = interleave_order(rays.shape[0], self.eval_chunk,
+                                      self.eval_ray_interleave)
+        if order is None:
+            return rays, None
+        return rays[torch.from_numpy(order).to(self.device)], \
+            torch.from_numpy(inv).to(self.device)
+
+    @torch.no_grad()
+    def render_image(self, state, split, index: int, emitter_base=None,
+                     **opts) -> Dict[str, np.ndarray]:
+        """Serial chunk loop over one view, in the configured ray
+        interleave.  A chunk whose rays overflow the fixed sample buffer
+        is rendered again with a 2x, then 4x buffer, with the same
+        ``opts`` (so a multi-emitter chunk keeps its lights);
+        ``ray_included`` says which rays fit in the end.
+        ``emitter_base`` and ``opts`` go to ``eval_context`` and
+        ``render_chunk``; the chunks' ``stat_*`` counts are dropped."""
+        rays, inv = self.view_rays(split, index)
         n, chunk = rays.shape[0], self.eval_chunk
-        order, inv = interleave_order(n, chunk, self.eval_ray_interleave)
-        if order is not None:
-            rays = rays[torch.from_numpy(order).to(self.device)]
         outs = []
         with self.frozen_params():
-            ctx = self.eval_context(state)
+            ctx = self.eval_context(state, emitter_base)
             for s in range(0, n, chunk):
                 part = rays[s:s + chunk]
                 pad = chunk - part.shape[0]
@@ -293,21 +306,21 @@ class NeuSSystem(BaseSystem):
                     # edge-pad: duplicated real rays behave like their
                     # source (zero-direction rays would overflow the buffer)
                     part = torch.cat([part, part[-1:].expand(pad, -1)])
-                res = self.render_chunk(state, part, **ctx)
+                res = self.render_chunk(state, part, **ctx, **opts)
                 for mult in (2, 4):
                     if bool(res["ray_included"].all()):
                         break
-                    res = self.render_chunk(state, part, mult, **ctx)
+                    res = self.render_chunk(state, part, mult, **ctx, **opts)
                 dropped = int((~res["ray_included"]).sum())
                 if dropped:
                     print(f"WARNING: eval chunk at ray {s}: {dropped} rays "
                           "overflowed the 4x sample buffer and were rendered "
                           "partially — metrics may be corrupted", flush=True)
-                outs.append({k: v[:chunk - pad] for k, v in res.items()})
+                outs.append({k: v[:chunk - pad] for k, v in res.items()
+                             if not k.startswith("stat_")})
         img = {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
         if inv is not None:
-            back = torch.from_numpy(inv).to(self.device)
-            img = {k: v[back] for k, v in img.items()}
+            img = {k: v[inv] for k, v in img.items()}
         return {k: v.cpu().numpy() for k, v in img.items()}
 
     def validate(self, state, n_images: Optional[int] = None):

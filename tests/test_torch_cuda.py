@@ -282,3 +282,46 @@ def test_scatter_add_out_of_range_index_raises(cuda):
         "from rise_sdf_tpu_torch.ops.scatter import scatter_add\n"
         "scatter_add(idx, torch.zeros((idx.numel(), 2), device='cuda'), "
         "64, 8)")
+
+
+def test_forward_multi_on_the_card_matches_cpu(cuda):
+    """The tiny split eval through ``forward_multi`` (the learned light
+    and a relight light with the third bounce) on the card: G1 gathers
+    every encode, no table gradient reaches K1 (the third bounce's
+    normal is a gradient with respect to the positions only), and the
+    result matches the CPU's plain gathers in float64."""
+    import copy
+
+    from rise_sdf_tpu_torch import models
+    from rise_sdf_tpu_torch.presets import tiny_split_config
+
+    cfg = tiny_split_config()["model"]
+    cfg["variance"]["init_val"] = 0.7
+    cfg.update({"num_samples_per_ray": 256, "visibility_prefilter": True,
+                "eval_sdf_bake": "full", "eval_sdf_bake_cells": 64})
+    model = models.make(cfg["name"], cfg)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    b = torch.linspace(-0.45, 0.45, 32, dtype=torch.float64)
+    d = torch.stack([torch.zeros_like(b), b / 4.0, torch.ones_like(b)], -1)
+    d = d / torch.linalg.vector_norm(d, dim=-1, keepdim=True)
+    rays = torch.cat([torch.tensor([[0.0, 0.0, -4.0]],
+                                   dtype=torch.float64).expand(32, 3), d], -1)
+    outs = {}
+    for dev in ("cpu", cuda):
+        m = copy.deepcopy(model).double().to(dev).requires_grad_(False)
+        mips = [m.emitter.build_mips(),
+                m.emitter.build_mips(torch.roll(m.emitter.base * 1.7, 1, -1))]
+        g1, k1 = gather_rows.launches, scatter_add.launches
+        outs[str(dev)] = m.forward_multi(
+            rays.to(dev), occ_binary=torch.ones(
+                m.grid_resolution ** 3, dtype=torch.bool, device=dev),
+            mips_list=mips, relight_flags=(False, True), step=20, stage=1,
+            capacity=768, background_color=torch.ones(
+                3, dtype=torch.float64, device=dev),
+            prefilter=True, banded=True, bake=m.bake_eval_sdf(20))
+        torch.cuda.synchronize()
+    assert gather_rows.launches > g1 and scatter_add.launches == k1
+    for cpu, gpu in zip(outs["cpu"], outs[str(cuda)]):
+        for k in ("comp_rgb_full", "opacity", "comp_rgb_phys_full"):
+            assert float((gpu[k].cpu() - cpu[k]).abs().max()) <= 1e-9, k
+        assert torch.equal(gpu["ray_included"].cpu(), cpu["ray_included"])
