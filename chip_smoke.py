@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (Hopper, sm_90a).
 
     python3 chip_smoke.py [--steps 120] [--split-steps 32]
-                          [--test-views 4] [--save-streams FILE]
+                          [--test-views 4] [--resume-steps 32]
+                          [--save-streams FILE]
 
 Phases, each of which fails the run (non-zero exit) when it fails:
 
@@ -78,22 +79,42 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    (``rise_sdf_tpu_torch.measure.test_protocol``).  The counts are
    zeroed just before and read just after: G1 must launch and K1 must
    not (no table gradient at eval); every metric is finite, no ray is
-   dropped after escalation, and view 0's metrics in single-light mode
-   are within 1e-3 of the multi-emitter render's (the bound of the JAX
-   package's test of the two modes).  The script prints the largest
-   difference of each image and the share of pixels more than 1e-4
-   apart: on the card the float32 transmittance scan (``torch.cumsum``,
-   nondeterministic on CUDA) and the atomics of the accumulation move
-   last bits from run to run, and the secondary pass's thresholds turn
-   some into visible differences; on the CPU the modes are bit-equal
-   (``tests/test_torch_test_protocol.py``).
+   dropped after escalation, view 0's metrics in single-light mode are
+   within 1e-3 of the multi-emitter render's (the bound of the JAX
+   package's test of the two modes) and its images within 1e-4 in max
+   |difference|: an eval render scans and accumulates deterministically
+   on the card (``ops/volrend.py``), so the two modes give the same
+   images (on the CPU they are bit-equal,
+   ``tests/test_torch_test_protocol.py``);
+10. a flagship run's lifecycle, on phase 8's trained system and its
+   stage-1 state at ``split_mixed_occ_test_full``: (a) the whole
+   training state saved synchronously (seconds and MB printed); (b) a
+   new system and ``load_checkpoint``: every param, Adam moment and
+   count, the schedule's count, ``occs``, ``occ_binary`` and ``step``
+   bit-equal to the source; (c) ``fit`` from the loaded state for
+   ``--resume-steps`` steps (32) with ``trainer.save_every_n_steps`` 16
+   and ``val_every`` 32: K1 and G1 launch on every step, no update is
+   skipped, the one validation view has a finite PSNR and phys PSNR (its
+   dropped rays are printed: the fresh-init field of these steps
+   outgrows the 4x eval buffer on some rays); (d) ``export`` at ``isosurface.resolution`` 512, counts zeroed
+   just before and read just after: G1 must launch and K1 must not; the
+   vertex and face counts, the grid-eval, marching and attribute
+   seconds and the peak device memory are printed, and the PLY must read
+   back with the same counts and vertices inside [-r, r]^3, the albedo,
+   metallic and roughness arrays finite in [0, 1]; then
+   ``latest.ckpt.npz`` must load back at the step after its last save;
+   (e) ``python -m rise_sdf_tpu_torch.launch --preset
+   split_mixed_occ_test_full --test --resume <a's file>
+   dataset.n_images=1`` as a subprocess: exit 0, the test PNGs and the
+   PLY in the trial's ``save/``, the wall time printed.
 
 ``--save-streams FILE`` saves both recorded streams for the same-call
 A/B against another tree, ``python -m rise_sdf_tpu_torch.kernel_ab``
 (``_ab/streams.pt``, about 1.7 GB, in the gitignored ``_ab/``).
 The last two lines are the kernels' JSON record (K1's and G1's entries
 also carry their times on the recorded streams and per NeuS and flagship
-train step, G1's its launches in the test protocol) and
+train step, G1's its launches in the test protocol, both their launches
+in phase 10's resumed run and G1's in its export) and
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the package
 beside it, the script exits non-zero and prints no result.
 """
@@ -836,10 +857,207 @@ def test_protocol_phase(torch, gather, scatter, system, state, views):
                  f"{run['k1_launches']} times")
     if single["max_metric_diff"] > 1e-3:
         fail("the single-light metrics differ from the multi-emitter ones")
+    if max(single["max_abs_diff"].values()) > 1e-4:
+        fail("the single-light images differ from the multi-emitter ones")
     return g1, {"multi_s_per_view": multi["s_per_view"],
                 "single_s_per_view": single["s_per_view"],
                 "multi_launches_per_view": multi["g1_launches"]
                 / multi["views"]}
+
+
+def _same_state(torch, src, dst, src_state, dst_state):
+    """Names of the training-state tensors of ``dst`` that are not
+    bit-equal to ``src``'s: params, Adam's ``exp_avg``, ``exp_avg_sq``
+    and ``step`` per parameter, the schedule's ``last_epoch``, ``occs``,
+    ``occ_binary`` and ``step``."""
+    bad = []
+    dst_params = dict(dst.model.named_parameters())
+    for name, p in src.model.named_parameters():
+        q = dst_params[name]
+        if not torch.equal(p, q):
+            bad.append(name)
+        a, b = src.optimizer.state[p], dst.optimizer.state[q]
+        for k in ("exp_avg", "exp_avg_sq", "step"):
+            if not torch.equal(a[k].cpu(), b[k].cpu()):
+                bad.append(f"{k}:{name}")
+    if src.scheduler.last_epoch != dst.scheduler.last_epoch:
+        bad.append("last_epoch")
+    for k in ("occs", "occ_binary"):
+        if not torch.equal(src_state[k], dst_state[k]):
+            bad.append(k)
+    if int(src_state["step"]) != int(dst_state["step"]):
+        bad.append("step")
+    return bad
+
+
+def lifecycle_phase(torch, gather, scatter, trained, state, steps):
+    """A flagship run's lifecycle on phase 8's trained system and its
+    stage-1 state (module docstring, phase 10).  Returns K1's and G1's
+    launches in the resumed run and G1's in the export."""
+    from rise_sdf_tpu_torch import datasets, systems
+    from rise_sdf_tpu_torch.presets import split_mixed_occ_test_full
+    from rise_sdf_tpu_torch.utils.saving import load_ply
+
+    root = os.path.join("exp", "chip_smoke_lifecycle")
+    shutil.rmtree(root, ignore_errors=True)
+    ckpt = os.path.join(root, "resume.ckpt.npz")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trained.save_checkpoint(state, ckpt)
+    save_s = time.perf_counter() - t0
+    log(f"  a. save_checkpoint (whole state) in {save_s:.2f} s, "
+        f"{os.path.getsize(ckpt) / 1e6:.1f} MB")
+
+    cfg = split_mixed_occ_test_full()
+    cfg["trainer"]["save_every_n_steps"] = 16
+    seed = int(cfg["seed"])
+    t0 = time.perf_counter()
+    system = systems.make(cfg["system"]["name"], cfg,
+                          datasets.make(cfg["dataset"]["name"],
+                                        cfg["dataset"]),
+                          save_dir=os.path.join(root, "save"),
+                          ckpt_dir=os.path.join(root, "ckpt"), device="cuda")
+    built_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = system.load_checkpoint(ckpt)
+    torch.cuda.synchronize()
+    bad = _same_state(torch, trained, system, state, loaded)
+    log(f"  b. new system in {built_s:.1f} s, load_checkpoint in "
+        f"{time.perf_counter() - t0:.2f} s at step {loaded['step']}: "
+        f"{len(bad)} tensors differ from the saved state")
+    if bad:
+        fail(f"the loaded state differs from the saved one: {bad[:10]}")
+
+    start = int(loaded["step"])
+    per_step, vals = [], []
+    validate = system.validate
+
+    def validate_once(st, n_images=None):
+        vals.append(validate(st, n_images))
+        return vals[-1]
+
+    def on_log(step, m):
+        per_step.append((step, scatter.scatter_add.launches,
+                         gather.gather_rows.launches, m["loss"]))
+
+    system.validate = validate_once
+    torch.cuda.synchronize()
+    scatter.scatter_add.launches = 0
+    gather.gather_rows.launches = 0
+    t0 = time.perf_counter()
+    final = system.fit(max_steps=start + steps, seed=seed, state=loaded,
+                       log_every=1, val_every=32, on_log=on_log)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    k1, g1 = scatter.scatter_add.launches, gather.gather_rows.launches
+    del system.validate
+    last, short, deltas = (0, 0), [], []
+    for step, k, g, _ in per_step:
+        if k - last[0] < 1 or g - last[1] < 1:
+            short.append((step, k - last[0], g - last[1]))
+        deltas.append((k - last[0], g - last[1]))
+        last = (k, g)
+    # launches per step: the median step's (a step that validates or
+    # sweeps the grid launches more)
+    k1_step, g1_step = (float(np.median(d)) for d in zip(*deltas))
+    saves = [s for s in range(start, start + steps) if s > 0 and s % 16 == 0]
+    latest = os.path.join(system.ckpt_dir, "latest.ckpt.npz")
+    log(f"  c. fit {start} -> {int(final['step'])} in {fit_s:.1f} s "
+        f"(saves of latest.ckpt.npz after steps {saves}, validation "
+        f"{vals}); K1 launches {k1}, G1 launches {g1} (per step, median: "
+        f"{k1_step:g} and {g1_step:g}); skipped updates "
+        f"{system.skipped_updates}")
+    if len(per_step) != steps or not np.all(np.isfinite(
+            [m for *_, m in per_step])):
+        fail("non-finite or missing losses in the resumed run")
+    if short:
+        fail(f"resumed steps without a K1 or G1 launch (step, K1, G1): "
+             f"{short}")
+    if system.skipped_updates:
+        fail(f"{system.skipped_updates} skipped updates in the resumed run")
+    # the fresh-init field grows softer over these steps: at step 13,056
+    # some rays need more samples than the 4x eval buffer holds, so the
+    # dropped rays are reported here (phases 8 and 9 require none)
+    checks = [s for s in range(start, start + steps) if s > 0 and s % 32 == 0]
+    if not checks or len(vals) != len(checks) or not all(
+            np.isfinite(v["psnr"]) and np.isfinite(v["phys_psnr"])
+            for v in vals):
+        fail(f"validation inside fit after steps {checks}: {vals}")
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    scatter.scatter_add.launches = 0
+    gather.gather_rows.launches = 0
+    times = {}
+    t0 = time.perf_counter()
+    mesh = system.export(final, times)
+    export_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    g1_export, k1_export = (gather.gather_rows.launches,
+                            scatter.scatter_add.launches)
+    if mesh is None:
+        fail("export found no surface")
+    iso = cfg["model"]["geometry"]["isosurface"]
+    ply = os.path.join(system.save_dir,
+                       f"it{int(final['step'])}-mc{iso['resolution']}.ply")
+    verts, faces = load_ply(ply)
+    log(f"  d. export at {iso['resolution']}^3 in {export_s:.1f} s: "
+        f"{len(verts)} vertices, {len(faces)} faces; grid eval "
+        f"{times['grid']:.2f} s, marching {times['march']:.2f} s, "
+        f"attributes {times['attributes']:.2f} s; peak device memory "
+        f"{peak / 2 ** 30:.2f} GiB; G1 launches {g1_export}, K1 launches "
+        f"{k1_export}")
+    if g1_export == 0 or k1_export != 0:
+        fail(f"export launched G1 {g1_export}, K1 {k1_export} times")
+    radius = float(cfg["model"]["radius"])
+    if (len(verts), len(faces)) != (len(mesh["v_pos"]),
+                                    len(mesh["t_pos_idx"])) \
+            or not len(faces) or np.abs(verts).max() > radius \
+            or faces.max() >= len(verts):
+        fail("the exported PLY does not read back as the mesh")
+    for k in ("albedo", "metallic", "roughness"):
+        a = np.load(os.path.join(system.save_dir, f"{k}.npy"))
+        if len(a) != len(verts) or not np.isfinite(a).all() \
+                or a.min() < 0 or a.max() > 1:
+            fail(f"{k}.npy: {a.shape}, range {a.min()}..{a.max()}")
+
+    back = system.load_checkpoint(latest)
+    want = saves[-1] + 1 if saves else None
+    log(f"  latest.ckpt.npz loads back at step {back['step']} "
+        f"(expected {want})")
+    if back["step"] != want:
+        fail("latest.ckpt.npz is not the state after the last save")
+    del system, trained, final, back, mesh
+    torch.cuda.empty_cache()
+
+    exp_dir = os.path.join(root, "cli")
+    cmd = [sys.executable, "-m", "rise_sdf_tpu_torch.launch", "--preset",
+           "split_mixed_occ_test_full", "--test", "--resume", ckpt,
+           "dataset.n_images=1", "--exp_dir", exp_dir]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    cli_s = time.perf_counter() - t0
+    for line in res.stdout.splitlines()[-6:]:
+        log(f"    | {line}")
+    trials = [os.path.join(dp, "save") for dp, dirs, _ in os.walk(exp_dir)
+              if "save" in dirs]
+    pngs = plys = []
+    if trials:
+        found = [os.path.join(dp, f) for dp, _, fs in os.walk(trials[0])
+                 for f in fs]
+        pngs = [f for f in found if f.endswith(".png")]
+        plys = [f for f in found if f.endswith(".ply")]
+    log(f"  e. {' '.join(cmd[1:])}: exit {res.returncode} in {cli_s:.1f} s;"
+        f" {len(pngs)} PNGs, PLY {[os.path.basename(f) for f in plys]}")
+    if res.returncode != 0:
+        print(res.stderr[-4000:], file=sys.stderr, flush=True)
+        fail("the launch CLI failed")
+    if not pngs or len(plys) != 1:
+        fail("the launch CLI left no test PNGs or no PLY")
+    shutil.rmtree(root, ignore_errors=True)
+    return {"k1": k1, "g1": g1, "g1_export": g1_export,
+            "k1_per_step": k1_step, "g1_per_step": g1_step}
 
 
 def check_recorded_step(torch, scatter, table, encodes, stream):
@@ -884,6 +1102,8 @@ def main():
     ap.add_argument("--test-views", type=int, default=4,
                     help="test views of the test protocol's multi-emitter "
                          "run")
+    ap.add_argument("--resume-steps", type=int, default=32,
+                    help="steps of the resumed run in the lifecycle phase")
     ap.add_argument("--save-streams", metavar="FILE",
                     help="save the recorded streams (torch.save) for "
                          "python -m rise_sdf_tpu_torch.kernel_ab")
@@ -941,7 +1161,19 @@ def main():
         f"bright) + view 0 in single-light mode:")
     g1["test_launches"], g1["test_protocol"] = test_protocol_phase(
         torch, gather, scatter, system, state, args.test_views)
+    log(f"lifecycle: split_mixed_occ_test_full from step "
+        f"{int(state['step'])}: save, load, {args.resume_steps} resumed "
+        f"steps, export, the launch CLI:")
+    t0 = time.perf_counter()
+    life = lifecycle_phase(torch, gather, scatter, system, state,
+                           args.resume_steps)
+    log(f"  phase {time.perf_counter() - t0:.1f} s")
     del system, state
+    k1["resume_launches"] = life["k1"]
+    g1["resume_launches"] = life["g1"]
+    g1["export_launches"] = life["g1_export"]
+    k1["resume_launches_per_step"] = life["k1_per_step"]
+    g1["resume_launches_per_step"] = life["g1_per_step"]
     s1["launches"] = k1["launches"]
     for key, rec in (("k1", k1), ("g1", g1)):
         for name, prof in (("per_step", per_step),
@@ -955,7 +1187,8 @@ def main():
             "bound_by", "library_ms")
     extra = ("train_stream", "render_stream", "per_step", "probe_stream",
              "flagship_per_step", "flagship_launches", "test_launches",
-             "test_protocol")
+             "test_protocol", "resume_launches", "resume_launches_per_step",
+             "export_launches")
     log(json.dumps({"kernels": [
         {"name": "scatter_add (K1)", "route": "cuda", "source": SRC_K1,
          "replaces": REPLACES_K1, **{k: k1[k] for k in keys},

@@ -38,6 +38,21 @@ each run, the single-light run against the multi-emitter run's view 0
 ms per view by kernel (G1's among them) from ``torch.profiler`` over
 view 1 of the multi-emitter run.
 
+``--preset determinism`` checks and times torch's scan and
+``index_add`` against ``volrend.blocked_cumsum`` and
+``sorted_segment_sum`` on a 1,048,576-slot buffer (repeat differences,
+median ms, and torch's two under ``torch.use_deterministic_algorithms``),
+then trains the same stage-1 window and renders test view 0 of
+``split_mixed_occ_test_full`` (the protocol of one view, calibration
+included) in multi-emitter mode, twice each with the eval path's scan
+and sum both plain (torch's ``cumsum`` and ``index_add`` in place of
+``volrend``'s two), both deterministic, and one of them deterministic,
+in mirrored order; then once in
+single-light mode with both deterministic.  Its JSON line: each pair's
+largest image difference and share of pixels more than 1e-4 apart, the
+single-light images against the multi-emitter ones, the seconds per
+view of each run and the ops' numbers.
+
 Without CUDA it raises.
 """
 
@@ -422,12 +437,143 @@ def _test_main(steps):
     return {"step": int(state["step"]), "stage1_steps_per_s": rate, **res}
 
 
+def _image_diff(a, b):
+    """The largest difference of two renders' images (every key of both)
+    and the share of pixels more than 1e-4 apart, per key."""
+    out = {}
+    for k in a:
+        if k in b and a[k].dtype.kind == "f" and a[k].ndim == 2:
+            d = np.abs(a[k] - b[k]).max(-1)
+            out[k] = {"max": float(d.max()),
+                      "share_above_1e-4": float((d > 1e-4).mean())}
+    return out
+
+
+def _ops_repeat():
+    """torch's scan and ``index_add`` against ``blocked_cumsum`` and
+    ``sorted_segment_sum`` on a 1,048,576-slot ray-major buffer of 4096
+    rays (the flagship's 4x eval buffer): the largest difference of two
+    calls on the same input and the median ms of each; then torch's two
+    under ``torch.use_deterministic_algorithms(True)``: the error they
+    raise, or their repeat difference and ms."""
+    from .ops import volrend
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    n_rays, c = 4096, 1 << 20
+    counts = torch.randint(0, 2 * c // n_rays, (n_rays,), generator=gen,
+                           device="cuda")
+    ridx = torch.repeat_interleave(torch.arange(n_rays, device="cuda"),
+                                   counts)[:c]
+    ridx = torch.cat([ridx, torch.full((c - ridx.shape[0],), n_rays,
+                                       device="cuda")])
+    la = torch.log1p(-torch.rand(c, generator=gen, device="cuda") * 0.1)
+    src = torch.rand((c, 30), generator=gen, device="cuda")
+
+    def index_add():
+        return src.new_zeros((n_rays + 1, 30)).index_add(0, ridx, src)[
+            :n_rays]
+
+    ops = {"cumsum": lambda: torch.cumsum(la, 0),
+           "index_add_30": index_add,
+           "blocked_cumsum": lambda: volrend.blocked_cumsum(la),
+           "sorted_segment_sum_30": lambda: volrend.sorted_segment_sum(
+               src, ridx, n_rays)}
+
+    def run(fn):
+        diff = max(float((fn() - fn()).abs().max()) for _ in range(5))
+        return {"repeat_max_diff": diff, "ms": median_ms(fn)}
+
+    res = {name: run(fn) for name, fn in ops.items()}
+    torch.use_deterministic_algorithms(True)
+    try:
+        for name in ("cumsum", "index_add_30"):
+            try:
+                res[name + "_deterministic_mode"] = run(ops[name])
+            except RuntimeError as e:
+                res[name + "_deterministic_mode"] = {
+                    "raises": str(e).splitlines()[0][:200]}
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return res
+
+
+def _determinism_main(steps):
+    from . import datasets, systems
+    from .ops import volrend
+    from .presets import split_mixed_occ_train_full
+
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    res = {"ops": _ops_repeat()}
+    print(json.dumps(res), file=sys.stderr, flush=True)
+    cfg = split_mixed_occ_train_full()
+    seed = int(cfg["seed"])
+    save = os.path.join("exp", "measure")
+    system = systems.make(cfg["system"]["name"], cfg,
+                          datasets.make(cfg["dataset"]["name"],
+                                        cfg["dataset"]),
+                          save_dir=save, device="cuda")
+    state = system.init_state(seed)
+    state["step"] = SPLIT_STAGE1_STEP
+    state, _, _, _ = train(system, steps, seed, state,
+                           profile_from=SPLIT_STAGE1_STEP + steps)
+    log = lambda msg: print(msg, file=sys.stderr, flush=True)  # noqa: E731
+
+    det = {"scan": ("blocked_cumsum", volrend.blocked_cumsum),
+           "sum": ("sorted_segment_sum", volrend.sorted_segment_sum)}
+    plain = {"scan": lambda x: torch.cumsum(x, 0),
+             "sum": lambda src, ridx, n: src.new_zeros(
+                 (n + 1, src.shape[1])).index_add(0, ridx, src)[:n]}
+
+    def view0(ops, multi=True):
+        # the ops not in ``ops`` run as torch's own on the eval path
+        for op, (name, _) in det.items():
+            if op not in ops:
+                setattr(volrend, name, plain[op])
+        try:
+            run = run_test(test_system(system, multi=multi, n_images=1),
+                           state, log=log)
+        finally:
+            for name, fn in det.values():
+                setattr(volrend, name, fn)
+        log(f"  view 0, deterministic {sorted(ops)}, multi {multi}: "
+            f"{run['s_per_view']:.2f} s")
+        return run
+
+    order = [("plain", ()), ("both", ("scan", "sum")),
+             ("scan", ("scan",)), ("sum", ("sum",)),
+             ("sum", ("sum",)), ("scan", ("scan",)),
+             ("both", ("scan", "sum")), ("plain", ())]
+    runs = {}
+    for name, ops in order:
+        runs.setdefault(name, []).append(view0(ops))
+    single = view0(("scan", "sum"), multi=False)
+    res["seconds_per_view"] = {k: [r["s_per_view"] for r in v]
+                               for k, v in runs.items()}
+    res["same_mode_repeat"] = {
+        k: _image_diff(v[0]["images"][0], v[1]["images"][0])
+        for k, v in runs.items()}
+    both = runs["both"][0]["images"][0]
+    names = ["comp_rgb_phys_full"] + [
+        f"relight{j}/comp_rgb_phys_full"
+        for j in range(len(system.config["dataset"].get(
+            "relight_list", []) or []))]
+    res["single_vs_multi_both"] = {
+        name: _image_diff({"x": o["comp_rgb_phys_full"]},
+                          {"x": both[name]})["x"]
+        for name, o in zip(names, single["images"])}
+    res["single_seconds_per_view"] = single["s_per_view"]
+    shutil.rmtree(save, ignore_errors=True)
+    shutil.rmtree(os.path.join("exp", "test_protocol"), ignore_errors=True)
+    return {"step": int(state["step"]), **res}
+
+
 def main(argv=None):
     from . import datasets, systems
     from .presets import neus_sphere_full
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--preset", choices=("neus", "split", "test"),
+    ap.add_argument("--preset", choices=("neus", "split", "test",
+                                         "determinism"),
                     default="neus")
     ap.add_argument("--steps", type=int, default=None)
     args = ap.parse_args(argv)
@@ -439,6 +585,8 @@ def main(argv=None):
         res = _split_main(args.steps or 32)
     elif args.preset == "test":
         res = _test_main(args.steps or 32)
+    elif args.preset == "determinism":
+        res = _determinism_main(args.steps or 32)
     else:
         cfg = neus_sphere_full()
         seed = int(cfg.get("seed", 42))

@@ -75,6 +75,12 @@ class VolumeSDF(nn.Module):
     def sdf(self, x_world, step=None, levels=None):
         return self.raw(x_world, step, levels)[..., 0]
 
+    @torch.no_grad()
+    def forward_level(self, x_world, step=None):
+        """The SDF alone, without gradients: the level that marching
+        tetrahedra extracts."""
+        return self.sdf(x_world, step)
+
     # ------------------------------------------------------------------ #
     def _hash_grid(self):
         hg = getattr(self.encoding, "encoding", None)

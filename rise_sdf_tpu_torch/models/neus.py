@@ -85,6 +85,10 @@ class NeuSModel(nn.Module):
         """Buffer upkeep after the optimizer step (the variance's)."""
         self.variance.post_update(step)
 
+    def forward_level(self, x, step=None):
+        """The geometry's SDF level at ``x`` (mesh export)."""
+        return self.geometry.forward_level(x, step)
+
     def occ_eval(self, x, step):
         """Per-cell occupancy alpha for the grid EMA update."""
         sdf = self.geometry.sdf(x, step)
@@ -124,11 +128,12 @@ class NeuSModel(nn.Module):
         rgb = self.texture(feature, t_dirs, normal, step=step)
 
         weights, _ = volrend.render_weight_from_alpha(
-            alpha, rs.ray_start, rs.ray_indices, rs.valid, n_rays)
+            alpha, rs.ray_start, rs.ray_indices, rs.valid, n_rays,
+            deterministic=not train)
         packed = torch.cat([rgb, normal, t_mid[:, None],
                             torch.ones_like(t_mid)[:, None]], dim=-1)
         acc = volrend.accumulate_along_rays(weights, rs.ray_indices, packed,
-                                            n_rays)
+                                            n_rays, deterministic=not train)
         comp_rgb, comp_normal = acc[:, 0:3], acc[:, 3:6]
         depth, opacity = acc[:, 6:7], acc[:, 7:8]
         bg = background_color[None, :].expand_as(comp_rgb)

@@ -145,6 +145,10 @@ class SplitMixedOccModel(nn.Module):
             return 1.0
         return min(1.0, float(step) / self.cos_anneal_end)
 
+    def forward_level(self, x, step=None):
+        """The geometry's SDF level at ``x`` (mesh export)."""
+        return self.geometry.forward_level(x, step)
+
     def occ_eval(self, x, step, levels=None):
         sdf = self.geometry.sdf(x, step, levels=levels)
         return occ_eval_alpha(sdf, self.variance.inv_s(),
@@ -351,9 +355,11 @@ class SplitMixedOccModel(nn.Module):
 
     # ------------------------------------------------------------------ #
     def visibility_cut(self, rays_o, rays_d, occ_binary, step, levels=None,
-                       cos_anneal_ratio=1.0, band: bool = False, bake=None):
+                       cos_anneal_ratio=1.0, band: bool = False, bake=None,
+                       deterministic: bool = False):
         """Per-ray transmittance cut, or the ``(t_lo, t_cut)`` band, from
-        the coarse SDF probe (the bake's table when one is given)."""
+        the coarse SDF probe (the bake's table when one is given);
+        ``deterministic`` for an eval render (``ops/volrend.py``)."""
         n_rays = rays_o.shape[0]
         cap = n_rays * min(self.prefilter_coarse_per_ray,
                            max(self.num_samples_per_ray
@@ -375,7 +381,8 @@ class SplitMixedOccModel(nn.Module):
             grid_binary=occ_binary, grid_resolution=self.grid_resolution,
             stride=self.prefilter_stride, cos_anneal_ratio=cos_anneal_ratio,
             early_stop_eps=volrend.EARLY_STOP_EPS,
-            margin_intervals=self.prefilter_margin_intervals, band=band)
+            margin_intervals=self.prefilter_margin_intervals, band=band,
+            deterministic=deterministic)
 
     def _march_compact(self, rays, *, occ_binary, step, train, capacity,
                        levels, prefilter, banded, vis_frac, bake, generator,
@@ -390,7 +397,7 @@ class SplitMixedOccModel(nn.Module):
                 vc = self.visibility_cut(
                     rays_o, rays_d, occ_binary, step, levels=levels,
                     cos_anneal_ratio=self.cos_anneal_ratio(step),
-                    band=banded, bake=bake)
+                    band=banded, bake=bake, deterministic=not train)
             t_band_lo, t_cut = vc if banded else (None, vc)
 
         rs = march.march_rays(
@@ -427,7 +434,8 @@ class SplitMixedOccModel(nn.Module):
         alpha = neus_alpha(geo["sdf"], inv_s, true_cos, dists,
                            self.cos_anneal_ratio(step))
         weights, _ = volrend.render_weight_from_alpha(
-            alpha, rs.ray_start, rs.ray_indices, rs.valid, n_rays)
+            alpha, rs.ray_start, rs.ray_indices, rs.valid, n_rays,
+            deterministic=not train)
 
         included = rs.ray_included
         frac = self.eval_visibility_frac if vis_frac is None \
@@ -522,7 +530,7 @@ class SplitMixedOccModel(nn.Module):
                       torch.ones_like(s_tmid)[:, None], norm_orient]
             acc = volrend.accumulate_along_rays(
                 mc["s_weights"], mc["s_ridx"], torch.cat(chans, dim=-1),
-                n_rays)
+                n_rays, deterministic=not train)
             maps = self._split_maps(
                 acc, names + ["normal", "depth", "acc", "norm_orient"],
                 [c.shape[-1] for c in chans])
@@ -608,7 +616,8 @@ class SplitMixedOccModel(nn.Module):
         chans = [texc[k] for k in names]
         chans += [s_normal, s_tmid[:, None], torch.ones_like(s_tmid)[:, None]]
         acc = volrend.accumulate_along_rays(
-            s_weights, s_ridx, torch.cat(chans, dim=-1), n_rays)
+            s_weights, s_ridx, torch.cat(chans, dim=-1), n_rays,
+            deterministic=True)
         maps = self._split_maps(acc, names + ["normal", "depth", "acc"],
                                 [c.shape[-1] for c in chans])
         sg = self._secondary_geom(
@@ -628,7 +637,8 @@ class SplitMixedOccModel(nn.Module):
                 acc_l = volrend.accumulate_along_rays(
                     s_weights, s_ridx,
                     torch.cat([shade["diff_rgb_pbr"], shade["spec_rgb_pbr"],
-                               shade["spec_light"]], -1), n_rays)
+                               shade["spec_light"]], -1), n_rays,
+                    deterministic=True)
                 diff_rgb_pbr_map = acc_l[:, 0:3]
                 sec_maps.update(spec_rgb_pbr=acc_l[:, 3:6],
                                 spec_light=acc_l[:, 6:9],

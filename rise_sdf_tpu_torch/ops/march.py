@@ -173,7 +173,7 @@ def compute_visibility_cut(rays_o, rays_d, *, sdf_fn, inv_s, aabb_min,
                            stride: int = 4, cos_anneal_ratio=1.0,
                            early_stop_eps: float = 1e-4,
                            margin_intervals: float = 1.0,
-                           band: bool = False):
+                           band: bool = False, deterministic: bool = False):
     """Per-ray transmittance cut from a coarse SDF probe.
 
     Marches a coarse grid (``stride`` fine steps per probe) into a
@@ -183,7 +183,8 @@ def compute_visibility_cut(rays_o, rays_d, *, sdf_fn, inv_s, aabb_min,
     -1, head-on, for a lone probe) and the NeuS alpha of each probe.
     Returns ``t_cut`` [R] (``transmittance_cut``), or with ``band`` the
     ``(t_lo, t_cut)`` band (``transmittance_band``); the margin is
-    ``margin_intervals`` coarse steps."""
+    ``margin_intervals`` coarse steps; ``deterministic`` goes to the
+    scan (``volrend``)."""
     from . import volrend
     from ..models.neus import neus_alpha
 
@@ -222,7 +223,8 @@ def compute_visibility_cut(rays_o, rays_d, *, sdf_fn, inv_s, aabb_min,
     fn = volrend.transmittance_band if band else volrend.transmittance_cut
     return fn(alpha, rs.t_starts, rs.ray_start, rs.ray_indices, rs.valid,
               n_rays, early_stop_eps=early_stop_eps,
-              margin=margin_intervals * coarse_step)
+              margin=margin_intervals * coarse_step,
+              deterministic=deterministic)
 
 
 def march_rays_dense(rays_o, rays_d, *, near_plane, far_plane, num_samples,

@@ -1,21 +1,27 @@
 """Base system: the train/eval harness (counterpart of
 ``rise_sdf_tpu/systems/base.py``).
 
-The system owns the model (its parameters), the optimizer and a small
-``state`` dict ``{step, occs, occ_binary}``.  Checkpoints use the JAX
-package's ``k:``-keyed ``.npz`` format (``bridge.py``), so a JAX
-checkpoint's weights load here and the port's load there.
+The system owns the model (its parameters), the optimizer and the LR
+schedule, and a small ``state`` dict ``{step, occs, occ_binary}``.
+Checkpoints use the JAX package's ``k:``-keyed ``.npz`` format
+(``bridge.py``) and hold the whole training state: the params, Adam's
+moments and count, the schedule's count, the occupancy grid and the
+step.  A JAX checkpoint loads whole here and the port's loads whole in
+the JAX package's ``load_checkpoint``.
 """
 
 from __future__ import annotations
 
 import os
+import threading
 from contextlib import contextmanager
-from typing import Optional
+from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 from .. import bridge, models
+from .optim import make_optimizer
 from ..utils.saving import Saver
 
 
@@ -38,6 +44,8 @@ class BaseSystem:
         self.save_dir = save_dir
         self.saver = Saver(save_dir)
         self.ckpt_dir = ckpt_dir or os.path.join(save_dir, "ckpt")
+        self.optimizer = self.scheduler = None
+        self._ckpt_writer = None
         self.prepare()
 
     def prepare(self):
@@ -82,27 +90,139 @@ class BaseSystem:
                 p.requires_grad_(f)
 
     # ------------------------------------------------------------------ #
-    def save_checkpoint(self, state, path: Optional[str] = None) -> str:
-        """params (JAX key format) + occupancy grid + step."""
+    def fresh_optimizer(self):
+        """A new Adam and LR schedule over the model's parameters."""
+        self.optimizer, self.scheduler = make_optimizer(
+            self.config["system"], self.model)
+
+    def _state_shapes(self) -> Dict[str, tuple]:
+        """Every entry a full checkpoint of this system holds, by JAX
+        state path, with its shape."""
+        shapes = {bridge.jax_path(n): tuple(p.shape)
+                  for n, p in self.model.named_parameters()}
+        for group in self.optimizer.param_groups:
+            for p in group["params"]:
+                path = bridge.jax_path(self._param_names[p])[len("params/"):]
+                shapes[bridge.MU + path] = shapes[bridge.NU + path] = \
+                    tuple(p.shape)
+        cells = (self.model.grid_resolution ** 3,)
+        shapes.update({bridge.ADAM_COUNT: (), bridge.SCHEDULE_COUNT: (),
+                       "occs": cells, "occ_binary": cells, "step": ()})
+        return shapes
+
+    @property
+    def _param_names(self):
+        return {p: n for n, p in self.model.named_parameters()}
+
+    def save_checkpoint(self, state, path: Optional[str] = None,
+                        async_write: bool = False) -> str:
+        """Write the whole training state to ``path`` (default
+        ``ckpt_dir/step_N.ckpt.npz``) atomically (tmp + rename).  The
+        device-to-host copy is synchronous; with ``async_write`` the
+        serialization and the write run in one background thread.  At
+        most one writer is in flight: a save first joins the previous
+        one (``wait_checkpoint_writer``)."""
         path = path or os.path.join(self.ckpt_dir,
                                     f"step_{int(state['step'])}.ckpt.npz")
-        flat = bridge.to_jax_params(self.model.state_dict())
-        flat["occs"] = state["occs"].cpu().numpy()
-        flat["occ_binary"] = state["occ_binary"].cpu().numpy()
-        flat["step"] = torch.tensor(int(state["step"]),
-                                    dtype=torch.int32).numpy()
-        return bridge.save_npz(path, flat)
+        if self.optimizer is None:
+            self.fresh_optimizer()
+        flat = bridge.to_jax_state(self.model, self.optimizer,
+                                   self.scheduler)
+        flat["occs"] = bridge.host_copy(state["occs"])
+        flat["occ_binary"] = bridge.host_copy(state["occ_binary"])
+        flat["step"] = np.asarray(int(state["step"]), np.int32)
+        self.wait_checkpoint_writer()
+        if not async_write:
+            return bridge.save_npz(path, flat)
+        errors = []
 
-    def load_checkpoint(self, path: str):
-        """Load params into the model (every parameter must be present at
-        its shape) and return the saved state.  The optimizer state is not
-        in the file: the optimizer starts fresh (JAX ``load_weights_only``)."""
+        def write():
+            try:
+                bridge.save_npz(path, flat)
+            except BaseException as e:  # re-raised by the join
+                errors.append(e)
+                raise
+
+        thread = threading.Thread(target=write, daemon=True)
+        self._ckpt_writer = (thread, errors)
+        thread.start()
+        return path
+
+    def wait_checkpoint_writer(self):
+        """Join the asynchronous checkpoint write in flight, if any, and
+        raise what it raised."""
+        if self._ckpt_writer is None:
+            return
+        thread, errors = self._ckpt_writer
+        thread.join()
+        self._ckpt_writer = None
+        if errors:
+            raise RuntimeError("the background checkpoint write "
+                               "failed") from errors[0]
+
+    def _read_checkpoint(self, path: str, keys) -> Dict[str, np.ndarray]:
+        """The checkpoint's entries, each of ``keys`` checked: a missing
+        one raises ``KeyError`` and a wrong shape ``ValueError``, both
+        naming the state path."""
         flat = bridge.load_npz(path)
-        self.model.load_state_dict(bridge.from_jax_params(flat), strict=True)
+        shapes = self._state_shapes()
+        for key in keys:
+            if key not in flat:
+                raise KeyError(
+                    f"checkpoint {path} has no entry for state path "
+                    f"'{key}' — was it saved from a different "
+                    "model/optimizer config?")
+            if tuple(flat[key].shape) != shapes[key]:
+                raise ValueError(
+                    f"checkpoint shape mismatch at '{key}': saved "
+                    f"{tuple(flat[key].shape)}, state expects "
+                    f"{shapes[key]}")
+        return flat
+
+    def _load_state(self, flat) -> Dict:
+        self.model.load_state_dict(bridge.from_jax_params(flat),
+                                   strict=True)
         return {"step": int(flat["step"]),
-                "occs": torch.from_numpy(flat["occs"]).to(self.device),
-                "occ_binary": torch.from_numpy(
-                    flat["occ_binary"]).to(self.device)}
+                "occs": torch.from_numpy(np.array(flat["occs"])).to(
+                    self.device),
+                "occ_binary": torch.from_numpy(np.array(
+                    flat["occ_binary"])).to(self.device)}
+
+    def load_checkpoint(self, path: str) -> Dict:
+        """Restore the whole training state: the params, a new optimizer
+        holding the saved Adam moments and count (every parameter's
+        ``step``), the schedule at the saved count (and the groups' lr
+        with it); returns ``{step, occs, occ_binary}``."""
+        self.fresh_optimizer()
+        flat = self._read_checkpoint(path, self._state_shapes())
+        state = self._load_state(flat)
+        full = bridge.from_jax_state(flat)
+        names = self._param_names
+        sd = self.optimizer.state_dict()
+        params = [p for g in self.optimizer.param_groups for p in g["params"]]
+        step = torch.tensor(float(full["count"]), dtype=torch.float32)
+        sd["state"] = {i: {"step": step.clone(),
+                           "exp_avg": full["exp_avg"][names[p]],
+                           "exp_avg_sq": full["exp_avg_sq"][names[p]]}
+                       for i, p in enumerate(params)}
+        self.optimizer.load_state_dict(sd)
+        sched, n = self.scheduler, full["schedule_count"]
+        sched.last_epoch = n
+        lrs = [base * fn(n) for base, fn in zip(sched.base_lrs,
+                                                sched.lr_lambdas)]
+        for group, lr in zip(self.optimizer.param_groups, lrs):
+            group["lr"] = lr
+        sched._last_lr = lrs
+        return state
+
+    def load_weights_only(self, path: str) -> Dict:
+        """Restore the params, the occupancy grid and the step, with a
+        fresh optimizer and schedule (``--resume_weights_only``)."""
+        self.fresh_optimizer()
+        keys = [k for k in self._state_shapes()
+                if k.startswith("params/") or k in ("occs", "occ_binary",
+                                                    "step")]
+        return self._load_state(self._read_checkpoint(path, keys))
 
     # ------------------------------------------------------------------ #
     @torch.no_grad()

@@ -6,11 +6,17 @@ march -> field and its gradient -> losses -> backward (the hash-table
 gradient through kernel K1) -> finite-grads guard -> Adam and the LR
 schedule.  The occupancy-grid EMA sweep runs every 16 steps.  Each step
 takes the JAX fit's per-step flags: the open hash levels and the sample
-buffer (``train_options``).
+buffer (``train_options``).  ``fit`` saves the whole training state
+every ``trainer.save_every_n_steps`` steps (``latest.ckpt.npz``,
+written in the background) and at its end, and validates one view every
+``val_every`` steps; a run resumed from a checkpoint replays the
+uninterrupted one.  ``test`` renders the test split and exports the
+mesh (``export``), ``predict`` renders the predict split.
 """
 
 from __future__ import annotations
 
+import os
 import time
 from typing import Dict, Optional
 
@@ -20,9 +26,9 @@ import torch
 from . import register
 from .base import BaseSystem
 from .criterions import psnr
-from .optim import make_optimizer
+from ..export import export_mesh
 from ..ops import grid as occ_grid
-from ..utils.color import rgb_to_srgb
+from ..utils.color import linear_to_srgb_np, rgb_to_srgb
 from ..utils.misc import interleave_order
 from ..utils.rays import get_rays
 
@@ -62,7 +68,6 @@ class NeuSSystem(BaseSystem):
         self.grid_prune = bool(mc.get("grid_prune", True))
         self.background_color_mode = mc.get("background_color", "random")
         self.bg_srgb = False  # the split system composites bg in sRGB
-        self.optimizer = self.scheduler = None
         self.skipped_updates = 0
 
     # ------------------------------------------------------------------ #
@@ -70,8 +75,7 @@ class NeuSSystem(BaseSystem):
         """Fresh parameters drawn from ``seed``, a fresh optimizer and an
         all-occupied grid."""
         self.model.reset_parameters(torch.Generator().manual_seed(seed))
-        self.optimizer, self.scheduler = make_optimizer(
-            self.config["system"], self.model)
+        self.fresh_optimizer()
         occs, binary = occ_grid.init_grid(self.model.grid_resolution,
                                           self.device)
         return {"step": 0, "occs": occs, "occ_binary": binary}
@@ -208,19 +212,31 @@ class NeuSSystem(BaseSystem):
 
     # ------------------------------------------------------------------ #
     def fit(self, max_steps: Optional[int] = None, seed: int = 42,
-            state=None, log_every: int = 100, on_log=None):
-        """Training loop.  ``on_log(step, metrics)`` replaces the printed
-        log line; metrics are host floats."""
-        max_steps = max_steps or int(self.config["trainer"]["max_steps"])
+            state=None, log_every: int = 100,
+            val_every: Optional[int] = None, on_log=None):
+        """Training loop from ``state`` (a fresh one from ``seed`` when
+        None) to ``max_steps`` (``trainer.max_steps``).  After each step
+        whose index is a positive multiple of ``trainer.save_every_n_steps``
+        the state goes to ``ckpt_dir/latest.ckpt.npz`` asynchronously,
+        and after each positive multiple of ``val_every`` one view is
+        validated; at the end, after the writer is joined, the state
+        goes to ``ckpt_dir/step_N.ckpt.npz``.  ``on_log(step, metrics)``
+        replaces the printed log line; metrics are host floats, with
+        ``steps_per_sec`` since the start and ``steps_per_sec_window``
+        since the previous log line."""
+        cfg_tr = self.config["trainer"]
+        max_steps = max_steps or int(cfg_tr["max_steps"])
+        save_every = int(cfg_tr.get("save_every_n_steps", 0) or 0)
+        val_every = int(val_every or 0)
         if state is None:
             state = self.init_state(seed)
         elif self.optimizer is None:
-            self.optimizer, self.scheduler = make_optimizer(
-                self.config["system"], self.model)
+            self.fresh_optimizer()
         data = self.device_data(self.datamodule.train())
         gen = torch.Generator(device=self.device)
         t0 = time.time()
         start = int(state["step"])
+        mark = (start, t0)  # the step and time of the last log line
         for step in range(start, max_steps):
             if self.grid_prune and step % OCC_UPDATE_EVERY == 0:
                 gen.manual_seed(_step_seed(seed, 2 * step + 1))
@@ -229,27 +245,42 @@ class NeuSSystem(BaseSystem):
             batch = self.sample_batch(gen, data)
             aux = self.train_step(state, batch, gen)
             if log_every and (step % log_every == 0 or step == max_steps - 1):
-                vals = torch.stack([torch.as_tensor(v, dtype=torch.float32,
-                                                    device=self.device)
-                                    for v in aux.values()]).tolist()
-                m = dict(zip(aux.keys(), vals))
-                m["steps_per_sec"] = (step - start + 1) / (time.time() - t0)
-                if m["skipped_nonfinite"] > 0:
-                    print(f"WARNING: step {step}: non-finite grads — "
-                          "update skipped", flush=True)
-                if on_log:
-                    on_log(step, m)
-                else:
-                    phys = (f" phys={m['rgb_phys_mse']:.5f}"
-                            if "rgb_phys_mse" in m else "")
-                    print(f"step {step}: loss={m['loss']:.4f} "
-                          f"mse={m['rgb_mse']:.5f}{phys} "
-                          f"inv_s={m['inv_s']:.1f} "
-                          f"rays={int(m['num_rays'])} "
-                          f"samples={int(m['num_samples'])} "
-                          f"sps={m['steps_per_sec']:.2f}", flush=True)
+                mark = self._log(step, start, t0, mark, aux, on_log)
+            if save_every and step > 0 and step % save_every == 0:
+                self.save_checkpoint(state, os.path.join(
+                    self.ckpt_dir, "latest.ckpt.npz"), async_write=True)
+            if val_every and step > 0 and step % val_every == 0:
+                self.validate(state, n_images=1)
         self.save_checkpoint(state)
         return state
+
+    def _log(self, step, start, t0, mark, aux, on_log):
+        """One log line (or ``on_log``); returns the new rate mark."""
+        vals = torch.stack([torch.as_tensor(v, dtype=torch.float32,
+                                            device=self.device)
+                            for v in aux.values()]).tolist()
+        m = dict(zip(aux.keys(), vals))
+        now = time.time()
+        m["steps_per_sec"] = (step - start + 1) / (now - t0)
+        last_step, last_t = mark
+        m["steps_per_sec_window"] = (step - last_step) \
+            / max(now - last_t, 1e-9) if step > last_step else 0.0
+        if m["skipped_nonfinite"] > 0:
+            print(f"WARNING: step {step}: non-finite grads — "
+                  "update skipped", flush=True)
+        if on_log:
+            on_log(step, m)
+        else:
+            phys = (f" phys={m['rgb_phys_mse']:.5f}"
+                    if "rgb_phys_mse" in m else "")
+            print(f"step {step}: loss={m['loss']:.4f} "
+                  f"mse={m['rgb_mse']:.5f}{phys} "
+                  f"inv_s={m['inv_s']:.1f} "
+                  f"rays={int(m['num_rays'])} "
+                  f"samples={int(m['num_samples'])} "
+                  f"sps={m['steps_per_sec']:.2f} "
+                  f"w={m['steps_per_sec_window']:.3f}", flush=True)
+        return step, now
 
     # ------------------------------------------------------------------ #
     def eval_context(self, state, emitter_base=None) -> Dict:
@@ -337,3 +368,70 @@ class NeuSSystem(BaseSystem):
         mean_psnr = float(np.mean(psnrs))
         print(f"val/psnr = {mean_psnr:.3f}", flush=True)
         return {"psnr": mean_psnr}
+
+    # ------------------------------------------------------------------ #
+    def _save_test_view(self, name, gt, out, h, w):
+        """Ground truth, render, depth and normals side by side."""
+        self.saver.save_image_grid(name, [
+            {"type": "rgb", "img": gt.reshape(h, w, 3),
+             "kwargs": {"data_format": "HWC"}},
+            {"type": "rgb", "img": out["comp_rgb_full"].reshape(h, w, 3),
+             "kwargs": {"data_format": "HWC"}},
+            {"type": "grayscale", "img": out["depth"].reshape(h, w),
+             "kwargs": {}},
+            {"type": "rgb", "img": out["comp_normal"].reshape(h, w, 3),
+             "kwargs": {"data_format": "HWC", "data_range": (-1, 1)}}])
+
+    def test(self, state, export: bool = True) -> Dict[str, float]:
+        """Render every test view, save its grid under ``it{step}-test/``
+        and return the mean PSNR; then, with ``export``, the mesh."""
+        split = self.datamodule.test()
+        step = int(state["step"])
+        psnrs = []
+        for i in range(len(split)):
+            print(f"test view {i + 1}/{len(split)}", flush=True)
+            out = self.render_image(state, split, i)
+            gt = split.all_images[i].reshape(-1, 3)
+            mask = split.all_fg_masks[i].reshape(-1, 1)
+            gt = gt * mask + 1.0 * (1 - mask)
+            psnrs.append(float(psnr(torch.from_numpy(out["comp_rgb_full"]),
+                                    torch.from_numpy(gt))))
+            self._save_test_view(f"it{step}-test/{i}.png", gt, out,
+                                 split.h, split.w)
+        res = {"psnr": float(np.mean(psnrs))}
+        print(f"test/psnr = {res['psnr']:.3f}", flush=True)
+        if export:
+            self.export(state)
+        return res
+
+    def predict(self, state, hdr_filepath=None):
+        """Render every view of the predict split (the test split when
+        the dataset has none) into ``it{step}-predict/``."""
+        dm = self.datamodule
+        split = dm.predict() if hasattr(dm, "predict") else dm.test()
+        step = int(state["step"])
+        for i in range(len(split)):
+            out = self.render_image(state, split, i)
+            self.saver.save_image_grid(f"it{step}-predict/{i}.png", [
+                {"type": "rgb",
+                 "img": out["comp_rgb_full"].reshape(split.h, split.w, 3),
+                 "kwargs": {"data_format": "HWC"}}])
+
+    def export(self, state, times: Optional[Dict[str, float]] = None):
+        """The mesh of ``export_mesh`` as ``it{step}-{method}{res}.ply``
+        with vertex colours, and for the PBR model ``albedo.npy``,
+        ``metallic.npy`` and ``roughness.npy`` (sRGB-encoded, as the
+        JAX package writes them); returns the mesh (None without a
+        surface).  ``times`` gets ``export_mesh``'s seconds."""
+        with self.frozen_params():
+            mesh = export_mesh(self.model, state, self.config, times)
+        if mesh is None:
+            return None
+        iso = self.config["model"]["geometry"]["isosurface"]
+        self.saver.save_mesh(
+            f"it{int(state['step'])}-{iso['method']}{iso['resolution']}.ply",
+            mesh["v_pos"], mesh["t_pos_idx"], mesh.get("v_rgb"))
+        for k in ("albedo", "metallic", "roughness"):
+            if k in mesh:
+                self.saver.save_npy(f"{k}.npy", linear_to_srgb_np(mesh[k]))
+        return mesh

@@ -18,8 +18,9 @@ chunk (``forward_multi``) unless ``system.multi_emitter_eval`` is false;
 it reports novel-view PSNR, phys PSNR and SSIM, median-aligned albedo
 PSNR and SSIM and roughness PSNR, the normals' mean angular error, and
 per light the relight PSNR and SSIM.  There is no LPIPS (its weights are
-a download).  ``predict`` renders every test view under one environment
-file.
+a download).  Then, by default, ``export`` writes the mesh with its
+baked albedo, metallic and roughness (``NeuSSystem.export``).
+``predict`` renders every test view under one environment file.
 """
 
 from __future__ import annotations
@@ -356,11 +357,8 @@ class SplitOccSystem(NeuSSystem):
         """The evaluation protocol over the test split (module
         docstring); returns the mean of each metric over the views and
         ``dropped_rays``, the rays left out after escalation in every
-        render.  ``export`` (the mesh and material export) is not
-        ported: pass ``export=False``."""
-        if export:
-            raise NotImplementedError(
-                "export is not ported yet: call test(state, export=False)")
+        render; then, with ``export``, the mesh and its materials
+        (``export``)."""
         split = self.datamodule.test()
         step = int(state["step"])
         stage = self.model.stage(step)
@@ -413,6 +411,8 @@ class SplitOccSystem(NeuSSystem):
               f"incl. metrics/IO)", flush=True)
         res["dropped_rays"] = dropped
         print(f"test: {res}", flush=True)
+        if export:
+            self.export(state)
         return res
 
     def _save_pbr_grids(self, step, split, i, gt, out):

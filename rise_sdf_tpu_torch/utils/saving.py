@@ -1,5 +1,5 @@
-"""Artifact saving: image grids (PNG, EXR) and arrays (counterpart of
-``rise_sdf_tpu/utils/saving.py``).
+"""Artifact saving: image grids (PNG, EXR), arrays and meshes (PLY)
+(counterpart of ``rise_sdf_tpu/utils/saving.py``).
 
 The JAX package writes PNGs with cv2; the port writes them itself (8-bit
 RGB, every row unfiltered, one zlib stream at level 1, cv2's default
@@ -12,7 +12,7 @@ from __future__ import annotations
 import os
 import struct
 import zlib
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 
@@ -112,3 +112,60 @@ class Saver:
         path = self.get_save_path(filename)
         np.save(path, np.asarray(arr))
         return path
+
+    def save_mesh(self, filename: str, v_pos, t_pos_idx, v_rgb=None) -> str:
+        path = self.get_save_path(filename)
+        write_ply(path, np.asarray(v_pos), np.asarray(t_pos_idx),
+                  None if v_rgb is None else np.asarray(v_rgb))
+        return path
+
+
+def write_ply(path: str, verts: np.ndarray, faces: np.ndarray,
+              colors: Optional[np.ndarray] = None):
+    """Binary little-endian PLY: float32 vertices, optional uchar RGB
+    colours (``colors`` in [0, 1]), triangles as uchar-counted int32
+    lists."""
+    n_v, n_f = len(verts), len(faces)
+    with open(path, "wb") as f:
+        header = ["ply", "format binary_little_endian 1.0",
+                  f"element vertex {n_v}",
+                  "property float x", "property float y", "property float z"]
+        if colors is not None:
+            header += ["property uchar red", "property uchar green",
+                       "property uchar blue"]
+        header += [f"element face {n_f}",
+                   "property list uchar int vertex_indices", "end_header"]
+        f.write(("\n".join(header) + "\n").encode())
+        if colors is not None:
+            rec = np.zeros(n_v, dtype=[("v", "<f4", 3), ("c", "u1", 3)])
+            rec["v"] = verts.astype(np.float32)
+            rec["c"] = np.clip(colors * 255, 0, 255).astype(np.uint8)
+            f.write(rec.tobytes())
+        else:
+            f.write(verts.astype("<f4").tobytes())
+        frec = np.zeros(n_f, dtype=[("n", "u1"), ("i", "<i4", 3)])
+        frec["n"] = 3
+        frec["i"] = faces.astype(np.int32)
+        f.write(frec.tobytes())
+
+
+def load_ply(path: str):
+    """(verts [V, 3], faces [F, 3]) of a file ``write_ply`` wrote."""
+    with open(path, "rb") as f:
+        line = b""
+        n_v = n_f = 0
+        has_color = False
+        while not line.startswith(b"end_header"):
+            line = f.readline().strip()
+            if line.startswith(b"element vertex"):
+                n_v = int(line.split()[-1])
+            elif line.startswith(b"element face"):
+                n_f = int(line.split()[-1])
+            elif line.startswith(b"property uchar red"):
+                has_color = True
+        vdt = [("v", "<f4", 3)] + ([("c", "u1", 3)] if has_color else [])
+        verts = np.frombuffer(f.read(n_v * (15 if has_color else 12)),
+                              dtype=vdt)["v"].copy()
+        frec = np.frombuffer(f.read(n_f * 13),
+                             dtype=[("n", "u1"), ("i", "<i4", 3)])
+        return verts, frec["i"].copy()

@@ -325,3 +325,35 @@ def test_forward_multi_on_the_card_matches_cpu(cuda):
         for k in ("comp_rgb_full", "opacity", "comp_rgb_phys_full"):
             assert float((gpu[k].cpu() - cpu[k]).abs().max()) <= 1e-9, k
         assert torch.equal(gpu["ray_included"].cpu(), cpu["ray_included"])
+
+
+def test_deterministic_eval_ops_repeat_bit_for_bit(cuda):
+    """``blocked_cumsum`` and ``sorted_segment_sum`` on a 1,048,576-slot
+    ray-major buffer of 4096 rays: every call gives the same bits; the
+    scan is within 1e-6 of the float64 scan's largest magnitude (a
+    float32 scan's rounding), each sum within one float32 ulp of the
+    float64 sum."""
+    from rise_sdf_tpu_torch.ops import volrend
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    n_rays, c = 4096, 1 << 20
+    counts = torch.randint(0, 2 * c // n_rays, (n_rays,), generator=gen,
+                           device=cuda)
+    ridx = torch.repeat_interleave(torch.arange(n_rays, device=cuda),
+                                   counts)[:c]
+    ridx = torch.cat([ridx, torch.full((c - ridx.shape[0],), n_rays,
+                                       device=cuda)])
+    la = torch.log1p(-torch.rand(c, generator=gen, device=cuda) * 0.1)
+    src = torch.rand((c, 9), generator=gen, device=cuda)
+    scans = [volrend.blocked_cumsum(la) for _ in range(4)]
+    sums = [volrend.sorted_segment_sum(src, ridx, n_rays) for _ in range(4)]
+    assert all(torch.equal(s, scans[0]) for s in scans)
+    assert all(torch.equal(s, sums[0]) for s in sums)
+    ref = torch.cumsum(la.double(), 0)
+    assert float((scans[0].double() - ref).abs().max()) \
+        <= 1e-6 * float(ref.abs().max())
+    want = torch.zeros((n_rays + 1, 9), dtype=torch.float64,
+                       device=cuda).index_add(0, ridx, src.double())[:n_rays]
+    # the float64 difference, rounded once to float32: within one ulp
+    err = (sums[0].double() - want).abs()
+    assert bool((err <= 1.2e-7 * want.abs() + 1e-9).all())

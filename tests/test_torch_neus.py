@@ -258,8 +258,10 @@ def test_port_imports_no_jax_yaml_or_reference():
         "need = [p.__name__ + '.' + m for m in ('bench',\n"
         "        'models.split_mixed_occ', 'ops.sdf_bake', 'ops.prefilter',\n"
         "        'ops.gather', 'ops.cubemap', 'models.light',\n"
-        "        'systems.split_occ', 'measure')]\n"
+        "        'systems.split_occ', 'measure', 'export', 'ops.mcubes',\n"
+        "        'launch', 'bridge')]\n"
         "assert all(m in sys.modules for m in need), need\n"
+        "from rise_sdf_tpu_torch.bridge import to_jax_state, from_jax_state\n"
         "print(len([m for m in sys.modules if m.startswith(p.__name__)]))\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,

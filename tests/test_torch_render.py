@@ -135,3 +135,62 @@ def test_accumulate_along_rays_matches_jax(with_values):
         torch.from_numpy(alphas), torch.from_numpy(ray_indices),
         None if values is None else torch.from_numpy(values), n_rays)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+# ---------------------------------------------------------------------- #
+# The deterministic eval ops (taken on the card for eval renders; on the
+# CPU torch's scan and index_add are sequential, and stay)
+
+def _ray_major(n_rays, seed, dead=17, d=4):
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(0, 40, n_rays)
+    counts[::7] = 0  # rays without samples
+    ridx = np.concatenate([np.repeat(np.arange(n_rays), counts),
+                           np.full(dead, n_rays)])
+    src = rng.standard_normal((ridx.shape[0], d)).astype(np.float32)
+    return torch.from_numpy(ridx), torch.from_numpy(src)
+
+
+@pytest.mark.parametrize("shape", [(1,), (1023,), (1024,), (1025, 3),
+                                   (70000,), (5000, 1)])
+def test_blocked_cumsum_matches_a_float64_scan(shape):
+    x = torch.from_numpy(np.random.default_rng(len(shape)).standard_normal(
+        shape).astype(np.float32))
+    want = torch.cumsum(x.double(), 0)
+    got = volrend.blocked_cumsum(x)
+    assert got.shape == x.shape and got.dtype == torch.float32
+    # float32 sums of at most ~70,000 unit normals: |prefix| < ~600
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=2e-4)
+    np.testing.assert_allclose(volrend.blocked_cumsum(x.double()).numpy(),
+                               want.numpy(), rtol=0, atol=1e-10)
+
+
+def test_sorted_segment_sum_matches_index_add():
+    n = 300
+    ridx, src = _ray_major(n, 0)
+    want = torch.zeros((n + 1, 4), dtype=torch.float64).index_add(
+        0, ridx, src.double())[:n]
+    got = volrend.sorted_segment_sum(src, ridx, n)
+    assert got.dtype == torch.float32 and got.shape == (n, 4)
+    # the float64 prefix difference rounds once to float32
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6,
+                               atol=1e-6)
+    assert bool((got[::7] == 0).all())
+
+
+def test_deterministic_flag_keeps_the_cpu_ops():
+    n = 64
+    ridx, src = _ray_major(n, 1, d=1)
+    alphas = torch.sigmoid(src[:, 0])
+    starts = torch.searchsorted(ridx, torch.arange(n))
+    valid = ridx < n
+    plain = volrend.render_weight_from_alpha(alphas, starts, ridx, valid, n)
+    det = volrend.render_weight_from_alpha(alphas, starts, ridx, valid, n,
+                                           deterministic=True)
+    for a, b in zip(plain, det):
+        assert torch.equal(a, b)
+    vals = src.repeat(1, 3)
+    assert torch.equal(
+        volrend.accumulate_along_rays(plain[0], ridx, vals, n),
+        volrend.accumulate_along_rays(plain[0], ridx, vals, n,
+                                      deterministic=True))

@@ -202,7 +202,8 @@ def test_protocol_with_one_light_reports_every_metric(tmp_path, jax_side,
                                                       monkeypatch):
     """Every key JAX's ``test`` returns without LPIPS, each finite; the
     grids and the envmap are written; no table gradient (no K1) on the
-    way, and ``export=True`` raises until ``export`` is ported."""
+    way, nor in ``export=True``, which also writes the mesh and the
+    material arrays."""
     calls = []
     monkeypatch.setattr(port_scatter, "scatter_add",
                         lambda *a, **k: calls.append(a))
@@ -219,8 +220,13 @@ def test_protocol_with_one_light_reports_every_metric(tmp_path, jax_side,
         for suffix in ("", "-pbr", "-albedo", "-relight-warm"):
             assert os.path.exists(os.path.join(
                 save, f"it{STEP}-test", f"{i}{suffix}.png")), (i, suffix)
-    with pytest.raises(NotImplementedError):
-        system.test(state)
+    system.test(state)
+    assert calls == []
+    iso = system.config["model"]["geometry"]["isosurface"]
+    assert os.path.exists(os.path.join(
+        save, f"it{STEP}-{iso['method']}{iso['resolution']}.ply"))
+    for k in ("albedo", "metallic", "roughness"):
+        assert os.path.exists(os.path.join(save, f"{k}.npy"))
 
 
 def test_forced_escalation_in_multi_mode_gives_single_light_images(
