@@ -106,7 +106,26 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    (e) ``python -m rise_sdf_tpu_torch.launch --preset
    split_mixed_occ_test_full --test --resume <a's file>
    dataset.n_images=1`` as a subprocess: exit 0, the test PNGs and the
-   PLY in the trial's ``save/``, the wall time printed.
+   PLY in the trial's ``save/``, the wall time printed;
+11. data parallel (``rise_sdf_tpu_torch.measure.ddp_window``): the
+   flagship at ``split_mixed_occ_train_full``, full width, from a fresh
+   init at stage 1 (step 13000) for 16 steps (``measure.DDP_STEPS``) over
+   ranks of ``torch.distributed``: NCCL with one rank per GPU (up to 4)
+   when two or more are visible, else two gloo ranks sharing ``cuda:0``
+   and then a world-size-1 NCCL window in this process.  Each rank's
+   K1 and G1 counts are zeroed just before its ``fit`` and read just
+   after: both must launch on every rank at every step, with no skipped
+   update and finite losses; at step 13009 the all-reduced table
+   gradient must lie within one float32 ulp (relative) of the float64
+   mean of every rank's own at two ranks (at more, within the float32
+   sum's bound, ``measure._check_reduced``); every rank's params and
+   occupancy grid must be bit-equal after the window.  Then one
+   validation view sharded over the ranks (finite PSNRs), whose images
+   (colour, phys colour, opacity and depth) must be within 2e-3 of this
+   process's one-process render of rank 0's checkpoint.  The backends,
+   world sizes, steps/s per rank, all-reduce ms and MB per step, peak
+   memory and launches per rank per step are printed.  With two or more
+   GPUs, K1 and G1 are also held to their plain versions on ``cuda:1``.
 
 ``--save-streams FILE`` saves both recorded streams for the same-call
 A/B against another tree, ``python -m rise_sdf_tpu_torch.kernel_ab``
@@ -114,7 +133,8 @@ A/B against another tree, ``python -m rise_sdf_tpu_torch.kernel_ab``
 The last two lines are the kernels' JSON record (K1's and G1's entries
 also carry their times on the recorded streams and per NeuS and flagship
 train step, G1's its launches in the test protocol, both their launches
-in phase 10's resumed run and G1's in its export) and
+in phase 10's resumed run and G1's in its export, and both their
+launches per rank in phase 11) and
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the package
 beside it, the script exits non-zero and prints no result.
 """
@@ -1060,6 +1080,125 @@ def lifecycle_phase(torch, gather, scatter, trained, state, steps):
             "k1_per_step": k1_step, "g1_per_step": g1_step}
 
 
+def second_card_phase(torch, scatter, gather):
+    """K1 and G1 on ``cuda:1`` against their plain versions (K1 to the
+    float64 reference's per-entry bound, G1 bit for bit)."""
+    dev = torch.device("cuda", 1)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    t = 2 ** 19
+    idx = torch.randint(0, t, (8388608,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    vals = torch.randn((idx.numel(), F), generator=gen, device=dev)
+    got = scatter.scatter_add(idx, vals, t, 128)
+    torch.cuda.synchronize(dev)
+    check_scatter(torch, got, idx, vals, t, f"cuda:1, {idx.numel()} rows "
+                  f"into {t} x {F}, P = 128")
+    table = torch.randn((t, F), generator=gen, device=dev)
+    got = gather.gather_rows(table, idx)
+    torch.cuda.synchronize(dev)
+    equal = torch.equal(got, gather.gather_rows_plain(table, idx))
+    log(f"  cuda:1, G1 {idx.numel()} rows from {t} x {F}: bit-equal to "
+        f"the plain gather {equal}")
+    if not equal:
+        fail("G1 on cuda:1 differs from its plain version")
+
+
+def ddp_phase(torch, scatter, gather):
+    """The flagship over data-parallel ranks (module docstring, phase
+    11).  Returns K1's and G1's launches per rank in the window."""
+    from rise_sdf_tpu_torch import datasets, measure, systems
+    from rise_sdf_tpu_torch.presets import split_mixed_occ_train_full
+
+    world, backend = measure.ddp_plan()
+    steps = measure.DDP_STEPS
+    out = os.path.join("exp", "chip_smoke_ddp")
+    shutil.rmtree(out, ignore_errors=True)
+    torch.cuda.empty_cache()
+    runs = [(world, backend, True)]
+    if backend == "gloo":  # one card: NCCL at world size 1 as well
+        runs.append((1, "nccl", False))
+    reports = {}
+    for n, be, validate in runs:
+        t0 = time.perf_counter()
+        ranks = measure.ddp_window(n, be, os.path.join(out, f"{be}{n}"),
+                                   validate=validate)
+        log(f"  {be}, world size {n} ({', '.join(r['device'] for r in ranks)}"
+            f"): {time.perf_counter() - t0:.1f} s with the ranks' start")
+        for r in ranks:
+            k1s, g1s = zip(*r["launches_per_step"])
+            log(f"    rank {r['rank']}: {r['rays_per_rank']} rays/step, "
+                f"{r['steps']} steps in {r['fit_s']:.1f} s, "
+                f"{r['steps_per_s']:.3f} steps/s after the first 4; "
+                f"all-reduce {r['allreduce_ms']:.3f} ms for "
+                f"{r['allreduce_mb']:.1f} MB per step (median of 10); peak "
+                f"{r['peak_gib']:.2f} GiB; K1/G1 launches {r['k1_launches']}"
+                f"/{r['g1_launches']} ({min(k1s)}-{max(k1s)} / "
+                f"{min(g1s)}-{max(g1s)} per step); skipped {r['skipped']}; "
+                f"params and grid equal across ranks {r['params_equal']}")
+            gc = r["grad_check"]
+            log(f"    rank {r['rank']}: step {measure.SPLIT_PROFILE_FROM} "
+                f"table gradient vs the ranks' float64 mean: max relative "
+                f"error {gc['max_rel_err']:.3e}, entries over the bound "
+                f"(one ulp at two ranks) {gc['over_bound']} of "
+                f"{gc['entries']} (max |mean| {gc['max_abs_mean']:.3e})")
+            if "val" in r:
+                log(f"    rank {r['rank']}: sharded validation view in "
+                    f"{r['val_s']:.1f} s: {r['val']}; K1/G1 launches "
+                    f"{r['val_launches']}")
+            if len(r["losses"]) != steps or not np.all(np.isfinite(
+                    r["losses"])) or r["skipped"]:
+                fail(f"rank {r['rank']} of {be}{n}: losses {r['losses']}, "
+                     f"skipped {r['skipped']}")
+            if min(k1s) < 1 or min(g1s) < 1:
+                fail(f"rank {r['rank']} of {be}{n}: a step without a K1 or "
+                     f"G1 launch: {r['launches_per_step']}")
+            if gc["over_bound"]:
+                fail("the all-reduced table gradient is out of bound of "
+                     "the ranks' float64 mean")
+            if not r["params_equal"]:
+                fail(f"the ranks' params differ after the {be}{n} window")
+            if "val" in r and not (np.isfinite(r["val"]["psnr"])
+                                   and np.isfinite(r["val"]["phys_psnr"])):
+                fail(f"sharded validation {r['val']}")
+        reports[f"{be}{n}"] = ranks
+
+    # the one-process render of the state the ranks ended with
+    ranks = reports[f"{backend}{world}"]
+    cfg = split_mixed_occ_train_full()
+    system = systems.make(cfg["system"]["name"], cfg,
+                          datasets.make(cfg["dataset"]["name"],
+                                        cfg["dataset"]),
+                          save_dir=os.path.join(out, "one"), device="cuda")
+    state = system.load_checkpoint(ranks[0]["ckpt"])
+    t0 = time.perf_counter()
+    one = system.render_image(state, system.datamodule.val(), 0)
+    one_s = time.perf_counter() - t0
+    sharded = np.load(os.path.join(out, f"{backend}{world}",
+                                   "val_view0.npz"))
+    diffs = {k: float(np.abs(sharded[k] - one[k]).max()) for k in sorted(one)
+             if k != "ray_included"}
+    log(f"  one-process render of rank 0's checkpoint (step "
+        f"{int(state['step'])}) in {one_s:.1f} s; sharded vs one-process, "
+        f"max |difference|: {json.dumps(diffs)}; rays dropped "
+        f"{int((~sharded['ray_included']).sum())} sharded, "
+        f"{int((~one['ray_included']).sum())} one-process")
+    worst = max(diffs[k] for k in ("comp_rgb_full", "comp_rgb_phys_full",
+                                   "opacity", "depth"))
+    if worst > 2e-3:
+        fail(f"the sharded validation view is {worst:.3e} from the "
+             "one-process render")
+    del system, state
+    shutil.rmtree(out, ignore_errors=True)
+    if torch.cuda.device_count() >= 2:
+        second_card_phase(torch, scatter, gather)
+    return {"backend": backend, "world": world,
+            "k1_per_rank": [r["k1_launches"] for r in ranks],
+            "g1_per_rank": [r["g1_launches"] for r in ranks],
+            "steps": steps,
+            "allreduce_ms": [r["allreduce_ms"] for r in ranks],
+            "steps_per_s": [r["steps_per_s"] for r in ranks]}
+
+
 def check_recorded_step(torch, scatter, table, encodes, stream):
     """The step's table gradient (the sum of its encodes' K1 launches)
     against the float64 plain scatter of every encode's rows and
@@ -1141,6 +1280,7 @@ def main():
         "800x800:")
     g1["launches"], g1["render_stream"], streams = render_phase(
         torch, gather, scatter)
+    from rise_sdf_tpu_torch import measure
     from rise_sdf_tpu_torch.presets import neus_sphere_full
 
     log(f"training slice: NeuS neus_sphere_full, {args.steps} steps + 1 "
@@ -1169,6 +1309,16 @@ def main():
                            args.resume_steps)
     log(f"  phase {time.perf_counter() - t0:.1f} s")
     del system, state
+    log(f"data parallel: split_mixed_occ_train_full from step "
+        f"{measure.SPLIT_STAGE1_STEP}, {measure.DDP_STEPS} steps over ranks "
+        f"+ 1 sharded view:")
+    t0 = time.perf_counter()
+    ddp = ddp_phase(torch, scatter, gather)
+    log(f"  phase {time.perf_counter() - t0:.1f} s")
+    for key, rec in (("k1", k1), ("g1", g1)):
+        rec["ddp"] = {"backend": ddp["backend"], "world": ddp["world"],
+                      "steps": ddp["steps"],
+                      "launches_per_rank": ddp[f"{key}_per_rank"]}
     k1["resume_launches"] = life["k1"]
     g1["resume_launches"] = life["g1"]
     g1["export_launches"] = life["g1_export"]
@@ -1188,7 +1338,7 @@ def main():
     extra = ("train_stream", "render_stream", "per_step", "probe_stream",
              "flagship_per_step", "flagship_launches", "test_launches",
              "test_protocol", "resume_launches", "resume_launches_per_step",
-             "export_launches")
+             "export_launches", "ddp")
     log(json.dumps({"kernels": [
         {"name": "scatter_add (K1)", "route": "cuda", "source": SRC_K1,
          "replaces": REPLACES_K1, **{k: k1[k] for k in keys},

@@ -19,6 +19,15 @@ The run goes to ``exp_dir/[name]/[tag]@[timestamp]/{config,ckpt,save}``
 with the parsed config in ``config/parsed.json``.  The device is CUDA
 (``--gpu`` its index) and without CUDA the launcher raises, unless
 ``--device cpu`` asks for the CPU.
+
+Data parallel (``parallel/sharding.py``): ``--gpu 0,1,...`` spawns one
+rank per listed GPU, joined over NCCL; under torchrun
+(``python -m torch.distributed.run --nproc_per_node N -m
+rise_sdf_tpu_torch.launch ...``) each process joins the group from
+torchrun's variables, over NCCL on CUDA (one GPU per rank, by
+``LOCAL_RANK``) and over gloo with ``--device cpu``.  Rank 0 names the
+trial directory and writes every file.  ``system.table_shards`` above 1
+(the JAX launcher's hash-table row sharding) raises: it is not ported.
 """
 
 from __future__ import annotations
@@ -27,13 +36,16 @@ import argparse
 import datetime
 import json
 import os
+import socket
+import sys
 from typing import Any, Dict, List
 
 import numpy as np
 
 # keys the port reads with a default, which an override may add
 OPTIONAL_KEYS = ("name", "tag", "seed", "trainer.save_every_n_steps",
-                 "trainer.val_check_interval", "system.multi_emitter_eval")
+                 "trainer.val_check_interval", "system.multi_emitter_eval",
+                 "system.table_shards")
 
 
 def parse_value(raw: str) -> Any:
@@ -87,11 +99,13 @@ def _preset(name: str) -> Dict:
     return fn()
 
 
-def main(argv=None):
+def _parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--preset", required=True,
                         help="a config function of rise_sdf_tpu_torch.presets")
-    parser.add_argument("--gpu", default="0", help="CUDA device index")
+    parser.add_argument("--gpu", default="0",
+                        help="CUDA device index, or a comma-separated list "
+                             "of them: one NCCL rank per GPU")
     parser.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     parser.add_argument("--resume", default=None,
                         help="checkpoint to resume from")
@@ -102,34 +116,87 @@ def main(argv=None):
     group.add_argument("--test", action="store_true")
     group.add_argument("--predict", action="store_true")
     parser.add_argument("--exp_dir", default="./exp")
-    args, extras = parser.parse_known_args(argv)
+    return parser
 
+
+def main(argv=None):
+    argv = sys.argv[1:] if argv is None else list(argv)
+    args, extras = _parser().parse_known_args(argv)
+    gpus = [int(g) for g in str(args.gpu).split(",")]
+    if "WORLD_SIZE" in os.environ:  # under torchrun
+        from .parallel import sharding
+
+        sharding.initialize_distributed(
+            "nccl" if args.device == "cuda" else "gloo")
+        _run_rank(args, extras)
+    elif args.device == "cuda" and len(gpus) > 1:
+        import torch.multiprocessing
+
+        with socket.socket() as s:  # a free port for the rendezvous
+            s.bind(("localhost", 0))
+            port = s.getsockname()[1]
+        torch.multiprocessing.start_processes(
+            _gpu_rank, args=(argv, gpus, f"tcp://localhost:{port}"),
+            nprocs=len(gpus), join=True, start_method="spawn")
+    else:
+        run(args, extras)
+
+
+def _gpu_rank(rank, argv, gpus, init_method):
+    """Rank ``rank`` of a ``--gpu`` list: NCCL on ``cuda:gpus[rank]``."""
+    from .parallel import sharding
+
+    sharding.initialize_distributed("nccl", init_method, rank=rank,
+                                    world_size=len(gpus),
+                                    local_rank=gpus[rank])
+    _run_rank(*_parser().parse_known_args(argv))
+
+
+def _run_rank(args, extras):
+    import torch.distributed as dist
+
+    try:
+        run(args, extras)
+    finally:
+        dist.destroy_process_group()
+
+
+def run(args, extras):
+    """One process's run: the whole run, or one rank's share of it."""
     import torch
+    import torch.distributed as dist
 
     from . import datasets, systems
+    from .parallel import sharding
 
     config = apply_overrides(_preset(args.preset), extras)
+    sharding.table_shard_count(int(config["system"].get("table_shards", 1)))
     config["cmd_args"] = vars(args)
     device = args.device
     if device == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError("CUDA is not available; pass --device cpu "
                                "to run on the CPU")
-        torch.cuda.set_device(int(args.gpu))
+        if not dist.is_initialized():  # a rank's GPU is set as it joins
+            torch.cuda.set_device(int(args.gpu))
 
     name = config.get("name", "exp")
     tag = config.get("tag", "") or ""
-    ts = datetime.datetime.now().strftime("%Y%m%d-%H%M%S")
+    # rank 0's clock names the trial directory of every rank
+    ts = [datetime.datetime.now().strftime("%Y%m%d-%H%M%S")]
+    if dist.is_initialized():
+        dist.broadcast_object_list(ts, 0)
     trial_dir = os.path.join(args.exp_dir, name,
-                             f"{tag}@{ts}" if tag else f"@{ts}")
+                             f"{tag}@{ts[0]}" if tag else f"@{ts[0]}")
     config["trial_dir"] = trial_dir
     save_dir = os.path.join(trial_dir, "save")
     ckpt_dir = os.path.join(trial_dir, "ckpt")
     config_dir = os.path.join(trial_dir, "config")
-    for d in (save_dir, ckpt_dir, config_dir):
-        os.makedirs(d, exist_ok=True)
-    with open(os.path.join(config_dir, "parsed.json"), "w") as f:
-        json.dump(config, f, indent=1)
+    if sharding.is_main_process():
+        for d in (save_dir, ckpt_dir, config_dir):
+            os.makedirs(d, exist_ok=True)
+        with open(os.path.join(config_dir, "parsed.json"), "w") as f:
+            json.dump(config, f, indent=1)
 
     seed = int(config.get("seed", 42))
     np.random.seed(seed)

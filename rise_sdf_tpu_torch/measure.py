@@ -53,6 +53,15 @@ largest image difference and share of pixels more than 1e-4 apart, the
 single-light images against the multi-emitter ones, the seconds per
 view of each run and the ops' numbers.
 
+``--preset ddp`` runs the flagship's data-parallel window
+(``ddp_window``): a fresh init at stage 1 for ``--steps`` steps (16)
+over NCCL ranks, one per GPU (up to 4), or over two gloo ranks sharing
+the one card there is; then one validation view sharded over the ranks.
+Its JSON line holds each rank's report: steps/s, K1's and G1's launches
+per step, peak memory, the all-reduce's ms and MB per step, the
+all-reduced gradient against the ranks' float64 mean, and whether the
+ranks' params are bit-equal.
+
 Without CUDA it raises.
 """
 
@@ -567,13 +576,221 @@ def _determinism_main(steps):
     return {"step": int(state["step"]), **res}
 
 
+DDP_STEPS = 16
+
+
+def ddp_plan():
+    """The data-parallel window's ranks and backend on this machine:
+    NCCL with one rank per GPU (up to 4) when two or more are visible,
+    else two gloo ranks that share ``cuda:0``."""
+    n = torch.cuda.device_count()
+    return (min(n, 4), "nccl") if n >= 2 else (2, "gloo")
+
+
+def _check_reduced(post, pre, world):
+    """The all-reduced gradient ``post`` against the float64 mean of
+    every rank's ``pre`` (gathered): the entries out of bound and the
+    largest relative error.  At two ranks the bound is one float32 ulp
+    (2^-23) of the mean, relative: the sum of two is one rounding and
+    the halving is exact.  At more, it is the float32 sum's bound in any
+    order, 2^-24 ((n - 1) mean|g| + |mean|)."""
+    import torch.distributed as dist
+
+    parts = [torch.empty_like(pre) for _ in range(world)]
+    dist.all_gather(parts, pre)
+    stacked = torch.stack(parts).double()
+    del parts
+    mean = stacked.mean(0)
+    mag = mean.abs()
+    if world == 2:
+        bound = 2.0 ** -23 * mag
+    else:
+        bound = 2.0 ** -24 * ((world - 1) * stacked.abs().mean(0) + mag)
+    del stacked
+    err = (post.double() - mean).abs()
+    return {"entries": int(mean.numel()), "over_bound": int(
+        (err > bound).sum()),
+            "max_rel_err": float((err / mag.clamp_min(1e-30)).max()),
+            "max_abs_mean": float(mag.max())}
+
+
+def _ddp_rank(rank, world, steps, out_dir, validate, cfg, device):
+    """One rank of ``ddp_window``: the system of ``cfg`` from a fresh
+    init at stage 1 for ``steps`` steps, then the checks and the numbers
+    of its docstring, written to ``out_dir/rank{rank}.json``."""
+    import torch.distributed as dist
+
+    from . import datasets, systems
+    from .bench import _sync
+    from .ops.gather import gather_rows
+    from .ops.scatter import scatter_add
+    from .parallel import sharding
+    from .parallel.dryrun import rank_device
+
+    dev = rank_device(device, rank)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+        torch.cuda.reset_peak_memory_stats()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    seed = int(cfg.get("seed", 42))
+    t0 = time.perf_counter()
+    system = systems.make(cfg["system"]["name"], cfg,
+                          datasets.make(cfg["dataset"]["name"],
+                                        cfg["dataset"]),
+                          save_dir=os.path.join(out_dir, "save"),
+                          device=str(dev))
+    build_s = time.perf_counter() - t0
+    table = system.model.geometry.encoding.encoding.table
+    state = system.init_state(seed)
+    state["step"] = SPLIT_STAGE1_STEP
+    # this rank's table gradient before the all-reduce, at the first
+    # step after the window's first occupancy sweep
+    pre, rec, stamps, per_step, check = {}, {"on": False}, [], [], {}
+    table.register_post_accumulate_grad_hook(
+        lambda p: pre.__setitem__("g", p.grad.clone()) if rec["on"]
+        else None)
+
+    def on_log(step, m):
+        stamps.append(time.perf_counter())
+        per_step.append((step, scatter_add.launches, gather_rows.launches,
+                         m["loss"], m["skipped_nonfinite"]))
+        if step == SPLIT_PROFILE_FROM:
+            check.update(_check_reduced(table.grad, pre.pop("g"), world))
+        rec["on"] = step == SPLIT_PROFILE_FROM - 1
+
+    _sync(dev)
+    scatter_add.launches = gather_rows.launches = 0
+    t0 = time.perf_counter()
+    state = system.fit(max_steps=SPLIT_STAGE1_STEP + steps, seed=seed,
+                       state=state, log_every=1, on_log=on_log)
+    _sync(dev)
+    fit_s = time.perf_counter() - t0
+    k1, g1 = scatter_add.launches, gather_rows.launches
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30 \
+        if dev.type == "cuda" else None
+    last, launches = (0, 0), []
+    for _, k, g, _, _ in per_step:
+        launches.append([k - last[0], g - last[1]])
+        last = (k, g)
+    # the rate over the steps after the first 4 (one occupancy sweep in)
+    warm = min(4, len(stamps) - 2)
+    rate = (len(stamps) - 1 - warm) / (stamps[-1] - stamps[warm])
+
+    params = list(system.model.parameters())
+    flat = torch.cat([p.detach().reshape(-1) for p in params]
+                     + [state["occs"].reshape(-1)])
+    parts = [torch.empty_like(flat) for _ in range(world)]
+    dist.all_gather(parts, flat)
+    equal = all(torch.equal(parts[0], q) for q in parts[1:])
+    del parts, flat
+    bucket = [torch.zeros_like(p) for p in params]
+    times = []
+    for i in range(13):
+        dist.barrier()
+        _sync(dev)
+        t = time.perf_counter()
+        sharding.all_reduce_mean_(bucket)
+        _sync(dev)
+        if i >= 3:
+            times.append((time.perf_counter() - t) * 1e3)
+    del bucket
+    res = {"rank": rank, "world": world, "backend": dist.get_backend(),
+           "device": str(dev), "card": torch.cuda.get_device_name(dev)
+           if dev.type == "cuda" else None,
+           "build_s": build_s, "steps": len(per_step), "fit_s": fit_s,
+           "steps_per_s": rate, "k1_launches": k1, "g1_launches": g1,
+           "launches_per_step": launches,
+           "losses": [x[3] for x in per_step],
+           "skipped": system.skipped_updates, "peak_gib": peak,
+           "grad_check": check, "params_equal": equal,
+           "allreduce_ms": float(np.median(times)),
+           "allreduce_mb": 4 * sum(p.numel() for p in params) / 1e6,
+           "ckpt": os.path.join(system.ckpt_dir,
+                                f"step_{int(state['step'])}.ckpt.npz"),
+           "rays_per_rank": system.rank_counts(system.capacity)[0]}
+    if validate:
+        images, render = [], system.render_image
+
+        def keep(*args, **kw):
+            images.append(render(*args, **kw))
+            return images[-1]
+
+        system.render_image = keep
+        gather_rows.launches = scatter_add.launches = 0
+        t0 = time.perf_counter()
+        res["val"] = system.validate(state, n_images=1)
+        _sync(dev)
+        res["val_s"] = time.perf_counter() - t0
+        res["val_launches"] = [scatter_add.launches, gather_rows.launches]
+        del system.render_image
+        if rank == 0:
+            np.savez(os.path.join(out_dir, "val_view0.npz"), **images[0])
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def ddp_window(world, backend, out_dir, steps=DDP_STEPS, validate=True,
+               cfg=None, device="cuda"):
+    """The flagship (``split_mixed_occ_train_full``, full width; or the
+    split-occ config ``cfg``) over ``world`` data-parallel ranks on the
+    card(s), or the CPU with ``device="cpu"`` (``parallel.dryrun.
+    rank_device``): a fresh init at stage 1 (``SPLIT_STAGE1_STEP``)
+    trained ``steps`` steps through ``fit``, with K1's and G1's counts
+    zeroed just before and read just after, then with ``validate`` one
+    view of the validation split, sharded over the ranks.  Each rank
+    reports its steps/s over the steps after the first 4, K1's and G1's
+    launches in all and per step, losses, skipped updates, peak device
+    memory, the all-reduced table gradient of step ``SPLIT_PROFILE_FROM``
+    against the float64 mean of every rank's own (``_check_reduced``),
+    whether every rank's params and occupancy grid are bit-equal after
+    the window, and the all-reduce's median ms (10 runs after 3 warm-ups,
+    between barriers) and MB on a bucket of the params' size (a step
+    adds the aux's few scalars).  Rank 0
+    writes the final checkpoint (its path is ``ckpt``) and, with
+    ``validate``, the view's images (``out_dir/val_view0.npz``).
+    ``world`` 1 runs in this process, more ranks are spawned.  Returns
+    the ranks' reports."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from .parallel import dryrun, sharding
+    from .presets import split_mixed_occ_train_full
+
+    if SPLIT_STAGE1_STEP + steps <= SPLIT_PROFILE_FROM:
+        raise ValueError(f"the window checks the gradient of step "
+                         f"{SPLIT_PROFILE_FROM}: it needs more than "
+                         f"{SPLIT_PROFILE_FROM - SPLIT_STAGE1_STEP} steps")
+    cfg = cfg or split_mixed_occ_train_full()
+    os.makedirs(out_dir, exist_ok=True)
+    if world > 1:
+        dryrun.spawn(_ddp_rank, world, backend,
+                     args=(steps, out_dir, validate, cfg, device))
+    else:
+        tmp = tempfile.mkdtemp(prefix="rise_rank_")
+        sharding.initialize_distributed(
+            backend, f"file://{os.path.join(tmp, 'rendezvous')}", rank=0,
+            world_size=1, local_rank=0)
+        try:
+            _ddp_rank(0, 1, steps, out_dir, validate, cfg, device)
+        finally:
+            dist.destroy_process_group()
+            shutil.rmtree(tmp, ignore_errors=True)
+    out = []
+    for r in range(world):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
 def main(argv=None):
     from . import datasets, systems
     from .presets import neus_sphere_full
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--preset", choices=("neus", "split", "test",
-                                         "determinism"),
+                                         "determinism", "ddp"),
                     default="neus")
     ap.add_argument("--steps", type=int, default=None)
     args = ap.parse_args(argv)
@@ -587,6 +804,12 @@ def main(argv=None):
         res = _test_main(args.steps or 32)
     elif args.preset == "determinism":
         res = _determinism_main(args.steps or 32)
+    elif args.preset == "ddp":
+        world, backend = ddp_plan()
+        out = os.path.join("exp", "measure_ddp")
+        res = {"ranks": ddp_window(world, backend, out,
+                                   args.steps or DDP_STEPS)}
+        shutil.rmtree(out, ignore_errors=True)
     else:
         cfg = neus_sphere_full()
         seed = int(cfg.get("seed", 42))

@@ -13,11 +13,14 @@ On CUDA both are nondeterministic as torch computes them: the scan of
 a long vector is CUB's device-wide scan, whose decoupled look-back adds
 the tiles' partial sums in an order that changes from run to run, and
 ``index_add`` adds with float atomics.  An eval render passes
-``deterministic=True``: on the card the scan then runs in two levels of
-row scans (``blocked_cumsum``), each row in one block in a fixed order,
-and the accumulation is a sorted segment sum (``sorted_segment_sum``,
-float64 prefix differences at the rays' boundaries), so the same inputs
-give the same image on every run.  On the CPU torch's scan and
+``deterministic=True``: on the card the scan then runs in float64 in
+two levels of row scans (``blocked_cumsum``), each row in one block in a
+fixed order, and the accumulation is a sorted segment sum
+(``sorted_segment_sum``, float64 prefix differences at the rays'
+boundaries), so the same inputs give the same image on every run, and a
+ray's image does not depend on where in the buffer it sits (a float32
+running total rounds a ray's transmittance at the magnitude of the rays
+before it).  On the CPU torch's scan and
 ``index_add`` are sequential and deterministic already and stay as
 they are.  Training keeps the plain ops: its backward scatters with
 atomics in any case (K1 and the gathers' ``index_add_``).
@@ -90,12 +93,15 @@ def render_weight_from_alpha(alphas, ray_start, ray_indices, valid,
     sample; ray_indices: [C] (== n_rays for dead slots); valid: [C] bool.
     Returns (weights [C], trans [C]), ``trans`` being the transmittance
     *before* each sample within its ray.  ``deterministic`` takes
-    ``blocked_cumsum`` on the card (module docstring).
+    ``blocked_cumsum`` in float64 on the card (module docstring).
     """
     a = torch.where(valid, torch.clamp(alphas, 0.0, 1.0 - 1e-7), 0.0)
     la = torch.log1p(-a)
     if _use_deterministic(la, deterministic):
-        c = blocked_cumsum(la)
+        # float64: a ray's log-transmittance is a difference of two
+        # running sums, which float32 would round at the buffer's running
+        # total, so the result would depend on where the ray sits
+        c = blocked_cumsum(la.double())
     else:
         c = torch.cumsum(la, 0)
     c_prev = torch.cat([c.new_zeros(1), c[:-1]])  # exclusive
@@ -107,7 +113,7 @@ def render_weight_from_alpha(alphas, ray_start, ray_indices, valid,
                           c_prev.index_select(0, ray_start_cl))
     per_sample_start = torch.cat([start_c, c.new_zeros(1)]).index_select(
         0, torch.clamp(ray_indices, max=n_rays))
-    trans = torch.exp(c_prev - per_sample_start)
+    trans = torch.exp((c_prev - per_sample_start).to(a.dtype))
     weights = trans * a
     return torch.where(valid, weights, 0.0), torch.where(valid, trans, 0.0)
 

@@ -7,7 +7,9 @@ Checkpoints use the JAX package's ``k:``-keyed ``.npz`` format
 (``bridge.py``) and hold the whole training state: the params, Adam's
 moments and count, the schedule's count, the occupancy grid and the
 step.  A JAX checkpoint loads whole here and the port's loads whole in
-the JAX package's ``load_checkpoint``.
+the JAX package's ``load_checkpoint``.  Over data-parallel ranks
+(``parallel/sharding.py``) rank 0 writes the files and every rank loads
+the same file, after a barrier that follows rank 0's write.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import numpy as np
 import torch
 
 from .. import bridge, models
+from ..parallel import sharding
 from .optim import make_optimizer
 from ..utils.saving import Saver
 
@@ -42,7 +45,7 @@ class BaseSystem:
         self.model = models.make(config["model"]["name"],
                                  config["model"]).to(self.device)
         self.save_dir = save_dir
-        self.saver = Saver(save_dir)
+        self.saver = Saver(save_dir, write=sharding.is_main_process())
         self.ckpt_dir = ckpt_dir or os.path.join(save_dir, "ckpt")
         self.optimizer = self.scheduler = None
         self._ckpt_writer = None
@@ -121,11 +124,17 @@ class BaseSystem:
         device-to-host copy is synchronous; with ``async_write`` the
         serialization and the write run in one background thread.  At
         most one writer is in flight: a save first joins the previous
-        one (``wait_checkpoint_writer``)."""
+        one (``wait_checkpoint_writer``).  Over ranks only rank 0
+        writes, and a synchronous save returns on every rank once the
+        file is written."""
         path = path or os.path.join(self.ckpt_dir,
                                     f"step_{int(state['step'])}.ckpt.npz")
         if self.optimizer is None:
             self.fresh_optimizer()
+        if not sharding.is_main_process():
+            if not async_write:
+                sharding.barrier()
+            return path
         flat = bridge.to_jax_state(self.model, self.optimizer,
                                    self.scheduler)
         flat["occs"] = bridge.host_copy(state["occs"])
@@ -133,7 +142,9 @@ class BaseSystem:
         flat["step"] = np.asarray(int(state["step"]), np.int32)
         self.wait_checkpoint_writer()
         if not async_write:
-            return bridge.save_npz(path, flat)
+            bridge.save_npz(path, flat)
+            sharding.barrier()
+            return path
         errors = []
 
         def write():
@@ -163,7 +174,10 @@ class BaseSystem:
     def _read_checkpoint(self, path: str, keys) -> Dict[str, np.ndarray]:
         """The checkpoint's entries, each of ``keys`` checked: a missing
         one raises ``KeyError`` and a wrong shape ``ValueError``, both
-        naming the state path."""
+        naming the state path.  Over ranks it reads after a barrier
+        that rank 0 passes once its writes are done."""
+        self.wait_checkpoint_writer()
+        sharding.barrier()
         flat = bridge.load_npz(path)
         shapes = self._state_shapes()
         for key in keys:
@@ -228,7 +242,9 @@ class BaseSystem:
     @torch.no_grad()
     def update_occupancy(self, state, generator, subset_fraction: int = 4):
         """Occupancy-grid EMA sweep over a rotating 1/``subset_fraction``
-        of the cells (all cells refresh within 4 updates = 64 steps)."""
+        of the cells (all cells refresh within 4 updates = 64 steps).
+        Every rank sweeps with the same draws and the same params, as
+        JAX's replicated sweep does, so the ranks' grids stay equal."""
         model = self.model
         res = model.grid_resolution
         thre = float(self.config["model"].get("grid_prune_occ_thre", 0.01))

@@ -12,6 +12,13 @@ written in the background) and at its end, and validates one view every
 ``val_every`` steps; a run resumed from a checkpoint replays the
 uninterrupted one.  ``test`` renders the test split and exports the
 mesh (``export``), ``predict`` renders the predict split.
+
+Over data-parallel ranks (``parallel/sharding.py``, JAX's ``data``
+mesh axis) each rank draws its own share of the rays from its own
+generator and marches them into its share of the buffer; the gradients
+are averaged before the guard, and the update runs on every rank.  An
+eval chunk's rays split over the ranks and every rank gathers the whole
+image.  Rank 0 writes the files.
 """
 
 from __future__ import annotations
@@ -28,6 +35,7 @@ from .base import BaseSystem
 from .criterions import psnr
 from ..export import export_mesh
 from ..ops import grid as occ_grid
+from ..parallel import sharding
 from ..utils.color import linear_to_srgb_np, rgb_to_srgb
 from ..utils.misc import interleave_order
 from ..utils.rays import get_rays
@@ -36,11 +44,12 @@ from ..utils.rays import get_rays
 OCC_UPDATE_EVERY = 16  # steps between occupancy-grid sweeps in ``fit``
 
 
-def _step_seed(seed: int, k: int) -> int:
+def _step_seed(seed: int, k: int, rank: int = 0, world: int = 1) -> int:
     """Per-step generator seed: the random stream is a function of
-    (seed, step), so a resumed run replays the batches of an
-    uninterrupted one."""
-    return (seed + 1) * 1_000_003 + k
+    (seed, step) and, over ranks, of (rank, world size), so a resumed
+    run replays the batches of an uninterrupted one and each rank draws
+    its own; one rank of one is the one-process stream."""
+    return ((seed + 1) * 1_000_003 + k) * world + rank
 
 
 @register("neus-system")
@@ -168,12 +177,19 @@ class NeuSSystem(BaseSystem):
         aux["num_rays"] = out["ray_included"].sum()
         return loss, aux
 
+    def rank_counts(self, capacity: int):
+        """This rank's rays per step and its share of ``capacity``
+        (``sharding.per_rank_counts`` at the world size)."""
+        return sharding.per_rank_counts(self.train_num_rays, capacity,
+                                        sharding.data_shard_count())
+
     def train_options(self, step: int) -> Dict:
         """``forward_loss``'s per-step options, as the JAX fit sets them:
         the open hash levels (the geometry takes hybrid finite
-        differences only with an int count) and the sample buffer."""
+        differences only with an int count) and this rank's sample
+        buffer."""
         return {"levels": self.model.open_levels(step),
-                "capacity": self.capacity}
+                "capacity": self.rank_counts(self.capacity)[1]}
 
     def train_step(self, state, batch, generator=None, **kw) -> Dict:
         """One update on ``batch``; advances ``state["step"]``.  ``kw``
@@ -186,7 +202,12 @@ class NeuSSystem(BaseSystem):
         every leaf.  Finite-grads guard: a non-finite gradient anywhere
         skips the optimizer step and the LR-schedule step together (the
         JAX step keeps the whole optax state, schedule count included)
-        and counts the skip in ``self.skipped_updates``."""
+        and counts the skip in ``self.skipped_updates``.
+
+        Over ranks, the gradients are averaged (one all-reduce) before
+        the guard, and the aux scalars, the loss and the guard's flag in
+        a second collective, so every rank takes the same update or
+        skips with the others (JAX's ``pmean``)."""
         step = int(state["step"])
         self.optimizer.zero_grad(set_to_none=True)
         loss, aux = self.forward_loss(batch, state["occ_binary"], step,
@@ -197,15 +218,19 @@ class NeuSSystem(BaseSystem):
         for p in params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-        ok = bool(torch.stack([torch.isfinite(p.grad).all()
-                               for p in params]).all())
+        grads = [p.grad for p in params]
+        sharding.all_reduce_mean_(grads)
+        aux["loss"] = loss.detach()
+        aux["finite"] = torch.stack([torch.isfinite(g).all()
+                                     for g in grads]).all()
+        aux = sharding.all_reduce_mean_scalars(aux, self.device)
+        ok = bool(aux.pop("finite") == 1)
         if ok:
             self.optimizer.step()
             self.scheduler.step()
         else:
             self.skipped_updates += 1
         self.model.post_update(step)
-        aux["loss"] = loss.detach()
         aux["skipped_nonfinite"] = 0.0 if ok else 1.0
         state["step"] = step + 1
         return aux
@@ -234,15 +259,18 @@ class NeuSSystem(BaseSystem):
             self.fresh_optimizer()
         data = self.device_data(self.datamodule.train())
         gen = torch.Generator(device=self.device)
+        rank, world = sharding.rank(), sharding.data_shard_count()
+        num_rays = self.rank_counts(self.capacity)[0]
         t0 = time.time()
         start = int(state["step"])
         mark = (start, t0)  # the step and time of the last log line
         for step in range(start, max_steps):
             if self.grid_prune and step % OCC_UPDATE_EVERY == 0:
+                # the same draws on every rank
                 gen.manual_seed(_step_seed(seed, 2 * step + 1))
                 self.update_occupancy(state, gen)
-            gen.manual_seed(_step_seed(seed, 2 * step))
-            batch = self.sample_batch(gen, data)
+            gen.manual_seed(_step_seed(seed, 2 * step, rank, world))
+            batch = self.sample_batch(gen, data, num_rays=num_rays)
             aux = self.train_step(state, batch, gen)
             if log_every and (step % log_every == 0 or step == max_steps - 1):
                 mark = self._log(step, start, t0, mark, aux, on_log)
@@ -270,7 +298,7 @@ class NeuSSystem(BaseSystem):
                   "update skipped", flush=True)
         if on_log:
             on_log(step, m)
-        else:
+        elif sharding.is_main_process():
             phys = (f" phys={m['rgb_phys_mse']:.5f}"
                     if "rgb_phys_mse" in m else "")
             print(f"step {step}: loss={m['loss']:.4f} "
@@ -287,12 +315,15 @@ class NeuSSystem(BaseSystem):
         """Per-image inputs of ``render_chunk`` beyond the rays."""
         return {}
 
-    def render_chunk(self, state, rays, mult: int = 1):
+    def render_chunk(self, state, rays, mult: int = 1, shards: int = 1):
         """One eval chunk into a buffer of ``mult`` times the eval
-        capacity."""
+        capacity; with ``shards``, ``rays`` are one of that many shards
+        of a chunk and take their share of the buffer
+        (``sharding.per_rank_buffer``)."""
         out = self.model(rays, occ_binary=state["occ_binary"],
                          step=int(state["step"]), train=False,
-                         capacity=self.eval_capacity * mult,
+                         capacity=sharding.per_rank_buffer(
+                             self.eval_capacity * mult, shards),
                          background_color=torch.ones(3, device=self.device))
         keep = ["comp_rgb_full", "comp_normal", "opacity", "depth",
                 "ray_included"]
@@ -324,12 +355,27 @@ class NeuSSystem(BaseSystem):
         ``opts`` (so a multi-emitter chunk keeps its lights);
         ``ray_included`` says which rays fit in the end.
         ``emitter_base`` and ``opts`` go to ``eval_context`` and
-        ``render_chunk``; the chunks' ``stat_*`` counts are dropped."""
+        ``render_chunk``; the chunks' ``stat_*`` counts are dropped.
+
+        Over ranks, each (edge-padded) chunk's rays split evenly over
+        them; each rank renders its shard into its share of the buffers
+        and the per-ray outputs are gathered, so every rank holds the
+        whole chunk and escalates it with the others."""
         rays, inv = self.view_rays(split, index)
         n, chunk = rays.shape[0], self.eval_chunk
+        rank, world = sharding.rank(), sharding.data_shard_count()
         outs = []
         with self.frozen_params():
             ctx = self.eval_context(state, emitter_base)
+
+            def render(part, mult=1):
+                res = self.render_chunk(
+                    state, sharding.shard_rays(part, world, rank), mult,
+                    shards=world, **ctx, **opts)
+                return sharding.gather_rays(
+                    {k: v for k, v in res.items()
+                     if not k.startswith("stat_")})
+
             for s in range(0, n, chunk):
                 part = rays[s:s + chunk]
                 pad = chunk - part.shape[0]
@@ -337,18 +383,17 @@ class NeuSSystem(BaseSystem):
                     # edge-pad: duplicated real rays behave like their
                     # source (zero-direction rays would overflow the buffer)
                     part = torch.cat([part, part[-1:].expand(pad, -1)])
-                res = self.render_chunk(state, part, **ctx, **opts)
+                res = render(part)
                 for mult in (2, 4):
                     if bool(res["ray_included"].all()):
                         break
-                    res = self.render_chunk(state, part, mult, **ctx, **opts)
+                    res = render(part, mult)
                 dropped = int((~res["ray_included"]).sum())
                 if dropped:
                     print(f"WARNING: eval chunk at ray {s}: {dropped} rays "
                           "overflowed the 4x sample buffer and were rendered "
                           "partially — metrics may be corrupted", flush=True)
-                outs.append({k: v[:chunk - pad] for k, v in res.items()
-                             if not k.startswith("stat_")})
+                outs.append({k: v[:chunk - pad] for k, v in res.items()})
         img = {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
         if inv is not None:
             img = {k: v[inv] for k, v in img.items()}
@@ -422,7 +467,10 @@ class NeuSSystem(BaseSystem):
         with vertex colours, and for the PBR model ``albedo.npy``,
         ``metallic.npy`` and ``roughness.npy`` (sRGB-encoded, as the
         JAX package writes them); returns the mesh (None without a
-        surface).  ``times`` gets ``export_mesh``'s seconds."""
+        surface).  ``times`` gets ``export_mesh``'s seconds.  Over ranks
+        rank 0 alone exports (the others return None)."""
+        if not sharding.is_main_process():
+            return None
         with self.frozen_params():
             mesh = export_mesh(self.model, state, self.config, times)
         if mesh is None:

@@ -35,6 +35,7 @@ import torch
 from . import register
 from .criterions import mean_angular_error, psnr, ssim
 from .neus import NeuSSystem
+from ..parallel import sharding
 from ..utils.color import linear_to_srgb_np
 
 # the chunk's per-ray outputs that an eval keeps (the calibration
@@ -73,12 +74,13 @@ class SplitOccSystem(NeuSSystem):
 
     def train_options(self, step: int) -> Dict:
         """The NeuS step's options plus the prefilter flag; the buffer
-        holds only visible samples while the prefilter is on."""
+        (this rank's share) holds only visible samples while the
+        prefilter is on."""
         pf = self.train_prefilter(step)
         opts = super().train_options(step)
         opts["prefilter"] = pf
         if pf:
-            opts["capacity"] = self.capacity_prefiltered
+            opts["capacity"] = self.rank_counts(self.capacity_prefiltered)[1]
         return opts
 
     # ------------------------------------------------------------------ #
@@ -160,7 +162,7 @@ class SplitOccSystem(NeuSSystem):
     def render_chunk(self, state, rays, mult: int = 1, mips=None,
                      bake=None, relighting: bool = False,
                      n_relights: int = 0, capacity: Optional[int] = None,
-                     secondary_frac=None, vis_frac=None):
+                     secondary_frac=None, vis_frac=None, shards: int = 1):
         """One eval chunk with the model's eval options (banded marching
         into the band buffer).  ``capacity`` and the fractions override
         the model's (the calibration probe, the calibrated fractions); an
@@ -169,10 +171,13 @@ class SplitOccSystem(NeuSSystem):
         skip the visibility compaction (the band is one).  With
         ``n_relights`` the chunk renders ``mips`` = [learned light, relight
         lights...] in one geometry pass and returns the learned light's
-        channels plus ``relight{j}/comp_rgb_phys_full``."""
+        channels plus ``relight{j}/comp_rgb_phys_full``.  With
+        ``shards``, ``rays`` are one of that many shards of a chunk and
+        take their share of the chunk's sample buffer
+        (``sharding.per_rank_buffer``, as JAX's sharded chunk)."""
         model = self.model
         step = int(state["step"])
-        opts = model.eval_options(step, rays.shape[0])
+        opts = model.eval_options(step, rays.shape[0] * shards)
         if mult > 1:
             capacity = self.eval_capacity * mult
             base = model.secondary_sample_capacity_frac \
@@ -180,6 +185,7 @@ class SplitOccSystem(NeuSSystem):
             secondary_frac = min(base * mult, 1.0)
         if capacity is not None:
             opts["capacity"] = capacity
+        opts["capacity"] = sharding.per_rank_buffer(opts["capacity"], shards)
         kw = dict(occ_binary=state["occ_binary"], step=step, bake=bake,
                   background_color=torch.ones(3, device=self.device),
                   secondary_frac=secondary_frac,

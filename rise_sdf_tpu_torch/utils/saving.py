@@ -53,12 +53,26 @@ def write_png(path: str, img: np.ndarray) -> None:
 
 
 class Saver:
-    def __init__(self, save_dir: str):
+    """Writes under ``save_dir``; with ``write`` False (a data-parallel
+    rank other than 0) every ``save_*`` returns its path and writes
+    nothing."""
+
+    def __init__(self, save_dir: str, write: bool = True):
         self.save_dir = save_dir
+        self.write = write
 
     def get_save_path(self, filename: str) -> str:
         path = os.path.join(self.save_dir, filename)
         os.makedirs(os.path.dirname(path), exist_ok=True)
+        return path
+
+    def _save(self, filename: str, write) -> str:
+        """``write(path)`` at ``filename``'s path when this saver
+        writes; returns the path."""
+        if not self.write:
+            return os.path.join(self.save_dir, filename)
+        path = self.get_save_path(filename)
+        write(path)
         return path
 
     @staticmethod
@@ -93,31 +107,28 @@ class Saver:
     def save_image_grid(self, filename: str, specs: List[dict]) -> str:
         """The images side by side: an 8-bit PNG, or with a ``.exr``
         name float32 (grayscale repeated to RGB)."""
-        path = self.get_save_path(filename)
         if filename.endswith(".exr"):
             imgs = [np.asarray(s["img"], np.float32) for s in specs]
             imgs = [i if i.ndim == 3 else i[..., None] for i in imgs]
             imgs = [np.repeat(i, 3, -1) if i.shape[-1] == 1 else i
                     for i in imgs]
-            write_exr(path, np.concatenate(imgs, axis=1))
-            return path
+            return self._save(filename, lambda path: write_exr(
+                path, np.concatenate(imgs, axis=1)))
         imgs = [self._img_to_u8(s) for s in specs]
         h = max(i.shape[0] for i in imgs)
         imgs = [np.pad(i, ((0, h - i.shape[0]), (0, 0), (0, 0)))
                 for i in imgs]
-        write_png(path, np.concatenate(imgs, axis=1))
-        return path
+        return self._save(filename, lambda path: write_png(
+            path, np.concatenate(imgs, axis=1)))
 
     def save_npy(self, filename: str, arr) -> str:
-        path = self.get_save_path(filename)
-        np.save(path, np.asarray(arr))
-        return path
+        return self._save(filename,
+                          lambda path: np.save(path, np.asarray(arr)))
 
     def save_mesh(self, filename: str, v_pos, t_pos_idx, v_rgb=None) -> str:
-        path = self.get_save_path(filename)
-        write_ply(path, np.asarray(v_pos), np.asarray(t_pos_idx),
-                  None if v_rgb is None else np.asarray(v_rgb))
-        return path
+        return self._save(filename, lambda path: write_ply(
+            path, np.asarray(v_pos), np.asarray(t_pos_idx),
+            None if v_rgb is None else np.asarray(v_rgb)))
 
 
 def write_ply(path: str, verts: np.ndarray, faces: np.ndarray,

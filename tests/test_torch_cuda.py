@@ -357,3 +357,73 @@ def test_deterministic_eval_ops_repeat_bit_for_bit(cuda):
     # the float64 difference, rounded once to float32: within one ulp
     err = (sums[0].double() - want).abs()
     assert bool((err <= 1.2e-7 * want.abs() + 1e-9).all())
+
+
+def test_eval_scan_does_not_depend_on_where_a_ray_sits(cuda):
+    """The eval scan (``render_weight_from_alpha(deterministic=True)``) on
+    a 1,048,576-slot buffer of 4096 rays (its running total reaches
+    about -1.6e5, where a float32 sum rounds at 2^-6): the last 64 rays'
+    transmittance and weights there and in a buffer of their own agree
+    to 1e-6, and both are within 1e-6 of a float64 scan of each ray."""
+    from rise_sdf_tpu_torch.ops import volrend
+
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    n_rays, c, tail = 4096, 1 << 20, 64
+    counts = torch.randint(1, c // n_rays, (n_rays,), generator=gen,
+                           device=cuda)
+    ridx = torch.repeat_interleave(torch.arange(n_rays, device=cuda), counts)
+    ridx = torch.cat([ridx, torch.full((c - ridx.shape[0],), n_rays,
+                                       device=cuda)])
+    alphas = torch.rand(c, generator=gen, device=cuda) * 0.5
+    starts = torch.searchsorted(ridx, torch.arange(n_rays + 1, device=cuda))
+    whole = volrend.render_weight_from_alpha(
+        alphas, starts[:-1], ridx, ridx < n_rays, n_rays, deterministic=True)
+    lo, hi = int(starts[-tail - 1]), int(starts[-1])
+    sub_idx = ridx[lo:hi] - (n_rays - tail)
+    alone = volrend.render_weight_from_alpha(
+        alphas[lo:hi], starts[-tail - 1:-1] - lo, sub_idx,
+        torch.ones_like(sub_idx, dtype=torch.bool), tail, deterministic=True)
+    la = torch.log1p(-torch.clamp(alphas[lo:hi].double(), 0.0, 1.0 - 1e-7))
+    c64 = torch.cumsum(la, 0) - la
+    trans64 = torch.exp(c64 - c64[starts[-tail - 1:-1] - lo][sub_idx])
+    want = (trans64 * alphas[lo:hi].double(), trans64)
+    for w, a, ref in zip(whole, alone, want):
+        assert float((w[lo:hi] - a).abs().max()) <= 1e-6
+        assert float((a.double() - ref).abs().max()) <= 1e-6
+        assert float((w[lo:hi].double() - ref).abs().max()) <= 1e-6
+
+
+def test_two_gloo_ranks_share_the_card_with_equal_params(cuda):
+    """Two gloo ranks on ``cuda:0`` take one tiny split stage-1 step
+    (``dryrun_multichip``): K1 and G1 on every rank, the all-reduced
+    gradients the mean of the ranks' own, the params bit-equal."""
+    from rise_sdf_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    res = dryrun_multichip(2, "cuda", "gloo")
+    a, b = res["ranks"]
+    for k, post in a["post"].items():
+        assert torch.equal(post, (a["pre"][k] + b["pre"][k]) / 2), k
+        assert torch.equal(a["params"][k], b["params"][k]), k
+    assert any(not torch.equal(a["pre"][k], b["pre"][k]) for k in a["pre"])
+
+
+@pytest.fixture
+def second_card():
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    return torch.device("cuda", 1)
+
+
+def test_kernels_on_the_second_card(second_card):
+    gen = torch.Generator(device=second_card).manual_seed(5)
+    idx = torch.randint(0, 4096, (3 * 8192 + 100,), generator=gen,
+                        device=second_card, dtype=torch.int32)
+    vals = torch.randn((idx.numel(), 2), generator=gen, device=second_card)
+    got = scatter_add(idx, vals, 4096)
+    torch.cuda.synchronize(second_card)
+    assert got.device == second_card
+    _assert_matches_f64(got, idx, vals, 4096)
+    table = torch.randn((4096, 2), generator=gen, device=second_card)
+    got = gather_rows(table, idx)
+    torch.cuda.synchronize(second_card)
+    assert torch.equal(got, table.index_select(0, idx.long()))

@@ -259,7 +259,8 @@ def test_port_imports_no_jax_yaml_or_reference():
         "        'models.split_mixed_occ', 'ops.sdf_bake', 'ops.prefilter',\n"
         "        'ops.gather', 'ops.cubemap', 'models.light',\n"
         "        'systems.split_occ', 'measure', 'export', 'ops.mcubes',\n"
-        "        'launch', 'bridge')]\n"
+        "        'launch', 'bridge', 'parallel.sharding',\n"
+        "        'parallel.dryrun')]\n"
         "assert all(m in sys.modules for m in need), need\n"
         "from rise_sdf_tpu_torch.bridge import to_jax_state, from_jax_state\n"
         "print(len([m for m in sys.modules if m.startswith(p.__name__)]))\n")
