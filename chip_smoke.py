@@ -125,7 +125,36 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    process's one-process render of rank 0's checkpoint.  The backends,
    world sizes, steps/s per rank, all-reduce ms and MB per step, peak
    memory and launches per rank per step are printed.  With two or more
-   GPUs, K1 and G1 are also held to their plain versions on ``cuda:1``.
+   GPUs, K1 and G1 are also held to their plain versions on ``cuda:1``;
+12. a scene from disk: (a) the concave scene (``render_image_concave``)
+   at 800x800 under the ``bright`` environment, written to a temporary
+   directory in the TensoIR layout (4 train views and 1 test view, each
+   with ``metadata.json``, ``rgba.png``, ``rgba_warm.png``,
+   ``rgba_bright.png``, ``albedo.exr``, ``roughness.exr`` and
+   ``normal.exr`` with the mask as alpha; ``warm.hdr`` and
+   ``bright.hdr`` as run-length RGBE at 2:1 lat-long) and in the Blender
+   layout, by this script's own PNG writer (its rows cycle the five
+   filters) and RGBE writer; (b) loaded through ``datasets.make
+   ("tensoir" | "blender", ...)``: every PNG decodes to the bytes
+   written (the decode ms per image and its extrapolation to a TensoIR
+   scene's 1,300 PNGs are printed), every image, mask, relight image and
+   material EXR equals what was written, the normals are within 1e-6 of
+   the renderer's, each view's ``directions @ c2w`` within 1e-6 of the
+   rays it was rendered with, and each ``.hdr`` within RGBE's
+   quantization of the analytic environment clipped at 0 (per texel
+   2^-7 of its largest channel); (c) ``split_mixed_occ_tensoir`` on the
+   loaded scene (``relight_list`` warm and bright, ``hdr_filepath`` the
+   scene's ``.hdr`` files) at full width: ``fit`` from a fresh init at
+   stage 1 (step 13000) for 16 steps, K1 and G1 launching on every step
+   with finite losses and no skipped update, then ``test`` on the one
+   test view, where G1 launches and K1 does not and every metric,
+   relight PSNR and SSIM of both lights among them, is finite (the
+   dropped rays of the fresh init are printed, not required to be 0);
+   (d) ``neus_blender`` on the Blender layout for 16 steps, K1 and G1 on
+   every step, finite losses.  The counts are zeroed just before each
+   part and read just after.  Cut from TensoIR's 100 train and 200 test
+   views and 5 relight environments read from files to these 5 views
+   and 2 analytic environments, and to 16 steps per window.
 
 ``--save-streams FILE`` saves both recorded streams for the same-call
 A/B against another tree, ``python -m rise_sdf_tpu_torch.kernel_ab``
@@ -133,8 +162,8 @@ A/B against another tree, ``python -m rise_sdf_tpu_torch.kernel_ab``
 The last two lines are the kernels' JSON record (K1's and G1's entries
 also carry their times on the recorded streams and per NeuS and flagship
 train step, G1's its launches in the test protocol, both their launches
-in phase 10's resumed run and G1's in its export, and both their
-launches per rank in phase 11) and
+in phase 10's resumed run and G1's in its export, both their
+launches per rank in phase 11 and in the three parts of phase 12) and
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the package
 beside it, the script exits non-zero and prints no result.
 """
@@ -1199,6 +1228,397 @@ def ddp_phase(torch, scatter, gather):
             "steps_per_s": [r["steps_per_s"] for r in ranks]}
 
 
+# phase 12: a scene from disk.  Cut from a TensoIR scene's 100 train and
+# 200 test views and 5 relight environments from files to these views
+# and the 2 analytic environments; 16 steps per training window
+SCENE_SIZE, SCENE_TRAIN_VIEWS, SCENE_STEPS = 800, 4, 16
+SCENE_LIGHTS = ("warm", "bright")
+# PNGs in one TensoIR scene: 100 train + 200 test views, a test view
+# also with rgba_{light}.png for 5 lights
+TENSOIR_PNGS = 100 + 200 * (1 + 5)
+
+
+def write_png_filters(path, img):
+    """uint8 [H, W, C] as an 8-bit PNG (C = 3: RGB, 4: RGBA) whose rows
+    cycle through the five filters (None, Sub, Up, Average, Paeth)."""
+    import struct
+    import zlib
+
+    h, w, c = img.shape
+    x = img.astype(np.int16)
+    left, up, corner = (np.zeros_like(x) for _ in range(3))
+    left[:, 1:], up[1:], corner[1:, 1:] = x[:, :-1], x[:-1], x[:-1, :-1]
+    pa, pb = np.abs(up - corner), np.abs(left - corner)
+    pc = np.abs(left + up - 2 * corner)
+    paeth = np.where((pa <= pb) & (pa <= pc), left,
+                     np.where(pb <= pc, up, corner))
+    kind = np.arange(h) % 5
+    pred = np.choose(kind[:, None, None], [np.zeros_like(x), left, up,
+                                           (left + up) >> 1, paeth])
+    rows = np.concatenate([kind[:, None].astype(np.uint8),
+                           ((x - pred) & 0xFF).astype(np.uint8).reshape(
+                               h, w * c)], 1)
+
+    def chunk(tag, data):
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data)))
+
+    header = struct.pack(">IIBBBBB", w, h, 8, {3: 2, 4: 6}[c], 0, 0, 0)
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", header)
+                + chunk(b"IDAT", zlib.compress(rows.tobytes(), 1))
+                + chunk(b"IEND", b""))
+
+
+def _rle_plane(plane):
+    """One component plane of a scanline in Radiance's new run-length
+    code: runs of 4 or more equal bytes as (128 + n, byte), the rest as
+    literal spans (n, n bytes) of at most 128."""
+    out, lit = bytearray(), bytearray()
+
+    def flush():
+        for k in range(0, len(lit), 128):
+            out.append(len(lit[k:k + 128]))
+            out.extend(lit[k:k + 128])
+        lit.clear()
+
+    starts = np.concatenate([[0], np.flatnonzero(np.diff(plane)) + 1])
+    for start, n in zip(starts, np.diff(np.append(starts, len(plane)))):
+        if n >= 4:
+            flush()
+            while n > 0:
+                out.extend((128 + min(n, 127), int(plane[start])))
+                n -= min(n, 127)
+        else:
+            lit.extend(plane[start:start + n].tobytes())
+    flush()
+    return bytes(out)
+
+
+def write_hdr_rle(path, rgb):
+    """float32 [H, W, 3] as a Radiance RGBE file with new-style
+    run-length scanlines, each texel's mantissas truncated as Radiance's
+    ``float2rgbe`` does.  RGBE holds no negative radiance: the caller
+    clips at 0."""
+    h, w, _ = rgb.shape
+    top = rgb.max(-1).astype(np.float64)
+    frac, exp = np.frexp(top)
+    zero = top < 1e-32
+    scale = np.where(zero, 0.0, frac * 256.0 / np.where(zero, 1.0, top))
+    rgbe = np.zeros((h, w, 4), np.uint8)
+    rgbe[..., :3] = np.minimum(rgb * scale[..., None], 255).astype(np.uint8)
+    rgbe[..., 3] = np.where(zero, 0, exp + 128)
+    with open(path, "wb") as f:
+        f.write(b"#?RADIANCE\nFORMAT=32-bit_rle_rgbe\n\n")
+        f.write(f"-Y {h} +X {w}\n".encode())
+        for y in range(h):
+            f.write(bytes((2, 2, w >> 8, w & 0xFF)))
+            for p in range(4):
+                f.write(_rle_plane(rgbe[y, :, p]))
+
+
+def write_scene(root, size, n_train):
+    """The concave scene rendered by ``render_image_concave`` at
+    ``size``^2 under the ``bright`` environment, written in the TensoIR
+    layout under ``root/tensoir`` (``n_train`` train views and one test
+    view, each with ``rgba_warm.png`` and ``rgba_bright.png``), the
+    environments as ``root/envs/{warm,bright}.hdr``, and the images in
+    the Blender layout under ``root/blender``
+    (``transforms_{train,test}.json``, ``{train,test}/r_N.png``).
+    Returns what was written: per view its pose, uint8 RGBA, albedo,
+    roughness, normal and rays, and the environments' lat-long images
+    (clipped at 0)."""
+    import math
+
+    from rise_sdf_tpu_torch.datasets import synthetic as syn
+    from rise_sdf_tpu_torch.utils.exr import write_exr
+    from rise_sdf_tpu_torch.utils.rays import get_ray_directions
+
+    fov = 0.42  # the concave scene's default
+    focal = 0.5 * size / math.tan(0.5 * fov)
+    dirs = get_ray_directions(size, size, focal, focal, size // 2, size // 2)
+    written = {"views": {}, "envs": {}}
+    os.makedirs(os.path.join(root, "envs"))
+    for light in SCENE_LIGHTS:
+        # the warm sky goes below 0 under the horizon
+        img = np.maximum(syn.env_latlong(syn._ENVS[light]), 0)
+        write_hdr_rle(os.path.join(root, "envs", f"{light}.hdr"), img)
+        written["envs"][light] = img
+
+    def rgba(rgb, mask):
+        return np.round(np.clip(np.concatenate(
+            [rgb, mask[..., None]], -1), 0, 1) * 255).astype(np.uint8)
+
+    for split, n, seed in (("train", n_train, 0), ("test", 1, 2)):
+        os.makedirs(os.path.join(root, "blender", split))
+        frames = []
+        for i, c2w in enumerate(syn.camera_poses(n, seed=seed)):
+            view = os.path.join(root, "tensoir", f"{split}_{i:03d}")
+            os.makedirs(view)
+            mat = np.concatenate([c2w, [[0, 0, 0, 1]]])
+            with open(os.path.join(view, "metadata.json"), "w") as f:
+                json.dump({"cam_transform_mat": ",".join(
+                    repr(float(v)) for v in mat.reshape(-1)),
+                    "cam_angle_x": fov}, f)
+            rgb, mask, alb, rough, nrm = syn.render_image_concave(
+                c2w, dirs, env_fn=syn.env_radiance_bright)
+            png = rgba(rgb, mask)
+            write_png_filters(os.path.join(view, "rgba.png"), png)
+            write_png_filters(os.path.join(root, "blender", split,
+                                           f"r_{i}.png"), png)
+            write_exr(os.path.join(view, "albedo.exr"), alb)
+            write_exr(os.path.join(view, "roughness.exr"), rough)
+            write_exr(os.path.join(view, "normal.exr"),
+                      np.concatenate([nrm, mask[..., None]], -1))
+            rec = {"c2w": c2w, "rgba": png, "albedo": alb, "roughness": rough,
+                   "normal": nrm, "rays": dirs @ c2w[:3, :3].T}
+            # the loaders read the relight images of every split
+            for light in SCENE_LIGHTS:
+                rel = rgb if light == "bright" else syn.render_image_concave(
+                    c2w, dirs, env_fn=syn._ENVS[light])[0]
+                rec[light] = rgba(rel, mask)
+                write_png_filters(os.path.join(view, f"rgba_{light}.png"),
+                                  rec[light])
+            written["views"][(split, i)] = rec
+            frames.append({"file_path": f"./{split}/r_{i}",
+                           "transform_matrix": mat.tolist()})
+        with open(os.path.join(root, "blender", f"transforms_{split}.json"),
+                  "w") as f:
+            json.dump({"camera_angle_x": fov, "frames": frames}, f)
+    return written
+
+
+def check_scene(root, written, relights):
+    """Load the scene through ``datasets.make`` in both layouts and hold
+    it to what was written (module docstring, phase 12b).  Returns the
+    seconds per PNG decode."""
+    from rise_sdf_tpu_torch import datasets
+    from rise_sdf_tpu_torch.utils.hdr import read_hdr
+    from rise_sdf_tpu_torch.utils.png import read_png
+
+    pngs, decode_s = 0, 0.0
+    for (split, i), rec in written["views"].items():
+        view = os.path.join(root, "tensoir", f"{split}_{i:03d}")
+        paths = [(os.path.join(view, "rgba.png"), rec["rgba"]),
+                 (os.path.join(root, "blender", split, f"r_{i}.png"),
+                  rec["rgba"])]
+        paths += [(os.path.join(view, f"rgba_{light}.png"), rec[light])
+                  for light in relights]
+        for path, want in paths:
+            t0 = time.perf_counter()
+            got = read_png(path)
+            decode_s += time.perf_counter() - t0
+            pngs += 1
+            if not np.array_equal(got, want):
+                fail(f"{path} does not decode to the bytes written")
+    ms = decode_s / pngs * 1e3
+    size = written["views"][("train", 0)]["rgba"].shape[0]
+    log(f"  b. {pngs} PNGs of {size}x{size} RGBA (rows cycling the five "
+        f"filters) decode to the bytes written: {ms:.1f} ms per image; a "
+        f"TensoIR scene's {TENSOIR_PNGS} PNGs would take "
+        f"{ms * TENSOIR_PNGS / 1e3:.0f} s")
+    for light, img in written["envs"].items():
+        got = read_hdr(os.path.join(root, "envs", f"{light}.hdr"))
+        bound = img.max(-1, keepdims=True) * 2.0 ** -7
+        over = int((np.abs(got - img) > bound).sum())
+        log(f"  {light}.hdr {got.shape[1]}x{got.shape[0]}: max |read - "
+            f"analytic| {float(np.abs(got - img).max()):.3e}, texels over "
+            f"2^-7 of their largest channel: {over}")
+        if got.shape != img.shape or over:
+            fail(f"{light}.hdr is not the environment within RGBE's "
+                 "quantization")
+    base = {"img_wh": [size, size], "near_plane": 2.0, "far_plane": 6.0,
+            "openGL_camera": True}
+    t0 = time.perf_counter()
+    tensoir = datasets.make("tensoir", dict(
+        base, root_dir=os.path.join(root, "tensoir"),
+        relight_list=list(relights), has_albedo=True, albedo_format="exr",
+        has_roughness=True, roughness_format="exr"))
+    blender = datasets.make("blender", dict(
+        base, root_dir=os.path.join(root, "blender")))
+    splits = {(layout, name): getattr(dm, name)()
+              for layout, dm in (("tensoir", tensoir), ("blender", blender))
+              for name in ("train", "test")}
+    load_s = time.perf_counter() - t0
+    worst = {"normal": 0.0, "rays": 0.0}
+    for (layout, name), split in splits.items():
+        for i in range(len(split)):
+            rec = written["views"][(name, i)]
+            want = rec["rgba"].astype(np.float32) / 255.0
+            c2w = split.all_c2w[i]
+            ray_err = float(np.abs(split.directions @ c2w[:3, :3].T
+                                   - rec["rays"]).max())
+            worst["rays"] = max(worst["rays"], ray_err)
+            same = (np.array_equal(split.all_images[i], want[..., :3])
+                    and np.array_equal(split.all_fg_masks[i], want[..., 3])
+                    and np.array_equal(c2w[:, 3], rec["c2w"][:, 3]))
+            if layout == "tensoir":
+                same = same and all(
+                    np.array_equal(split.relight_images[light][i],
+                                   rec[light][..., :3].astype(np.float32)
+                                   / 255.0)
+                    for light in relights) \
+                    and np.array_equal(split.all_albedo[i], rec["albedo"]) \
+                    and np.array_equal(split.all_roughness[i],
+                                       rec["roughness"])
+                worst["normal"] = max(worst["normal"], float(np.abs(
+                    split.all_normals[i] - rec["normal"]).max()))
+            if not same or ray_err > 1e-6:
+                fail(f"{layout} {name} view {i} differs from what was "
+                     f"written (rays {ray_err:.2e})")
+    counts = ", ".join(f"{layout} {name} {len(split)}"
+                       for (layout, name), split in splits.items())
+    log(f"  loaded both layouts ({counts} views) in "
+        f"{load_s:.1f} s: images, masks, albedo and roughness EXRs and "
+        f"relight images equal to what was written; max |normal - "
+        f"renderer's| {worst['normal']:.2e}, max |directions @ c2w - the "
+        f"rendered rays| {worst['rays']:.2e}")
+    if worst["normal"] > 1e-6:
+        fail("the loaded normals are not the renderer's")
+
+
+def _train_window(torch, scatter, gather, system, state, steps, seed):
+    """``steps`` steps of ``fit`` from ``state`` with K1's and G1's counts
+    zeroed just before and read per step.  Returns the state, steps/s over
+    all but the first step, the peak memory in GiB, the launches per step
+    and the losses."""
+    from rise_sdf_tpu_torch import measure
+
+    per_step, losses = [], []
+
+    def on_log(step, m):
+        per_step.append((scatter.scatter_add.launches,
+                         gather.gather_rows.launches))
+        losses.append(m["loss"])
+
+    start = int(state["step"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    scatter.scatter_add.launches = 0
+    gather.gather_rows.launches = 0
+    state, _, rate, _ = measure.train(system, steps, seed, state, on_log,
+                                      profile_from=start + steps)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    deltas = [(k - k0, g - g0) for (k, g), (k0, g0)
+              in zip(per_step, [(0, 0)] + per_step[:-1])]
+    return state, rate, peak, deltas, losses
+
+
+def scene_phase(torch, scatter, gather):
+    """A scene from disk (module docstring, phase 12).  Returns K1's and
+    G1's launches in its three parts."""
+    import tempfile
+
+    from rise_sdf_tpu_torch import datasets, launch, measure, presets, \
+        systems
+
+    out = os.path.join("exp", "chip_smoke_scene")
+    shutil.rmtree(out, ignore_errors=True)
+    launches = {}
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        written = write_scene(root, SCENE_SIZE, SCENE_TRAIN_VIEWS)
+        log(f"  a. wrote the concave scene at {SCENE_SIZE}x{SCENE_SIZE} "
+            f"({SCENE_TRAIN_VIEWS} "
+            f"train views, 1 test view, {', '.join(SCENE_LIGHTS)}) in the "
+            f"TensoIR and Blender layouts in "
+            f"{time.perf_counter() - t0:.1f} s")
+        check_scene(root, written, SCENE_LIGHTS)
+
+        cfg = launch.resolve(launch.apply_overrides(
+            presets.split_mixed_occ_tensoir(),
+            ["dataset.scene=concave",
+             f"dataset.root_dir={os.path.join(root, 'tensoir')}",
+             f"dataset.hdr_filepath={os.path.join(root, 'envs')}",
+             f"dataset.relight_list=[{','.join(SCENE_LIGHTS)}]"]))
+        seed = int(cfg["seed"])
+        t0 = time.perf_counter()
+        system = systems.make(cfg["system"]["name"], cfg,
+                              datasets.make(cfg["dataset"]["name"],
+                                            cfg["dataset"]),
+                              save_dir=os.path.join(out, "split", "save"),
+                              ckpt_dir=os.path.join(out, "split", "ckpt"),
+                              device="cuda")
+        state = system.init_state(seed)
+        state["step"] = measure.SPLIT_STAGE1_STEP
+        log(f"  c. {cfg['name']}: system built in "
+            f"{time.perf_counter() - t0:.1f} s")
+        state, rate, peak, deltas, losses = _train_window(
+            torch, scatter, gather, system, state, SCENE_STEPS, seed)
+        k1, g1 = (sum(d) for d in zip(*deltas))
+        launches["train_tensoir"] = (k1, g1)
+        log(f"    fit {measure.SPLIT_STAGE1_STEP} -> {int(state['step'])}: "
+            f"{rate:.3f} steps/s over the last {SCENE_STEPS - 1} steps; "
+            f"peak {peak:.2f} GiB; K1/G1 launches {k1}/{g1} (per step "
+            f"{min(d[0] for d in deltas)}-{max(d[0] for d in deltas)} / "
+            f"{min(d[1] for d in deltas)}-{max(d[1] for d in deltas)}); "
+            f"skipped updates {system.skipped_updates}; last loss "
+            f"{losses[-1]:.5f}")
+        if len(losses) != SCENE_STEPS or not np.all(np.isfinite(losses)) \
+                or system.skipped_updates:
+            fail(f"flagship on the loaded scene: losses {losses}, skipped "
+                 f"{system.skipped_updates}")
+        if min(min(d) for d in deltas) < 1:
+            fail(f"a flagship step on the loaded scene without a K1 or G1 "
+                 f"launch: {deltas}")
+        torch.cuda.synchronize()
+        scatter.scatter_add.launches = 0
+        gather.gather_rows.launches = 0
+        t0 = time.perf_counter()
+        res = system.test(state, export=False)
+        torch.cuda.synchronize()
+        test_s = time.perf_counter() - t0
+        k1, g1 = scatter.scatter_add.launches, gather.gather_rows.launches
+        launches["test_tensoir"] = (k1, g1)
+        hdrs = ", ".join(f"{light}.hdr" for light in SCENE_LIGHTS)
+        log(f"    test on 1 view relit by {hdrs} in "
+            f"{test_s:.1f} s: {json.dumps(res)}; K1/G1 launches {k1}/{g1}; "
+            f"dropped rays {res['dropped_rays']} (a fresh init at stage 1)")
+        want = {f"relight_{m}_{light}" for m in ("psnr", "ssim")
+                for light in SCENE_LIGHTS}
+        if not want <= set(res) or not all(np.isfinite(v)
+                                           for v in res.values()):
+            fail(f"test on the loaded scene: {res}")
+        if g1 == 0 or k1 != 0:
+            fail(f"test on the loaded scene launched K1 {k1}, G1 {g1} times")
+        del system, state
+        torch.cuda.empty_cache()
+
+        cfg = launch.resolve(launch.apply_overrides(
+            presets.neus_blender(),
+            ["dataset.scene=concave",
+             f"dataset.root_dir={os.path.join(root, 'blender')}"]))
+        t0 = time.perf_counter()
+        system = systems.make(cfg["system"]["name"], cfg,
+                              datasets.make(cfg["dataset"]["name"],
+                                            cfg["dataset"]),
+                              save_dir=os.path.join(out, "neus", "save"),
+                              ckpt_dir=os.path.join(out, "neus", "ckpt"),
+                              device="cuda")
+        state = system.init_state(seed)
+        log(f"  d. {cfg['name']}: system built in "
+            f"{time.perf_counter() - t0:.1f} s")
+        state, rate, peak, deltas, losses = _train_window(
+            torch, scatter, gather, system, state, SCENE_STEPS, seed)
+        k1, g1 = (sum(d) for d in zip(*deltas))
+        launches["train_blender"] = (k1, g1)
+        log(f"    fit 0 -> {int(state['step'])}: {rate:.3f} steps/s over "
+            f"the last {SCENE_STEPS - 1} steps; peak {peak:.2f} GiB; K1/G1 "
+            f"launches {k1}/{g1}; skipped updates {system.skipped_updates}; "
+            f"last loss {losses[-1]:.5f}")
+        if len(losses) != SCENE_STEPS or not np.all(np.isfinite(losses)) \
+                or system.skipped_updates:
+            fail(f"NeuS on the loaded scene: losses {losses}, skipped "
+                 f"{system.skipped_updates}")
+        if min(min(d) for d in deltas) < 1:
+            fail(f"a NeuS step on the loaded scene without a K1 or G1 "
+                 f"launch: {deltas}")
+        del system, state
+    torch.cuda.empty_cache()
+    shutil.rmtree(out, ignore_errors=True)
+    return launches
+
+
 def check_recorded_step(torch, scatter, table, encodes, stream):
     """The step's table gradient (the sum of its encodes' K1 launches)
     against the float64 plain scatter of every encode's rows and
@@ -1319,6 +1739,16 @@ def main():
         rec["ddp"] = {"backend": ddp["backend"], "world": ddp["world"],
                       "steps": ddp["steps"],
                       "launches_per_rank": ddp[f"{key}_per_rank"]}
+    log(f"a scene from disk: the concave scene at {SCENE_SIZE}x{SCENE_SIZE} "
+        f"written and loaded in the TensoIR and Blender layouts; "
+        f"split_mixed_occ_tensoir from step {measure.SPLIT_STAGE1_STEP}, "
+        f"{SCENE_STEPS} steps + test on 1 view; neus_blender, {SCENE_STEPS} "
+        f"steps:")
+    t0 = time.perf_counter()
+    scene = scene_phase(torch, scatter, gather)
+    log(f"  phase {time.perf_counter() - t0:.1f} s")
+    for i, rec in enumerate((k1, g1)):
+        rec["scene"] = {part: n[i] for part, n in scene.items()}
     k1["resume_launches"] = life["k1"]
     g1["resume_launches"] = life["g1"]
     g1["export_launches"] = life["g1_export"]
@@ -1338,7 +1768,7 @@ def main():
     extra = ("train_stream", "render_stream", "per_step", "probe_stream",
              "flagship_per_step", "flagship_launches", "test_launches",
              "test_protocol", "resume_launches", "resume_launches_per_step",
-             "export_launches", "ddp")
+             "export_launches", "ddp", "scene")
     log(json.dumps({"kernels": [
         {"name": "scatter_add (K1)", "route": "cuda", "source": SRC_K1,
          "replaces": REPLACES_K1, **{k: k1[k] for k in keys},

@@ -10,7 +10,13 @@ port reads no YAML), where the JAX launcher takes ``--config``.  Dotlist
 overrides ``a.b.c=value`` replace entries of that config; a value parses
 as an int, a float, a bool, null or a list of those, else it stays a
 string, and a key the config does not have raises (the few optional
-keys in ``OPTIONAL_KEYS`` excepted).  ``--train`` runs ``fit`` (with
+keys in ``OPTIONAL_KEYS`` excepted).  After the overrides, ``resolve``
+raises for a value still ``???`` (``dataset.scene`` of the presets of
+the repo's two configs) and fills ``${a.b}`` references in strings in,
+as the yamls' interpolation does:
+
+    python -m rise_sdf_tpu_torch.launch --preset split_mixed_occ_tensoir
+        --train dataset.scene=lego  ``--train`` runs ``fit`` (with
 validation every ``trainer.val_check_interval`` steps and the saves of
 ``trainer.save_every_n_steps``) and then ``test``, which also exports
 the mesh.  ``--resume`` restores the whole training state,
@@ -36,6 +42,7 @@ import argparse
 import datetime
 import json
 import os
+import re
 import socket
 import sys
 from typing import Any, Dict, List
@@ -87,6 +94,36 @@ def apply_overrides(config: Dict, dotlist: List[str]) -> Dict:
         if leaf not in node and key not in OPTIONAL_KEYS:
             raise KeyError(f"unknown config key '{key}'")
         node[leaf] = parse_value(raw)
+    return config
+
+
+_REFERENCE = re.compile(r"\$\{([\w.]+)\}")
+
+
+def resolve(config: Dict) -> Dict:
+    """Fill every ``${a.b.c}`` in the config's strings with the value at
+    ``a.b.c`` (in place).  Raises ``ValueError`` for a value that is
+    still ``???``, a mandatory one the command line must set."""
+    def lookup(key):
+        node = config
+        for part in key.split("."):
+            if not isinstance(node, dict) or part not in node:
+                raise KeyError(f"unknown config key '{key}' in a reference")
+            node = node[part]
+        return node
+
+    def walk(node, path):
+        for k, v in node.items():
+            key = f"{path}{k}"
+            if isinstance(v, dict):
+                walk(v, f"{key}.")
+            elif v == "???":
+                raise ValueError(f"missing mandatory config value: {key} "
+                                 f"(set it as {key}=...)")
+            elif isinstance(v, str):
+                node[k] = _REFERENCE.sub(lambda m: str(lookup(m[1])), v)
+
+    walk(config, "")
     return config
 
 
@@ -169,7 +206,7 @@ def run(args, extras):
     from . import datasets, systems
     from .parallel import sharding
 
-    config = apply_overrides(_preset(args.preset), extras)
+    config = resolve(apply_overrides(_preset(args.preset), extras))
     sharding.table_shard_count(int(config["system"].get("table_shards", 1)))
     config["cmd_args"] = vars(args)
     device = args.device

@@ -9,9 +9,9 @@ is built on the host when the module is made).  ``eval_mip`` is a
 bilinear lookup in the diffuse map, or a trilinear lookup over the
 specular levels through their flattened atlas.
 
-With ``hdr_filepath`` the base starts from a lat-long ``.exr`` file
-(clamped to [0, 1] when ``clamp``; NMF's mirrored azimuth when
-``nmf_format``); ``relight_params`` loads a relighting environment the
+With ``hdr_filepath`` the base starts from a lat-long ``.exr`` or
+Radiance ``.hdr`` file (clamped to [0, 1] when ``clamp``; NMF's mirrored
+azimuth when ``nmf_format``); ``relight_params`` loads a relighting environment the
 same way, without the clamp, and ``build_mips(base)`` filters it.
 """
 
@@ -29,6 +29,7 @@ from ..ops.cubemap import avg_pool_cubemap, blender_latlong_to_cubemap, \
     cubemap_to_latlong, mips_atlas, nmf_latlong_to_cubemap, sample_cubemap, \
     sample_cubemap_mips_atlas
 from ..utils.exr import read_exr
+from ..utils.hdr import read_hdr
 
 MIN_ROUGHNESS = prefilter.MIN_ROUGHNESS
 MAX_ROUGHNESS = prefilter.MAX_ROUGHNESS
@@ -36,13 +37,14 @@ LIGHT_MIN_RES = prefilter.LIGHT_MIN_RES
 
 
 def load_hdr_image(path: str) -> np.ndarray:
-    """A lat-long ``.exr`` image as float32 RGB [H, W, 3].  Radiance
-    ``.hdr`` (RGBE) files need a reader the port does not have yet."""
+    """A lat-long ``.exr`` or Radiance ``.hdr`` (RGBE) image as float32
+    RGB [H, W, 3]."""
     if path.endswith(".exr"):
         return np.ascontiguousarray(read_exr(path)[..., :3])
-    raise NotImplementedError(
-        f"{path}: only .exr environment maps are read; .hdr (RGBE) files "
-        "wait for an RGBE reader (ROADMAP.md, Queue 1)")
+    if path.endswith(".hdr"):
+        return read_hdr(path)
+    raise ValueError(f"{path}: environment maps are read from .exr or "
+                     ".hdr files")
 
 
 class EnvMips(NamedTuple):

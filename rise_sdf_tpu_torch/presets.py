@@ -1,15 +1,20 @@
 """Config presets as plain dicts (the port reads no YAML).
 
 ``tiny_neus_config`` and ``tiny_split_config`` mirror their namesakes in
-``rise_sdf_tpu/presets.py`` value for value; ``neus_sphere_full`` is the
-model and system of ``configs/neus-blender.yaml`` at full width, trained
-on the procedural ``synthetic-sphere`` scene at the config's own
-800x800; ``split_mixed_occ_full`` is the model section of
-``configs/split-mixed-occ-tensoir.yaml``, the flagship, and
-``split_mixed_occ_train_full`` the whole config, trained on the
-synthetic sphere; ``split_mixed_occ_test_full`` adds the config's test
-protocol on the sphere's test split (relighting under two analytic
-environments) and ``tiny_split_test_config`` is its tiny counterpart.
+``rise_sdf_tpu/presets.py`` value for value.  The repo's two configs are
+here whole: ``split_mixed_occ_tensoir`` is
+``configs/split-mixed-occ-tensoir.yaml`` (the flagship on a TensoIR
+scene) and ``neus_blender`` is ``configs/neus-blender.yaml`` (NeuS on a
+scene in the Blender layout); like the yamls they leave
+``dataset.scene`` to the command line (``dataset.scene=lego``), which
+``launch.resolve`` requires and fills into ``name`` and
+``dataset.root_dir``.  ``split_mixed_occ_full`` is the flagship's model
+section.  The others train on the procedural ``synthetic-sphere`` at
+800x800 in place of a download: ``neus_sphere_full`` (the model and
+system of ``neus_blender``), ``split_mixed_occ_train_full`` (the whole
+flagship config), ``split_mixed_occ_test_full`` (that plus the test
+protocol on the sphere's test split, relighting under two analytic
+environments) and its tiny counterpart ``tiny_split_test_config``.
 """
 
 from __future__ import annotations
@@ -299,21 +304,31 @@ def split_mixed_occ_full():
     }
 
 
-def split_mixed_occ_train_full():
-    """The flagship's training config: ``configs/split-mixed-occ-tensoir.yaml``
-    with its interpolations resolved (the warmup milestone 500 and the
+def split_mixed_occ_tensoir():
+    """``configs/split-mixed-occ-tensoir.yaml`` whole: its dataset section
+    (TensoIR at 800x800), ``split_mixed_occ_full``'s model, and the
+    system, checkpoint, export and trainer sections with the
+    interpolations resolved (the warmup milestone 500 and the
     ExponentialLR gamma of ``calc_exp_lr_decay_rate(0.1, max_steps -
-    warmup)``), ``split_mixed_occ_full``'s model, trained on the
-    procedural ``synthetic-sphere`` at the config's own 800x800 in place
-    of TensoIR (a download)."""
+    warmup)``).  ``dataset.scene`` is ``???`` and ``name`` and
+    ``dataset.root_dir`` hold ``${dataset.scene}``, as in the yaml: the
+    launcher raises until the scene is set and then fills both in
+    (``launch.resolve``)."""
     max_steps, warmup = 80000, 500
-    scene = "synthetic-sphere"
     return {
-        "name": f"split-mixed-occ-tensoir-{scene}",
+        "name": "split-mixed-occ-tensoir-${dataset.scene}",
         "tag": "",
         "seed": 42,
-        "dataset": {"name": scene, "img_wh": [800, 800], "n_images": 16,
-                    "near_plane": 2.0, "far_plane": 6.0, "relight_list": []},
+        "dataset": {
+            "name": "tensoir", "scene": "???",
+            "root_dir": "./load/TensoIR_Synthetic/${dataset.scene}",
+            "img_wh": [800, 800], "near_plane": 2.0, "far_plane": 6.0,
+            "train_split": "train", "val_split": "test",
+            "test_split": "test", "openGL_camera": True,
+            "hdr_input": False, "relight_list": [],
+            "hdr_filepath": "./load/high_res_envmaps_2k/",
+            "has_albedo": True, "albedo_format": "exr",
+            "has_roughness": True, "roughness_format": "exr"},
         "model": split_mixed_occ_full()["model"],
         "system": {
             "name": "split-occ-system",
@@ -349,6 +364,49 @@ def split_mixed_occ_train_full():
         "trainer": {"max_steps": max_steps, "log_every_n_steps": 100,
                     "num_sanity_val_steps": 0, "val_check_interval": 5000,
                     "limit_train_batches": 1.0, "limit_val_batches": 3,
+                    "enable_progress_bar": True, "precision": 32},
+    }
+
+
+def split_mixed_occ_train_full():
+    """``split_mixed_occ_tensoir`` trained on the procedural
+    ``synthetic-sphere`` at the config's own 800x800 in place of a
+    TensoIR scene (a download)."""
+    scene = "synthetic-sphere"
+    cfg = split_mixed_occ_tensoir()
+    cfg["name"] = f"split-mixed-occ-tensoir-{scene}"
+    cfg["dataset"] = {"name": scene, "img_wh": [800, 800], "n_images": 16,
+                      "near_plane": 2.0, "far_plane": 6.0,
+                      "relight_list": []}
+    return cfg
+
+
+def neus_blender():
+    """``configs/neus-blender.yaml`` whole: its dataset section (Blender
+    layout at 800x800), ``neus_sphere_full``'s model, system and export,
+    and the checkpoint and trainer sections.  ``dataset.scene`` is
+    ``???`` and ``name`` and ``dataset.root_dir`` hold
+    ``${dataset.scene}`` (``split_mixed_occ_tensoir``)."""
+    full = neus_sphere_full()
+    max_steps = full["trainer"]["max_steps"]
+    return {
+        "name": "neus-blender-${dataset.scene}",
+        "tag": "",
+        "seed": 42,
+        "dataset": {
+            "name": "blender", "scene": "???",
+            "root_dir": "./load/TensoIR_Synthetic/${dataset.scene}",
+            "img_wh": [800, 800], "near_plane": 2.0, "far_plane": 6.0,
+            "train_split": "train", "val_split": "test",
+            "test_split": "test", "openGL_camera": True,
+            "hdr_input": False},
+        "model": full["model"],
+        "system": full["system"],
+        "checkpoint": {"save_top_k": -1, "every_n_train_steps": max_steps},
+        "export": full["export"],
+        "trainer": {"max_steps": max_steps, "log_every_n_steps": 100,
+                    "num_sanity_val_steps": 2, "val_check_interval": 10000,
+                    "limit_train_batches": 1.0, "limit_val_batches": 5,
                     "enable_progress_bar": True, "precision": 32},
     }
 

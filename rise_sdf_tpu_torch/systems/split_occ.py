@@ -13,7 +13,8 @@ checkpoint's step and the 2x/4x escalation; it reports PSNR, phys PSNR
 ``test`` is the evaluation protocol: with ``derive_compaction`` the eval
 compaction fractions come from ``calibrate_eval``; every test view is
 rendered under the learned light and under each light of the dataset's
-``relight_list`` (the third mirror bounce on), in one geometry pass per
+``relight_list`` (the third mirror bounce on; ``{light}.hdr`` under
+``hdr_filepath`` for TensoIR, else ``{light}.exr``), in one geometry pass per
 chunk (``forward_multi``) unless ``system.multi_emitter_eval`` is false;
 it reports novel-view PSNR, phys PSNR and SSIM, median-aligned albedo
 PSNR and SSIM and roughness PSNR, the normals' mean angular error, and
@@ -376,9 +377,11 @@ class SplitOccSystem(NeuSSystem):
         multi = stage != 0 and bool(lights) and bool(
             self.config["system"].get("multi_emitter_eval", True))
         self._save_envmap(state)
+        ds = self.config["dataset"]
+        # TensoIR ships its relighting environments as Radiance files
+        ext = "hdr" if ds["name"] == "tensoir" else "exr"
         bases = [self.model.emitter.relight_params(os.path.join(
-            self.config["dataset"]["hdr_filepath"], f"{l}.exr"))["base"]
-            for l in lights]
+            ds["hdr_filepath"], f"{l}.{ext}"))["base"] for l in lights]
         metrics, dropped = [], 0
         h, w = split.h, split.w
         t0 = time.time()

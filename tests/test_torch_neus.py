@@ -253,14 +253,16 @@ def test_port_imports_no_jax_yaml_or_reference():
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
-        "             ('jax', 'jaxlib', 'yaml', 'rise_sdf_tpu'))\n"
+        "             ('jax', 'jaxlib', 'yaml', 'rise_sdf_tpu', 'PIL',\n"
+        "              'cv2', 'imageio'))\n"
         "assert not bad, bad\n"
         "need = [p.__name__ + '.' + m for m in ('bench',\n"
         "        'models.split_mixed_occ', 'ops.sdf_bake', 'ops.prefilter',\n"
         "        'ops.gather', 'ops.cubemap', 'models.light',\n"
         "        'systems.split_occ', 'measure', 'export', 'ops.mcubes',\n"
         "        'launch', 'bridge', 'parallel.sharding',\n"
-        "        'parallel.dryrun')]\n"
+        "        'parallel.dryrun', 'utils.png', 'utils.hdr',\n"
+        "        'utils.image', 'datasets.tensoir', 'datasets.blender')]\n"
         "assert all(m in sys.modules for m in need), need\n"
         "from rise_sdf_tpu_torch.bridge import to_jax_state, from_jax_state\n"
         "print(len([m for m in sys.modules if m.startswith(p.__name__)]))\n")

@@ -201,8 +201,15 @@ def test_emitter_hdr_paths_match_jax(tmp_path, clamp, nmf):
 
 
 def test_radiance_hdr_files_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="RGBE"):
-        load_hdr_image(str(tmp_path / "env.hdr"))
+    """A ``.hdr`` file that is not Radiance RGBE raises, as does an
+    environment map of another format (``.hdr`` files are read since the
+    RGBE reader, ``tests/test_torch_readers.py``)."""
+    path = tmp_path / "env.hdr"
+    path.write_bytes(b"P6\n2 2\n255\n" + bytes(12))
+    with pytest.raises(ValueError, match="Radiance"):
+        load_hdr_image(str(path))
+    with pytest.raises(ValueError, match=r"\.exr or \.hdr"):
+        load_hdr_image(str(tmp_path / "env.png"))
 
 
 # --------------------------------------------------------------------- #
