@@ -156,6 +156,37 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    views and 5 relight environments read from files to these 5 views
    and 2 analytic environments, and to 16 steps per window.
 
+13. a real capture: (a) the concave scene (``render_image_concave``
+   under ``env_radiance``) on a checkered floor disk of radius 3x its
+   extent, with the environment seen at infinity around both, from 9
+   cameras on a ring 2.5x its extent away, written at 1600x1064 to a
+   temporary directory in COLMAP's layout (``images/NNN.png``,
+   ``sparse/0/{cameras,images,points3D}.bin``: a PINHOLE camera,
+   world-to-camera poses in COLMAP's convention and in a world frame
+   that is a similarity of the scene's, object and floor hit points)
+   by this script's own writers, and loaded through ``datasets.make
+   ("colmap", ...)`` at ``img_downscale`` 2: every image bit-equal to
+   ``resize_like_pil`` of what was written, the poses normalised with
+   the floor's normal as +z (each camera's up row equal to the scene's,
+   every camera at distance 1 and the scene's height, the floor points
+   at one height with the object's above) and the 120 predict poses;
+   (b) ``neus_colmap`` (``presets.neus_colmap``, the learned background
+   on its own 16 x 2^19 x 2 hash grid) trained from a fresh init for 32
+   steps: steps/s over the last 15, peak memory, no skipped update,
+   and two K1 and two G1 launches on every step (the foreground's and
+   the background's tables); step 1's background encode (``[4096 *
+   255, 16, 8]`` rows, its cotangent and table: the background
+   stream) is recorded and its table gradient held to the float64
+   scatter; (c) K1 and G1 held to their references and timed on the
+   background stream; (d) one step with ``lambda_distortion`` 0.01:
+   the card's distortion term within 1e-4 (relative) of a float64
+   per-ray double sum on the host over the same buffer; (e) the first
+   test view (finite PSNR, dropped rays printed) and the first predict
+   frame, G1 launching and K1 not.  The counts are zeroed just before
+   (b) and (e) and read just after.  Cut from a capture's 100-300 views
+   of ~5000 pixels loaded at ``img_downscale`` 4 to 9 views of 1600
+   loaded at 2, and from 20,000 steps to 33.
+
 ``--save-streams FILE`` saves both recorded streams for the same-call
 A/B against another tree, ``python -m rise_sdf_tpu_torch.kernel_ab``
 (``_ab/streams.pt``, about 1.7 GB, in the gitignored ``_ab/``).
@@ -163,7 +194,9 @@ The last two lines are the kernels' JSON record (K1's and G1's entries
 also carry their times on the recorded streams and per NeuS and flagship
 train step, G1's its launches in the test protocol, both their launches
 in phase 10's resumed run and G1's in its export, both their
-launches per rank in phase 11 and in the three parts of phase 12) and
+launches per rank in phase 11, in the three parts of phase 12 and in
+phase 13's training and renders, with their times on its background
+stream) and
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the package
 beside it, the script exits non-zero and prints no result.
 """
@@ -1619,6 +1652,396 @@ def scene_phase(torch, scatter, gather):
     return launches
 
 
+# phase 13: a real capture.  Written at 1600x1064 and loaded at
+# img_downscale 2 (800x532), where a capture has 100-300 views of ~5000
+# pixels loaded at 4; 9 views on a ring; 32 of 20,000 steps
+CAPTURE_W, CAPTURE_H, CAPTURE_DOWNSCALE = 1600, 1064, 2
+CAPTURE_VIEWS, CAPTURE_STEPS, CAPTURE_FOCAL = 9, 32, 1200.0
+# the cameras' ring (radius, height): 2.5x the object's extent of 0.8
+CAPTURE_RING = (2.0, 1.33)
+# the floor disk under the object (radius 3x its extent)
+FLOOR_Z, FLOOR_R = -0.5, 2.4
+# COLMAP's world frame: scale, rotation (qvec) and offset of the scene's
+COLMAP_SCALE, COLMAP_QVEC, COLMAP_T = 1.7, (0.9, 0.3, -0.2, 0.25), \
+    (0.4, -1.1, 2.0)
+CAPTURE_DISTORTION = 0.01  # lambda_distortion of the one step of 13d
+
+
+def _rotmat2qvec(r):
+    """Unit (w, x, y, z), w >= 0, of a rotation (COLMAP's
+    ``rotmat2qvec``)."""
+    r = np.asarray(r, np.float64).T
+    k = np.array([
+        [r[0, 0] - r[1, 1] - r[2, 2], 0, 0, 0],
+        [r[1, 0] + r[0, 1], r[1, 1] - r[0, 0] - r[2, 2], 0, 0],
+        [r[2, 0] + r[0, 2], r[2, 1] + r[1, 2], r[2, 2] - r[0, 0] - r[1, 1],
+         0],
+        [r[1, 2] - r[2, 1], r[2, 0] - r[0, 2], r[0, 1] - r[1, 0],
+         r[0, 0] + r[1, 1] + r[2, 2]]]) / 3.0
+    vals, vecs = np.linalg.eigh(k)
+    q = vecs[[3, 0, 1, 2], np.argmax(vals)]
+    return q if q[0] >= 0 else -q
+
+
+def write_colmap_sparse(sparse, w, h, focal, w2c, names, points):
+    """COLMAP's binary model: one PINHOLE camera, an image per
+    world-to-camera (qvec, tvec) of ``w2c`` with no 2-D points, and the
+    [P, 3] ``points`` with empty tracks."""
+    import struct
+
+    os.makedirs(sparse)
+    with open(os.path.join(sparse, "cameras.bin"), "wb") as f:
+        f.write(struct.pack("<QiiQQ", 1, 1, 1, w, h))
+        f.write(struct.pack("<4d", focal, focal, w / 2, h / 2))
+    with open(os.path.join(sparse, "images.bin"), "wb") as f:
+        f.write(struct.pack("<Q", len(names)))
+        for i, ((q, t), name) in enumerate(zip(w2c, names)):
+            f.write(struct.pack("<idddddddi", i + 1, *q, *t, 1))
+            f.write(name.encode() + b"\x00" + struct.pack("<Q", 0))
+    with open(os.path.join(sparse, "points3D.bin"), "wb") as f:
+        f.write(struct.pack("<Q", len(points)))
+        for i, p in enumerate(points):
+            f.write(struct.pack("<QdddBBBdQ", i + 1, *p, 128, 128, 128, 0.5,
+                                0))
+
+
+def write_capture(root, w, h, n_views):
+    """The concave scene (``render_image_concave`` under ``env_radiance``)
+    on a checkered floor disk at ``FLOOR_Z``, with the environment seen at
+    infinity around both, photographed by ``n_views`` cameras on a ring
+    and written in COLMAP's layout: ``images/NNN.png`` (RGB) and
+    ``sparse/0`` with a PINHOLE camera, each view's world-to-camera pose
+    in COLMAP's convention and world frame (a similarity of the scene's),
+    and points3D: object and floor hit points of every 16th pixel row and
+    column.  Returns the views' scene-frame OpenGL poses and uint8
+    images, the points (scene frame) and which of them lie on the floor."""
+    from rise_sdf_tpu_torch.datasets import synthetic as syn
+    from rise_sdf_tpu_torch.datasets.colmap_utils import qvec2rotmat
+    from rise_sdf_tpu_torch.utils.rays import get_ray_directions
+
+    dirs = get_ray_directions(w, h, CAPTURE_FOCAL, CAPTURE_FOCAL, w / 2,
+                              h / 2)
+    rot = qvec2rotmat(np.asarray(COLMAP_QVEC) / np.linalg.norm(COLMAP_QVEC))
+    flip = np.diag([1.0, -1.0, -1.0])  # OpenGL camera axes <-> COLMAP's
+    os.makedirs(os.path.join(root, "images"))
+    views, w2c, names, pts, floor = [], [], [], [], []
+    extent = syn.CONCAVE_TORUS_R + syn.CONCAVE_TORUS_r
+    for i in range(n_views):
+        a = 2 * np.pi * (i + 0.25) / n_views
+        eye = np.array([CAPTURE_RING[0] * np.cos(a),
+                        CAPTURE_RING[0] * np.sin(a), CAPTURE_RING[1]])
+        c2w = syn.look_at(eye).astype(np.float64)
+        rgb, mask = syn.render_image_concave(c2w, dirs,
+                                             env_fn=syn.env_radiance)[:2]
+        d = dirs.astype(np.float64) @ c2w[:3, :3].T
+        d /= np.linalg.norm(d, axis=-1, keepdims=True)
+        t = (FLOOR_Z - eye[2]) / np.minimum(d[..., 2], -1e-9)
+        p = eye + t[..., None] * d
+        on_floor = (d[..., 2] < 0) & (np.hypot(p[..., 0], p[..., 1])
+                                      < FLOOR_R) & (mask == 0)
+        check = (np.floor(2 * p[..., 0]) + np.floor(2 * p[..., 1])) % 2
+        floor_rgb = np.where(check[..., None] > 0, [0.62, 0.52, 0.38],
+                             [0.30, 0.26, 0.22])
+        env = np.clip(syn.env_radiance(d.astype(np.float32)), 0, None)
+        env_srgb = np.where(env <= 0.0031308, env * 12.92,
+                            1.055 * np.maximum(env, 0.0031308) ** (1 / 2.4)
+                            - 0.055)
+        img = np.where(mask[..., None] > 0, rgb,
+                       np.where(on_floor[..., None], floor_rgb, env_srgb))
+        png = np.round(np.clip(img, 0, 1) * 255).astype(np.uint8)
+        name = f"{i:03d}.png"
+        write_png_filters(os.path.join(root, "images", name), png)
+        views.append({"c2w": c2w.astype(np.float32), "png": png})
+        # points3D from every 16th pixel
+        sub = (slice(None, None, 16), slice(None, None, 16))
+        obj = mask[sub] > 0
+        ds = d[sub][obj]
+        hit, th = syn.sphere_trace_np(np.broadcast_to(eye, ds.shape).copy(),
+                                      ds, np.linalg.norm(eye) - extent - 0.2,
+                                      np.linalg.norm(eye) + extent + 0.2)
+        pts += [eye + th[hit, None] * ds[hit], p[sub][on_floor[sub]]]
+        floor += [np.zeros(int(hit.sum()), bool),
+                  np.ones(int(on_floor[sub].sum()), bool)]
+        # COLMAP: camera-to-world in its world frame and camera axes
+        r_c2w = rot @ c2w[:3, :3] @ flip
+        center = COLMAP_SCALE * rot @ eye + np.asarray(COLMAP_T)
+        w2c.append((_rotmat2qvec(r_c2w.T), -r_c2w.T @ center))
+        names.append(name)
+    pts, floor = np.concatenate(pts), np.concatenate(floor)
+    colmap_pts = COLMAP_SCALE * pts @ rot.T + np.asarray(COLMAP_T)
+    write_colmap_sparse(os.path.join(root, "sparse", "0"), w, h,
+                        CAPTURE_FOCAL, w2c, names, colmap_pts)
+    return {"views": views, "points": pts, "floor": floor}
+
+
+def check_capture(dm, written):
+    """Hold the loaded splits to what was written (module docstring,
+    phase 13a).  Returns the splits."""
+    from rise_sdf_tpu_torch.utils.image import resize_like_pil
+
+    splits = {name: getattr(dm, name)() for name in ("train", "test",
+                                                     "predict")}
+    hold = int(dm.config.get("hold_every", 8))
+    ids = {"train": [i for i in range(CAPTURE_VIEWS) if i % hold],
+           "test": [i for i in range(CAPTURE_VIEWS) if i % hold == 0]}
+    wh = (CAPTURE_W // CAPTURE_DOWNSCALE, CAPTURE_H // CAPTURE_DOWNSCALE)
+    worst = {"up": 0.0, "dist": 0.0, "height": 0.0}
+    ratio = CAPTURE_RING[1] / float(np.hypot(*CAPTURE_RING))
+    for name, idx in ids.items():
+        split = splits[name]
+        if (split.w, split.h) != wh or len(split) != len(idx):
+            fail(f"capture {name}: {len(split)} views of {split.w}x"
+                 f"{split.h}, expected {len(idx)} of {wh}")
+        for k, i in enumerate(idx):
+            want = resize_like_pil(written["views"][i]["png"], wh).astype(
+                np.float32) / 255.0
+            if not (np.array_equal(split.all_images[k], want)
+                    and np.all(split.all_fg_masks[k] == 1.0)):
+                fail(f"capture {name} view {i} is not resize_like_pil of "
+                     "what was written")
+            c2w, ref = split.all_c2w[k], written["views"][i]["c2w"]
+            # the floor's normal is +z: a rotation about z and a scale
+            # away from the scene's frame, which has z up
+            worst["up"] = max(worst["up"], float(np.abs(
+                c2w[2, :3] - ref[2, :3]).max()))
+            worst["dist"] = max(worst["dist"], abs(float(
+                np.linalg.norm(c2w[:, 3])) - 1.0))
+            worst["height"] = max(worst["height"],
+                                  abs(float(c2w[2, 3]) - ratio))
+    pts = splits["train"].pts3d
+    floor_z = pts[written["floor"], 2]
+    want_z = FLOOR_Z / float(np.hypot(*CAPTURE_RING))
+    spread = float(np.abs(floor_z - want_z).max())
+    above = bool((pts[~written["floor"], 2] > floor_z.max()).all())
+    pred = splits["predict"].all_c2w
+    log(f"  a. loaded {len(splits['train'])} train, {len(splits['test'])} "
+        f"test views ({wh[0]}x{wh[1]}, bit-equal to resize_like_pil of what "
+        f"was written) and {len(pred)} predict poses; max |up row - the "
+        f"scene's| {worst['up']:.2e}, |camera distance - 1| "
+        f"{worst['dist']:.2e}, |height - {ratio:.4f}| "
+        f"{worst['height']:.2e}; {int(written['floor'].sum())} floor points "
+        f"at z {want_z:.4f} within {spread:.2e}, the "
+        f"{int((~written['floor']).sum())} object points above: {above}")
+    if max(worst.values()) > 1e-4 or spread > 1e-4 or not above:
+        fail("the capture's poses are not normalised with the floor's "
+             "normal as +z")
+    if pred.shape != (120, 3, 4) or not np.isfinite(pred).all() or \
+            np.abs(pred[:, 2, 3] - pred[0, 2, 3]).max() > 1e-5:
+        fail(f"the predict trajectory: {pred.shape}")
+    return splits
+
+
+def _distortion_f64(out, n_rays):
+    """The distortion term as a float64 per-ray double sum over the
+    buffer's valid samples, divided by the included rays (the system's
+    normalisation)."""
+    valid = out["samples_valid"].cpu().numpy()
+    w, m, d = (out[k].double().cpu().numpy()[valid]
+               for k in ("weights", "points", "intervals"))
+    ray = out["ray_indices"].cpu().numpy()[valid]
+    bounds = np.searchsorted(ray, np.arange(n_rays + 1))
+    total = 0.0
+    for a, b in zip(bounds[:-1], bounds[1:]):
+        if b > a:
+            ww, mm = w[a:b], m[a:b]
+            total += ww @ np.abs(mm[:, None] - mm[None, :]) @ ww \
+                + (ww * ww * d[a:b]).sum() / 3.0
+    return total / max(int(out["ray_included"].sum()), 1)
+
+
+def capture_phase(torch, scatter, gather):
+    """A real capture (module docstring, phase 13).  Returns K1's and
+    G1's records: launches per part and the background stream's checks
+    and times."""
+    import tempfile
+
+    from rise_sdf_tpu_torch import datasets, launch, measure, presets, \
+        systems
+    from rise_sdf_tpu_torch.ops import hashgrid
+
+    out_dir = os.path.join("exp", "chip_smoke_capture")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    k1, g1 = {}, {}
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        written = write_capture(root, CAPTURE_W, CAPTURE_H, CAPTURE_VIEWS)
+        log(f"  a. wrote the concave scene on its floor at {CAPTURE_W}x"
+            f"{CAPTURE_H}, {CAPTURE_VIEWS} views on a ring, "
+            f"{len(written['points'])} points, in COLMAP's layout in "
+            f"{time.perf_counter() - t0:.1f} s")
+        cfg = launch.resolve(launch.apply_overrides(
+            presets.neus_colmap(),
+            [f"dataset.root_dir={root}",
+             f"dataset.img_downscale={CAPTURE_DOWNSCALE}"]))
+        t0 = time.perf_counter()
+        dm = datasets.make(cfg["dataset"]["name"], cfg["dataset"])
+        splits = check_capture(dm, written)
+        log(f"     loading and checking took {time.perf_counter() - t0:.1f}"
+            f" s")
+
+        seed = int(cfg["seed"])
+        t0 = time.perf_counter()
+        system = systems.make(cfg["system"]["name"], cfg, dm,
+                              save_dir=os.path.join(out_dir, "save"),
+                              ckpt_dir=os.path.join(out_dir, "ckpt"),
+                              device="cuda")
+        state = system.init_state(seed)
+        log(f"  b. {cfg['name']}: system built in "
+            f"{time.perf_counter() - t0:.1f} s")
+        bg_table = system.model.geometry_bg.encoding.encoding.table
+        lookup = hashgrid.table_grad_lookup
+        seen, stream = {}, {}
+
+        def recording_lookup(table, rows):
+            vals = lookup(table, rows)
+            if vals.requires_grad and table.data_ptr() == \
+                    bg_table.data_ptr():
+                vals.retain_grad()
+                seen.update(rows=rows, vals=vals)
+            return vals
+
+        per_step, losses = [], []
+
+        def on_log(step, m):
+            per_step.append((scatter.scatter_add.launches,
+                             gather.gather_rows.launches))
+            losses.append(m["loss"])
+            if step == 1:  # the background stream (step 0's is the same)
+                hashgrid.table_grad_lookup = lookup
+                rows, cot = seen.pop("rows"), seen.pop("vals").grad
+                idx = rows.reshape(-1)
+                vals = cot.reshape(-1, F).contiguous()
+                grad = bg_table.grad.reshape(-1, F)
+                stream["step_err"] = check_scatter(
+                    torch, grad, idx, vals, grad.shape[0],
+                    "step 1: the background table's gradient (K1) vs "
+                    "float64")
+                stream.update(rows=rows.cpu(), vals=vals.cpu(),
+                              table=bg_table.detach().reshape(-1, F).cpu())
+
+        hashgrid.table_grad_lookup = recording_lookup
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            scatter.scatter_add.launches = 0
+            gather.gather_rows.launches = 0
+            state, _, rate, _ = measure.train(
+                system, CAPTURE_STEPS, seed, state, on_log,
+                profile_from=CAPTURE_STEPS, window=15)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        finally:
+            hashgrid.table_grad_lookup = lookup
+        deltas = [(a - a0, b - b0) for (a, b), (a0, b0)
+                  in zip(per_step, [(0, 0)] + per_step[:-1])]
+        k1["train_launches"], g1["train_launches"] = (
+            sum(d) for d in zip(*deltas))
+        k1["train_launches_per_step"] = sorted({d[0] for d in deltas})
+        g1["train_launches_per_step"] = sorted({d[1] for d in deltas})
+        log(f"    fit 0 -> {int(state['step'])}: {rate:.3f} steps/s over "
+            f"the last 15 steps; peak {peak:.2f} GiB; K1/G1 launches "
+            f"{k1['train_launches']}/{g1['train_launches']} (per step "
+            f"{k1['train_launches_per_step']} / "
+            f"{g1['train_launches_per_step']}); skipped updates "
+            f"{system.skipped_updates}; losses {losses[0]:.5f} -> "
+            f"{losses[-1]:.5f}")
+        if len(losses) != CAPTURE_STEPS or not np.all(np.isfinite(losses)) \
+                or system.skipped_updates:
+            fail(f"neus_colmap on the capture: losses {losses}, skipped "
+                 f"{system.skipped_updates}")
+        if min(d[0] for d in deltas) < 2 or min(d[1] for d in deltas) < 2:
+            fail(f"a neus_colmap step without two K1 and two G1 launches "
+                 f"(the foreground's and the background's tables): "
+                 f"{deltas}")
+        if "rows" not in stream:
+            fail("no background encode was recorded")
+
+        # c. K1 and G1 on the background's encode stream
+        rows, vals, table = (stream.pop(k).cuda()
+                             for k in ("rows", "vals", "table"))
+        what = f"background stream (step 1, rows {list(rows.shape)})"
+        log_runs(torch, rows, what)
+        k1["bg_stream"] = check_time_scatter(
+            torch, scatter, rows.reshape(-1), vals, table.shape[0], what,
+            rows.shape[-2] * rows.shape[-1])
+        k1["bg_stream"]["step_max_abs_err"] = stream.pop("step_err")
+        g1["bg_stream"] = check_gather(torch, gather, table,
+                                       rows.reshape(-1), what)
+        del rows, vals, table
+        torch.cuda.empty_cache()
+
+        # d. one step with the distortion loss
+        system.config["system"]["loss"]["lambda_distortion"] = \
+            CAPTURE_DISTORTION
+        compute_losses, kept = system.compute_losses, {}
+
+        def spy(out, batch, step):
+            loss, terms = compute_losses(out, batch, step)
+            kept.update(out={k: out[k].detach() for k in (
+                "weights", "points", "intervals", "ray_indices",
+                "samples_valid", "ray_included")},
+                distortion=float(terms["distortion"].detach()),
+                n_rays=batch["rgb"].shape[0])
+            return loss, terms
+
+        system.compute_losses = spy
+        metrics = []
+        try:
+            state = system.fit(max_steps=CAPTURE_STEPS + 1, seed=seed,
+                               state=state, log_every=1,
+                               on_log=lambda step, m: metrics.append(m))
+        finally:
+            del system.compute_losses
+        ref = _distortion_f64(kept["out"], kept["n_rays"])
+        rel = abs(kept["distortion"] - ref) / max(abs(ref), 1e-30)
+        k1["distortion_rel_err"] = rel
+        log(f"  d. step {CAPTURE_STEPS} with lambda_distortion "
+            f"{CAPTURE_DISTORTION}: distortion {kept['distortion']:.6e}, "
+            f"float64 per-ray double sum {ref:.6e}, relative difference "
+            f"{rel:.2e}; loss {metrics[-1]['loss']:.5f}")
+        if rel > 1e-4 or not np.isfinite(metrics[-1]["loss"]) \
+                or system.skipped_updates:
+            fail("the distortion term on the card disagrees with the "
+                 "float64 brute force")
+        del kept
+
+        # e. the test view and one predict frame
+        torch.cuda.synchronize()
+        scatter.scatter_add.launches = 0
+        gather.gather_rows.launches = 0
+        t0 = time.perf_counter()
+        test = system.render_image(state, splits["test"], 0)
+        test_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        frame = system.render_image(state, splits["predict"], 0)
+        torch.cuda.synchronize()
+        pred_s = time.perf_counter() - t0
+        k1["render_launches"] = scatter.scatter_add.launches
+        g1["render_launches"] = gather.gather_rows.launches
+        gt = splits["test"].all_images[0].reshape(-1, 3)
+        mse = float(np.mean((test["comp_rgb_full"] - gt) ** 2))
+        psnr = -10.0 * np.log10(max(mse, 1e-30))
+        dropped = int((~test["ray_included"]).sum())
+        h, w = splits["test"].h, splits["test"].w
+        log(f"  e. test view 0 ({w}x{h}) in {test_s:.1f} s: PSNR "
+            f"{psnr:.3f} dB, dropped rays {dropped}; predict frame 0 in "
+            f"{pred_s:.1f} s, dropped rays "
+            f"{int((~frame['ray_included']).sum())}; K1/G1 launches "
+            f"{k1['render_launches']}/{g1['render_launches']}")
+        k1["test_psnr"] = psnr
+        if not np.isfinite(psnr) or \
+                frame["comp_rgb_full"].shape != (h * w, 3) or \
+                not np.isfinite(frame["comp_rgb_full"]).all():
+            fail(f"capture renders: PSNR {psnr}, predict frame "
+                 f"{frame['comp_rgb_full'].shape}")
+        if g1["render_launches"] == 0 or k1["render_launches"] != 0:
+            fail(f"the capture's renders launched K1 "
+                 f"{k1['render_launches']}, G1 {g1['render_launches']} times")
+        del system, state
+    torch.cuda.empty_cache()
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return k1, g1
+
+
 def check_recorded_step(torch, scatter, table, encodes, stream):
     """The step's table gradient (the sum of its encodes' K1 launches)
     against the float64 plain scatter of every encode's rows and
@@ -1749,6 +2172,14 @@ def main():
     log(f"  phase {time.perf_counter() - t0:.1f} s")
     for i, rec in enumerate((k1, g1)):
         rec["scene"] = {part: n[i] for part, n in scene.items()}
+    log(f"a real capture: the concave scene on a floor at {CAPTURE_W}x"
+        f"{CAPTURE_H}, {CAPTURE_VIEWS} views in COLMAP's layout; neus_colmap "
+        f"at img_downscale {CAPTURE_DOWNSCALE}, {CAPTURE_STEPS} steps, one "
+        f"step with the distortion loss, the test view and one predict "
+        f"frame:")
+    t0 = time.perf_counter()
+    k1["capture"], g1["capture"] = capture_phase(torch, scatter, gather)
+    log(f"  phase {time.perf_counter() - t0:.1f} s")
     k1["resume_launches"] = life["k1"]
     g1["resume_launches"] = life["g1"]
     g1["export_launches"] = life["g1_export"]
@@ -1768,7 +2199,7 @@ def main():
     extra = ("train_stream", "render_stream", "per_step", "probe_stream",
              "flagship_per_step", "flagship_launches", "test_launches",
              "test_protocol", "resume_launches", "resume_launches_per_step",
-             "export_launches", "ddp", "scene")
+             "export_launches", "ddp", "scene", "capture")
     log(json.dumps({"kernels": [
         {"name": "scatter_add (K1)", "route": "cuda", "source": SRC_K1,
          "replaces": REPLACES_K1, **{k: k1[k] for k in keys},

@@ -3,4 +3,4 @@ from ..registry import datasets as _registry
 make = _registry.make
 register = _registry.register
 
-from . import blender, synthetic, tensoir  # noqa: E402,F401
+from . import blender, colmap, synthetic, tensoir  # noqa: E402,F401

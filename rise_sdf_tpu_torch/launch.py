@@ -12,8 +12,9 @@ as an int, a float, a bool, null or a list of those, else it stays a
 string, and a key the config does not have raises (the few optional
 keys in ``OPTIONAL_KEYS`` excepted).  After the overrides, ``resolve``
 raises for a value still ``???`` (``dataset.scene`` of the presets of
-the repo's two configs) and fills ``${a.b}`` references in strings in,
-as the yamls' interpolation does:
+the repo's two configs, ``dataset.root_dir`` of ``neus_colmap``) and
+fills ``${a.b}`` references in strings in, as the yamls' interpolation
+does (``${basename:a.b}`` with the base name of the path at ``a.b``):
 
     python -m rise_sdf_tpu_torch.launch --preset split_mixed_occ_tensoir
         --train dataset.scene=lego  ``--train`` runs ``fit`` (with
@@ -97,13 +98,14 @@ def apply_overrides(config: Dict, dotlist: List[str]) -> Dict:
     return config
 
 
-_REFERENCE = re.compile(r"\$\{([\w.]+)\}")
+_REFERENCE = re.compile(r"\$\{(basename:)?([\w.]+)\}")
 
 
 def resolve(config: Dict) -> Dict:
     """Fill every ``${a.b.c}`` in the config's strings with the value at
-    ``a.b.c`` (in place).  Raises ``ValueError`` for a value that is
-    still ``???``, a mandatory one the command line must set."""
+    ``a.b.c``, and every ``${basename:a.b.c}`` with the base name of that
+    path (in place).  Raises ``ValueError`` for a value that is still
+    ``???``, a mandatory one the command line must set."""
     def lookup(key):
         node = config
         for part in key.split("."):
@@ -111,6 +113,10 @@ def resolve(config: Dict) -> Dict:
                 raise KeyError(f"unknown config key '{key}' in a reference")
             node = node[part]
         return node
+
+    def fill(m):
+        value = str(lookup(m[2]))
+        return os.path.basename(os.path.normpath(value)) if m[1] else value
 
     def walk(node, path):
         for k, v in node.items():
@@ -121,7 +127,7 @@ def resolve(config: Dict) -> Dict:
                 raise ValueError(f"missing mandatory config value: {key} "
                                  f"(set it as {key}=...)")
             elif isinstance(v, str):
-                node[k] = _REFERENCE.sub(lambda m: str(lookup(m[1])), v)
+                node[k] = _REFERENCE.sub(fill, v)
 
     walk(config, "")
     return config

@@ -13,7 +13,13 @@ The analytic gradient is ``torch.autograd.grad(raw[:, 0].sum(), x)``;
 with ``create_graph=True`` (training) the eikonal and RGB losses
 differentiate through it, as they do through the curvature probe's
 gradient.  The table side of every encode is still differentiated once
-(``ops/scatter.py``)."""
+(``ops/scatter.py``).
+
+``VolumeDensity`` (``volume-density``) is the learned background's
+field: a hash-grid encode of points already contracted to the unit
+cube (``contract_to_unisphere``), an MLP, and the density activation on
+its first channel.  Its encode gathers through G1 and takes its table
+gradient from K1, as the SDF's does."""
 
 from __future__ import annotations
 
@@ -24,7 +30,7 @@ from torch import nn
 
 from . import register
 from .neus import _normalize
-from ..nn import get_encoding, get_mlp
+from ..nn import get_activation, get_encoding, get_mlp
 
 # regular tetrahedron vertices (unit after / sqrt(3))
 _TETRA = ((1.0, 1.0, 1.0), (1.0, -1.0, -1.0),
@@ -33,6 +39,17 @@ _CENTRAL6 = ((1.0, 0.0, 0.0), (-1.0, 0.0, 0.0), (0.0, 1.0, 0.0),
              (0.0, -1.0, 0.0), (0.0, 0.0, 1.0), (0.0, 0.0, -1.0))
 _PROBE_AXES = (0, 0, 1, 1, 2, 2)  # the axis each central-6 probe moves
 _LAPLACE_EPS = 1e-4  # tangent offset of the curvature probe
+
+
+def contract_to_unisphere(x, radius):
+    """Mip-NeRF 360's contraction of unbounded space to [0, 1]^3: ``x /
+    radius`` inside the unit ball, ``(2 - 1 / |y|) y / |y|`` of ``y = x /
+    radius`` outside, then ``/ 4 + 1 / 2``."""
+    x = x / radius
+    mag = torch.linalg.vector_norm(x, dim=-1, keepdim=True)
+    safe = torch.clamp(mag, min=1e-9)
+    x = torch.where(mag > 1.0, (2.0 - 1.0 / safe) * (x / safe), x)
+    return x / 4.0 + 0.5
 
 
 @register("volume-sdf")
@@ -45,8 +62,8 @@ class VolumeSDF(nn.Module):
         self.grad_type = config.get("grad_type", "analytic")
         if self.grad_type not in ("analytic", "finite_difference"):
             raise ValueError(f"unknown grad_type '{self.grad_type}'")
-        if config.get("sdf_activation") is not None:
-            raise NotImplementedError("sdf_activation is not ported yet")
+        self.sdf_activation = config.get("sdf_activation", None)
+        self.sdf_bias = float(config.get("sdf_bias", 0.0))
         self.encoding = get_encoding(3, config["xyz_encoding_config"])
         self.mlp = get_mlp(self.encoding.n_output_dims, self.feature_dim,
                            config["mlp_network_config"])
@@ -70,7 +87,17 @@ class VolumeSDF(nn.Module):
         # clamp into the unit cube: dead sample slots may lie outside the
         # AABB, where trilinear extrapolation weights blow up
         u = torch.clamp(self.contract(x_world), 0.0, 1.0)
-        return self.mlp(self.encoding(u, step, levels=levels))
+        return self._head(self.encoding(u, step, levels=levels))
+
+    def _head(self, enc):
+        """The MLP, with ``sdf_activation(sdf + sdf_bias)`` on channel 0
+        when an activation is configured."""
+        out = self.mlp(enc)
+        if self.sdf_activation is None:
+            return out
+        sdf = get_activation(self.sdf_activation)(out[..., :1]
+                                                  + self.sdf_bias)
+        return torch.cat([sdf, out[..., 1:]], -1)
 
     def sdf(self, x_world, step=None, levels=None):
         return self.raw(x_world, step, levels)[..., 0]
@@ -208,9 +235,9 @@ class VolumeSDF(nn.Module):
             fine_d = enc_fine(ud.reshape(-1, 3)).reshape(p, n, -1)
 
         base = (c0, jx, jy, jz)
-        raw0 = self.mlp(full_enc(u, torch.zeros_like(u), fine_u, base))
+        raw0 = self._head(full_enc(u, torch.zeros_like(u), fine_u, base))
         enc_d = full_enc(ud, ud - u[None], fine_d, base)
-        sdf_d = self.mlp(enc_d.reshape(p * n, -1))[..., 0].reshape(p, n)
+        sdf_d = self._head(enc_d.reshape(p * n, -1))[..., 0].reshape(p, n)
         grad = self._fd_combine(sdf_d, eps)
 
         laplace = None
@@ -226,8 +253,8 @@ class VolumeSDF(nn.Module):
             with torch.enable_grad():
                 if not ut.requires_grad:
                     ut = ut.detach().requires_grad_(True)
-                s_sum = self.mlp(full_enc(ut, ut - us, enc_fine(ut),
-                                          base_s))[..., 0].sum()
+                s_sum = self._head(full_enc(ut, ut - us, enc_fine(ut),
+                                            base_s))[..., 0].sum()
                 grad_d, = torch.autograd.grad(s_sum, ut,
                                               create_graph=create_graph)
             laplace = self._angle(grad_s, grad_d / (2.0 * self.radius))
@@ -291,3 +318,32 @@ class VolumeSDF(nn.Module):
         if with_feature:
             out["feature"] = raw
         return out
+
+
+@register("volume-density")
+class VolumeDensity(nn.Module):
+    """Density field of the learned background (counterpart of
+    ``rise_sdf_tpu/models/geometry.py:VolumeDensity``)."""
+
+    def __init__(self, config):
+        super().__init__()
+        self.config = config
+        self.radius = float(config["radius"])
+        self.feature_dim = int(config["feature_dim"])
+        self.encoding = get_encoding(3, config["xyz_encoding_config"])
+        self.mlp = get_mlp(self.encoding.n_output_dims, self.feature_dim,
+                           config["mlp_network_config"])
+        self.density_activation = config.get("density_activation", None)
+        self.density_bias = float(config.get("density_bias", 0.0))
+
+    def forward(self, x_unit, step=None):
+        """``x_unit`` [N, 3], already contracted to [0, 1]^3 -> (density
+        [N], feature [N, feature_dim]); the feature is the MLP's whole
+        output, channel 0 before the activation.  ``density_bias`` is
+        added only under a ``density_activation``, as in JAX."""
+        out = self.mlp(self.encoding(x_unit, step))
+        density = out[..., 0]
+        if self.density_activation is not None:
+            density = get_activation(self.density_activation)(
+                density + self.density_bias)
+        return density, out

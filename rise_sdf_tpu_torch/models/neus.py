@@ -1,6 +1,15 @@
 """NeuS renderer: geometry + radiance, no PBR (counterpart of
-``rise_sdf_tpu/models/neus.py:NeuSModel``, without the learned
-background, the visibility prefilter and the eval bake)."""
+``rise_sdf_tpu/models/neus.py:NeuSModel``, without the visibility
+prefilter and the eval bake).
+
+With ``learned_background`` the rays' light from beyond the foreground
+sphere comes from a second field (``geometry_bg``, a ``volume-density``
+with its own hash grid, and ``texture_bg``, a ``volume-radiance``
+without the normal): ``forward_bg`` samples each ray at
+``num_samples_per_ray_bg`` log-spaced distances from where it leaves
+the foreground's box to 1e3, contracts the points into the unit cube
+(``contract_to_unisphere``) and composites the field's samples densely
+per ray; the foreground is composited over it."""
 
 from __future__ import annotations
 
@@ -47,8 +56,6 @@ class NeuSModel(nn.Module):
     def __init__(self, config):
         super().__init__()
         self.config = config
-        if bool(config.get("learned_background", False)):
-            raise NotImplementedError("learned background is not ported yet")
         self.radius = float(config["radius"])
         self.num_samples_per_ray = int(config["num_samples_per_ray"])
         self.render_step_size = 1.732 * 2 * self.radius \
@@ -56,6 +63,7 @@ class NeuSModel(nn.Module):
         self.grid_resolution = int(config.get("grid_resolution", 128))
         self.cos_anneal_end = int(config.get("cos_anneal_end", 0))
         self.randomized = bool(config.get("randomized", True))
+        self.cone_angle = float(config.get("cone_angle", 0.0))
         self.register_buffer("aabb_min", torch.full((3,), -self.radius),
                              persistent=False)
         self.register_buffer("aabb_max", torch.full((3,), self.radius),
@@ -63,6 +71,16 @@ class NeuSModel(nn.Module):
         self.geometry = make(config["geometry"]["name"], config["geometry"])
         self.texture = make(config["texture"]["name"], config["texture"])
         self.variance = Variance(config["variance"])
+        self.learned_background = bool(config.get("learned_background",
+                                                  False))
+        if self.learned_background:
+            self.geometry_bg = make(config["geometry_bg"]["name"],
+                                    config["geometry_bg"])
+            self.texture_bg = make(config["texture_bg"]["name"],
+                                   config["texture_bg"])
+            self.num_samples_per_ray_bg = int(
+                config.get("num_samples_per_ray_bg", 64))
+            self.near_plane_bg, self.far_plane_bg = 0.1, 1e3
 
     @torch.no_grad()
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
@@ -95,6 +113,41 @@ class NeuSModel(nn.Module):
         return occ_eval_alpha(sdf, self.variance.inv_s(),
                               self.render_step_size)
 
+    def forward_bg(self, rays_o, rays_d, step):
+        """The learned background of rays [R, 3] + [R, 3]: ``S - 1``
+        intervals between ``S`` log-spaced distances from the box exit
+        (at least 0.1) to 1e3, each sampled at its middle; density and
+        radiance from the background field; dense weights per ray.
+        Returns ``comp_rgb`` [R, 3], ``opacity``, ``depth`` [R, 1] and
+        ``rays_valid``."""
+        from .geometry import contract_to_unisphere  # geometry imports us
+
+        n_rays, s = rays_o.shape[0], self.num_samples_per_ray_bg
+        near, far = self.near_plane_bg, self.far_plane_bg
+        _, t_exit = march.ray_aabb_intersect(rays_o, rays_d, self.aabb_min,
+                                             self.aabb_max)
+        t0 = torch.clamp(torch.where(t_exit > 0, t_exit, near), min=near)
+        frac = torch.arange(s, dtype=torch.float32,
+                            device=rays_o.device)[None, :] / (s - 1)
+        t = t0[:, None] * (far / t0[:, None]) ** frac
+        t_mid = 0.5 * (t[:, 1:] + t[:, :-1])
+        dists = t[:, 1:] - t[:, :-1]
+        pos = rays_o[:, None, :] + rays_d[:, None, :] * t_mid[..., None]
+        u = contract_to_unisphere(pos.reshape(-1, 3), self.radius)
+        density, feature = self.geometry_bg(u, step)
+        dirs = rays_d[:, None, :].expand(pos.shape).reshape(-1, 3)
+        rgb = self.texture_bg(feature, dirs, step=step)
+        alpha = 1.0 - torch.exp(-F.relu(density).reshape(n_rays, s - 1)
+                                * dists)
+        w, _ = volrend.render_weight_from_alpha_dense(
+            alpha, torch.ones_like(alpha, dtype=torch.bool))
+        comp_rgb = torch.einsum("rs,rsc->rc", w,
+                                rgb.reshape(n_rays, s - 1, 3))
+        opacity = w.sum(-1, keepdim=True)
+        depth = (w * t_mid).sum(-1, keepdim=True)
+        return {"comp_rgb": comp_rgb, "opacity": opacity, "depth": depth,
+                "rays_valid": opacity > 0}
+
     def forward(self, rays, *, occ_binary, step, generator=None,
                 train: bool = False, capacity: int, background_color,
                 levels=None):
@@ -109,7 +162,7 @@ class NeuSModel(nn.Module):
             step_size=self.render_step_size,
             num_samples=self.num_samples_per_ray, capacity=capacity,
             grid_binary=occ_binary, grid_resolution=self.grid_resolution,
-            generator=march_gen)
+            generator=march_gen, cone_angle=self.cone_angle)
         t_mid = 0.5 * (rs.t_starts + rs.t_ends)
         dists = rs.t_ends - rs.t_starts
         ridx = torch.clamp(rs.ray_indices, 0, n_rays - 1)
@@ -136,7 +189,12 @@ class NeuSModel(nn.Module):
                                             n_rays, deterministic=not train)
         comp_rgb, comp_normal = acc[:, 0:3], acc[:, 3:6]
         depth, opacity = acc[:, 6:7], acc[:, 7:8]
-        bg = background_color[None, :].expand_as(comp_rgb)
+        if self.learned_background:
+            bg_out = self.forward_bg(rays_o, rays_d, step)
+            bg = bg_out["comp_rgb"] + background_color[None, :] \
+                * (1.0 - bg_out["opacity"])
+        else:
+            bg = background_color[None, :].expand_as(comp_rgb)
         out = {
             "comp_rgb": comp_rgb,
             "comp_normal": _normalize(comp_normal),
@@ -149,6 +207,8 @@ class NeuSModel(nn.Module):
             "rays_valid_full": opacity > 0,
             "inv_s": inv_s,
         }
+        if self.learned_background:
+            out["comp_rgb_bg"] = bg
         if train:
             out.update({
                 "sdf_samples": sdf,

@@ -99,8 +99,7 @@ class SplitMixedOccModel(nn.Module):
         self.eval_samples_per_ray = int(config.get("eval_samples_per_ray",
                                                    128))
         self.eval_band_exact = bool(config.get("eval_band_exact", True))
-        if float(config.get("cone_angle", 0.0)) != 0.0:
-            raise NotImplementedError("cone_angle marching is not ported yet")
+        self.cone_angle = float(config.get("cone_angle", 0.0))
         self.cos_anneal_end = int(config.get("cos_anneal_end", 0))
         self.randomized = bool(config.get("randomized", True))
         self.split_sum_kick_in_step = int(
@@ -409,7 +408,8 @@ class SplitMixedOccModel(nn.Module):
             t_cut=t_cut, t_band_lo=t_band_lo,
             band_k=(self.eval_band_spr
                     if (banded and self.eval_band_exact
-                        and self.eval_band_spr > 0) else None))
+                        and self.eval_band_spr > 0) else None),
+            cone_angle=self.cone_angle)
         t_mid = 0.5 * (rs.t_starts + rs.t_ends)
         dists = rs.t_ends - rs.t_starts
         ridx = torch.clamp(rs.ray_indices, 0, n_rays - 1)

@@ -125,8 +125,9 @@ class MLP(nn.Module):
         self.n_hidden_layers = int(config["n_hidden_layers"])
         self.sphere_init = bool(config.get("sphere_init", False))
         self.sphere_init_radius = float(config.get("sphere_init_radius", 0.5))
-        if bool(config.get("inside_outside", False)):
-            raise NotImplementedError("inside_outside is not ported yet")
+        # sphere init with the SDF negative outside the sphere (a scene
+        # seen from inside it)
+        self.inside_outside = bool(config.get("inside_outside", False))
         self.weight_norm = bool(config.get("weight_norm", False))
         # bf16 products with float32 params, bias and outputs
         self.compute_dtype = {"float32": torch.float32,
@@ -153,8 +154,9 @@ class MLP(nn.Module):
             if self.sphere_init:
                 if i == n - 1:
                     mean = math.sqrt(math.pi) / math.sqrt(d_in)
-                    w = mean + 1e-4 * normal(d_out, d_in)
-                    b.fill_(-self.sphere_init_radius)
+                    sign = -1.0 if self.inside_outside else 1.0
+                    w = sign * mean + 1e-4 * normal(d_out, d_in)
+                    b.fill_(-sign * self.sphere_init_radius)
                 elif i == 0:
                     w[:, :3] = math.sqrt(2.0) / math.sqrt(d_out) \
                         * normal(d_out, 3)

@@ -1,10 +1,11 @@
 """Occupancy-pruned ray marching compacted into a fixed-capacity buffer
-(counterpart of ``rise_sdf_tpu/ops/march.py``; uniform steps only).
+(counterpart of ``rise_sdf_tpu/ops/march.py``).
 
 1. a static ``[R, S]`` grid of candidate intervals per ray (one
-   stratified offset per ray), optionally cut to a per-ray visibility
-   range ``[t_band_lo, t_cut)`` from a coarse probe
-   (``compute_visibility_cut``), or replaced on banded rays by exactly
+   stratified offset per ray; uniform steps, or with ``cone_angle``
+   above 0 nerfacc's steps that grow with the distance), optionally cut
+   to a per-ray visibility range ``[t_band_lo, t_cut)`` from a coarse
+   probe (``compute_visibility_cut``), or replaced on banded rays by exactly
    ``band_k`` samples spanning the band,
 2. candidates masked by the AABB range and a packed-bit occupancy grid,
 3. live samples compacted ray-major into ``capacity`` slots by a cumsum
@@ -78,16 +79,34 @@ def _offsets(n_rays, generator, device, default=0.5):
 
 
 def candidate_intervals(t_near, t_far, step_size, num_samples,
-                        generator: Optional[torch.Generator] = None):
-    """[R, S] uniform candidate intervals, stratified by one offset per
-    ray (mid-interval when ``generator`` is None)."""
+                        generator: Optional[torch.Generator] = None,
+                        cone_angle: float = 0.0, dt_max: float = 1e10):
+    """[R, S] candidate intervals, stratified by one offset per ray
+    (mid-interval when ``generator`` is None).  Uniform steps of
+    ``step_size``, or with ``cone_angle > 0`` nerfacc's recurrence: the
+    k-th step is ``dt_k = clamp(t_k * cone_angle, step_size, dt_max)``
+    from ``t_0 = t_near`` (uniform near the camera, geometric beyond
+    ``step_size / cone_angle``), one float32 step at a time as the JAX
+    scan takes it."""
     n_rays = t_near.shape[0]
     u = _offsets(n_rays, generator, t_near.device)
-    steps = torch.arange(num_samples, dtype=torch.float32,
-                         device=t_near.device)[None, :]
-    t0 = t_near[:, None] + (steps + u) * step_size
-    t_starts = t0 - 0.5 * step_size
-    t_ends = t0 + 0.5 * step_size
+    if cone_angle and cone_angle > 0.0:
+        t, t_lo, dts = t_near, [], []
+        for _ in range(num_samples):
+            dt = torch.clamp(t * cone_angle, step_size, dt_max)
+            t_lo.append(t)
+            dts.append(dt)
+            t = t + dt
+        t_lo, dts = torch.stack(t_lo, 1), torch.stack(dts, 1)  # [R, S]
+        t0 = t_lo + u * dts
+        t_starts = t0 - 0.5 * dts
+        t_ends = t0 + 0.5 * dts
+    else:
+        steps = torch.arange(num_samples, dtype=torch.float32,
+                             device=t_near.device)[None, :]
+        t0 = t_near[:, None] + (steps + u) * step_size
+        t_starts = t0 - 0.5 * step_size
+        t_ends = t0 + 0.5 * step_size
     in_range = (t0 >= t_near[:, None]) & (t0 < t_far[:, None])
     return t_starts, t_ends, in_range
 
@@ -97,7 +116,8 @@ def march_rays(rays_o, rays_d, *, aabb_min, aabb_max, step_size, num_samples,
                generator: Optional[torch.Generator] = None,
                t_cut: Optional[torch.Tensor] = None,
                t_band_lo: Optional[torch.Tensor] = None,
-               band_k: Optional[int] = None) -> RaySamples:
+               band_k: Optional[int] = None,
+               cone_angle: float = 0.0) -> RaySamples:
     """Occupancy-pruned marching, compacted to a fixed-size buffer.
 
     ``t_cut`` [R] drops candidates at ``t_mid >= t_cut`` (occluded),
@@ -106,12 +126,13 @@ def march_rays(rays_o, rays_d, *, aabb_min, aabb_max, step_size, num_samples,
     uniform samples spanning ``[max(t_band_lo, t_near), min(t_cut,
     t_far))`` (the AABB entry and exit)
     instead of the masked fine-step candidates, so banded rays can
-    never overflow a buffer of ``n_rays * band_k``."""
+    never overflow a buffer of ``n_rays * band_k``.  ``cone_angle`` goes
+    to ``candidate_intervals``."""
     n_rays = rays_o.shape[0]
     dev = rays_o.device
     t_near, t_far = ray_aabb_intersect(rays_o, rays_d, aabb_min, aabb_max)
     t_starts, t_ends, live = candidate_intervals(
-        t_near, t_far, step_size, num_samples, generator)
+        t_near, t_far, step_size, num_samples, generator, cone_angle)
     if band_k is not None and t_cut is not None and t_band_lo is not None:
         k = min(int(band_k), num_samples)
         big = 1e9

@@ -198,3 +198,42 @@ def render_weight_from_alpha_dense(alphas, live):
     c_prev = torch.cat([torch.zeros_like(c[:, :1]), c[:, :-1]], 1)
     trans = torch.exp(c_prev)
     return trans * a, trans
+
+
+def distortion_loss(weights, t_mids, intervals, ray_indices, ray_start,
+                    valid, n_rays: int):
+    """Mip-NeRF 360's distortion loss summed over the rays of a
+    compacted buffer: per ray ``sum_ij w_i w_j |m_i - m_j| + (1/3)
+    sum_i w_i^2 d_i`` (``flatten_eff_distloss``), in O(n) through
+    ``sum_ij w_i w_j |m_i - m_j| = 2 sum_i w_i (m_i W_i - M_i)``, where
+    ``W_i`` and ``M_i`` are the exclusive in-ray prefix sums of ``w``
+    and ``w m``; a ray's samples sit in ascending ``m`` in the buffer.
+
+    The prefix sums are one ``cumsum`` over the whole buffer with each
+    ray's start subtracted, as the transmittance scan of a training step
+    (``render_weight_from_alpha``).  On the CPU (the plain version, as
+    JAX computes it) the scan is float32 and carries the same caveat: a
+    ray's sums are differences of two running totals, rounded at the
+    buffer's running magnitude (``ROADMAP.md``, Queue 3).  On the card
+    it runs in float64: in float32 the term of a 4096-ray step at
+    ``neus_colmap`` widths came out 8.6e-5 (relative) from a float64
+    double sum (``chip_smoke.py`` phase 13d, ``PERF.md``)."""
+    w = torch.where(valid, weights, 0.0)
+    last = max(w.shape[0] - 1, 0)
+    start = torch.clamp(ray_start, 0, last)
+    idx = torch.clamp(ray_indices, max=n_rays)
+    scan_dtype = w.dtype if w.device.type == "cpu" else torch.float64
+
+    def in_ray_exclusive(x):
+        c = torch.cumsum(x.to(scan_dtype), 0)
+        c_prev = torch.cat([c.new_zeros(1), c[:-1]])
+        start_c = torch.where(ray_start == 0, 0.0,
+                              c_prev.index_select(0, start))
+        return (c_prev - torch.cat([start_c, c.new_zeros(1)]).index_select(
+            0, idx)).to(x.dtype)
+
+    sw = in_ray_exclusive(w)
+    swm = in_ray_exclusive(w * t_mids)
+    cross = 2.0 * (w * (t_mids * sw - swm))
+    self_term = (w * w * torch.where(valid, intervals, 0.0)) / 3.0
+    return torch.sum(torch.where(valid, cross + self_term, 0.0))

@@ -15,6 +15,11 @@ system of ``neus_blender``), ``split_mixed_occ_train_full`` (the whole
 flagship config), ``split_mixed_occ_test_full`` (that plus the test
 protocol on the sphere's test split, relighting under two analytic
 environments) and its tiny counterpart ``tiny_split_test_config``.
+``neus_colmap`` is NeuS on a real capture in COLMAP's layout (the
+unbounded-scene members of instant-nsr-pl's ``configs/neus-colmap.yaml``
+on ``neus_blender``'s foreground); ``dataset.root_dir`` is ``???`` and
+``name`` ends in its base name.  ``tiny_neus_colmap_config`` is
+``tiny_neus_config`` with a learned background (``TINY_BACKGROUND``).
 """
 
 from __future__ import annotations
@@ -435,4 +440,77 @@ def tiny_split_test_config(hdr_filepath: str = ENV_DIR):
     and ``derive_compaction`` on."""
     cfg = _test_protocol(tiny_split_config(), hdr_filepath, 2)
     cfg["model"]["derive_compaction"] = True
+    return cfg
+
+
+def background(radius, levels, log2_size, base_res, scale, neurons):
+    """The ``model`` members of a learned background: a ``volume-density``
+    field (8 features, ``trunc_exp`` density with bias -1, a hash grid
+    and a one-hidden-layer ReLU MLP) and a ``volume-radiance`` head on
+    its features (SH degree 4, two hidden layers, sigmoid)."""
+    mlp = {"otype": "VanillaMLP", "activation": "ReLU",
+           "output_activation": "none", "n_neurons": neurons}
+    return {
+        "geometry_bg": {
+            "name": "volume-density", "radius": radius, "feature_dim": 8,
+            "density_activation": "trunc_exp", "density_bias": -1,
+            "isosurface": None,
+            "xyz_encoding_config": {
+                "otype": "HashGrid", "n_levels": levels,
+                "n_features_per_level": 2, "log2_hashmap_size": log2_size,
+                "base_resolution": base_res, "per_level_scale": scale},
+            "mlp_network_config": dict(mlp, n_hidden_layers=1)},
+        "texture_bg": {
+            "name": "volume-radiance", "input_feature_dim": 8,
+            "dir_encoding_config": {"otype": "SphericalHarmonics",
+                                    "degree": 4},
+            "mlp_network_config": dict(mlp, n_hidden_layers=2),
+            "color_activation": "sigmoid"},
+    }
+
+
+# the tiny background: the tiny geometry's grid widths, 16 samples per ray
+TINY_BACKGROUND = dict(background(1.5, 4, 12, 8, 1.6, 16),
+                       learned_background=True, num_samples_per_ray_bg=16)
+BACKGROUND_LR = {"geometry_bg": {"lr": 0.01}, "texture_bg": {"lr": 0.01}}
+
+
+def tiny_neus_colmap_config():
+    """``tiny_neus_config`` with ``TINY_BACKGROUND`` merged into its model
+    and the background's optimizer groups at lr 0.01."""
+    cfg = tiny_neus_config()
+    cfg["model"].update(TINY_BACKGROUND)
+    cfg["system"]["optimizer"]["params"].update(BACKGROUND_LR)
+    return cfg
+
+
+def neus_colmap():
+    """NeuS on an unbounded real capture in COLMAP's layout (PNG images).
+    The foreground is ``neus_blender``'s at radius 0.5 (normalised poses
+    put the nearest camera at distance 1); the background, its 256
+    samples per ray, its lr 0.01 groups, ``lambda_mask`` 0,
+    ``lambda_distortion`` 0, 20,000 steps and the dataset section are
+    instant-nsr-pl's ``configs/neus-colmap.yaml``.  ``dataset.root_dir``
+    is ``???``: the launcher raises until it is set and names the run
+    after its base name (``${basename:...}``)."""
+    max_steps, warmup = 20000, 500
+    cfg = neus_blender()
+    model = cfg["model"]
+    model.update({"radius": 0.5, "learned_background": True,
+                  "num_samples_per_ray_bg": 256})
+    model["geometry"] = dict(model["geometry"], radius=0.5)
+    model.update(background(0.5, 16, 19, 32, 1.3195079107728942, 64))
+    system = cfg["system"]
+    system["loss"].update({"lambda_mask": 0.0, "lambda_distortion": 0.0})
+    system["optimizer"]["params"].update(BACKGROUND_LR)
+    system["scheduler"]["schedulers"][1]["args"]["gamma"] = \
+        0.1 ** (1 / (max_steps - warmup))
+    cfg.update({
+        "name": "neus-colmap-${basename:dataset.root_dir}",
+        "dataset": {"name": "colmap", "root_dir": "???",
+                    "img_downscale": 4, "up_est_method": "ground",
+                    "center_est_method": "lookat", "n_test_traj_steps": 120,
+                    "apply_mask": False},
+        "checkpoint": {"save_top_k": -1, "every_n_train_steps": max_steps}})
+    cfg["trainer"]["max_steps"] = max_steps
     return cfg

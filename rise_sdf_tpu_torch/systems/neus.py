@@ -35,6 +35,7 @@ from .base import BaseSystem
 from .criterions import psnr
 from ..export import export_mesh
 from ..ops import grid as occ_grid
+from ..ops import volrend
 from ..parallel import sharding
 from ..utils.color import linear_to_srgb_np, rgb_to_srgb
 from ..utils.misc import interleave_order
@@ -90,12 +91,16 @@ class NeuSSystem(BaseSystem):
         return {"step": 0, "occs": occs, "occ_binary": binary}
 
     def device_data(self, split) -> Dict[str, torch.Tensor]:
+        """The split's arrays on the device in float32, as JAX's
+        ``jnp.asarray`` takes them (a loader's directions may be float64:
+        the colmap loader's are)."""
         dev = self.device
         return {
             "images": torch.as_tensor(split.all_images, device=dev),
             "masks": torch.as_tensor(split.all_fg_masks, device=dev),
             "c2w": torch.as_tensor(split.all_c2w, device=dev),
-            "directions": torch.as_tensor(split.directions, device=dev),
+            "directions": torch.as_tensor(split.directions, device=dev,
+                                          dtype=torch.float32),
         }
 
     # ------------------------------------------------------------------ #
@@ -126,9 +131,6 @@ class NeuSSystem(BaseSystem):
     # ------------------------------------------------------------------ #
     def compute_losses(self, out, batch, step):
         cfg = self.config["system"]["loss"]
-        lam_dist = cfg.get("lambda_distortion", 0.0)
-        if isinstance(lam_dist, (list, tuple)) or lam_dist > 0:
-            raise NotImplementedError("distortion loss is not ported yet")
         sel = out["rays_valid_full"][:, 0] & out["ray_included"]
         inc = out["ray_included"]
         sv = out["samples_valid"]
@@ -161,6 +163,14 @@ class NeuSSystem(BaseSystem):
                 + losses["mask"] * self.C(cfg["lambda_mask"], step)
                 + losses["opaque"] * self.C(cfg["lambda_opaque"], step)
                 + losses["sparsity"] * self.C(cfg["lambda_sparsity"], step))
+        lam_dist = cfg.get("lambda_distortion", 0.0)
+        if isinstance(lam_dist, (list, tuple)) or lam_dist > 0:
+            # the distortion of the kept rays' foreground samples, per ray
+            losses["distortion"] = volrend.distortion_loss(
+                out["weights"], out["points"], out["intervals"],
+                out["ray_indices"], out["ray_start"], out["samples_valid"],
+                batch["rgb"].shape[0]) / n_inc
+            loss = loss + losses["distortion"] * self.C(lam_dist, step)
         return loss, losses
 
     def forward_loss(self, batch, occ_binary, step, generator=None,
@@ -333,7 +343,8 @@ class NeuSSystem(BaseSystem):
         """View ``index``'s unit rays [H * W, 6] on the device, in the
         configured eval interleave, and the inverse permutation (None
         when the rays keep their order)."""
-        dirs = torch.as_tensor(split.directions, device=self.device)
+        dirs = torch.as_tensor(split.directions, device=self.device,
+                               dtype=torch.float32)
         c2w = torch.as_tensor(split.all_c2w[index], device=self.device)
         rays_o, rays_d = get_rays(dirs, c2w)
         rays_d = rays_d / torch.linalg.vector_norm(rays_d, dim=-1,

@@ -427,3 +427,73 @@ def test_kernels_on_the_second_card(second_card):
     got = gather_rows(table, idx)
     torch.cuda.synchronize(second_card)
     assert torch.equal(got, table.index_select(0, idx.long()))
+
+
+def test_learned_background_launches_kernels_and_matches_cpu(cuda):
+    """The tiny NeuS model with a learned background on the card: one
+    training forward gathers through G1 twice (the foreground's and the
+    background's encodes) and its backward takes both table gradients
+    through K1; the loss and both tables' gradients agree with the CPU's
+    (plain gather and scatter) to 1e-4 of their largest entry."""
+    import copy
+
+    from rise_sdf_tpu_torch import models
+    from rise_sdf_tpu_torch.presets import tiny_neus_colmap_config
+
+    cfg = tiny_neus_colmap_config()["model"]
+    cpu = models.make(cfg["name"], cfg)
+    gen = torch.Generator().manual_seed(0)
+    cpu.reset_parameters(gen)
+    with torch.no_grad():  # off the sphere init, which reads xyz only
+        for p in cpu.geometry.mlp.parameters():
+            p.add_(0.05 * torch.randn(p.shape, generator=gen))
+    card = copy.deepcopy(cpu).to(cuda)
+    gen = torch.Generator().manual_seed(1)
+    o = torch.randn((256, 3), generator=gen)
+    o = 3.0 * o / o.norm(dim=-1, keepdim=True)
+    d = -o / 3.0 + 0.5 * torch.randn((256, 3), generator=gen)
+    rays = torch.cat([o, d / d.norm(dim=-1, keepdim=True)], -1)
+    grads = {}
+    for name, model in (("cpu", cpu), ("cuda", card)):
+        dev = next(model.parameters()).device
+        g1, k1 = gather_rows.launches, scatter_add.launches
+        out = model(rays.to(dev), occ_binary=None, step=3, train=True,
+                    capacity=256 * 64,
+                    background_color=torch.full((3,), 0.5, device=dev))
+        loss = out["comp_rgb_full"].square().mean() \
+            + out["comp_rgb_bg"].mean()
+        loss.backward()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert gather_rows.launches == g1 + 2
+            assert scatter_add.launches == k1 + 2
+        grads[name] = (loss.detach().cpu(), {
+            k: model.get_submodule(k).encoding.encoding.table.grad.cpu()
+            for k in ("geometry", "geometry_bg")})
+    assert torch.allclose(grads["cuda"][0], grads["cpu"][0], rtol=1e-4)
+    for k, want in grads["cpu"][1].items():
+        got = grads["cuda"][1][k]
+        assert float(want.abs().max()) > 0, k
+        assert float((got - want).abs().max()) \
+            <= 1e-4 * float(want.abs().max()), k
+
+
+def test_distortion_loss_on_the_card_matches_float64(cuda):
+    from rise_sdf_tpu_torch.ops import volrend
+
+    gen = torch.Generator().manual_seed(2)
+    counts = torch.randint(0, 200, (512,), generator=gen)
+    n, cap = int(counts.sum()), int(counts.sum()) + 100
+    ridx = torch.cat([torch.repeat_interleave(torch.arange(512), counts),
+                      torch.full((100,), 512)])
+    start = torch.cumsum(counts, 0) - counts
+    mids = torch.cat([torch.sort(torch.rand(int(c), generator=gen))[0]
+                      for c in counts] + [torch.zeros(100)])
+    w = torch.rand(cap, generator=gen) * 0.05
+    iv = torch.rand(cap, generator=gen) * 0.01
+    valid = torch.arange(cap) < n
+    args = (w, mids, iv, ridx, start, valid)
+    want = volrend.distortion_loss(*(a.double() if a.is_floating_point()
+                                     else a for a in args), 512)
+    got = volrend.distortion_loss(*(a.to(cuda) for a in args), 512)
+    assert abs(float(got) - float(want)) <= 1e-4 * abs(float(want))

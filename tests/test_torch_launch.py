@@ -3,8 +3,11 @@ the CPU in subprocesses (counterpart of ``tests/test_launch.py``):
 ``--train`` leaves the parsed config, a checkpoint, the test PNGs and
 the mesh; ``--test --resume`` renders from that checkpoint without
 training; a dotlist override lands in ``parsed.json``; an unknown key
-and a run without CUDA and without ``--device cpu`` exit non-zero.
-Also the dotlist's value parser."""
+and a run without CUDA and without ``--device cpu`` exit non-zero;
+``--preset neus_colmap`` raises without ``dataset.root_dir`` and with it
+trains on a capture in COLMAP's layout (shrunk by overrides) in a run
+named after the capture's directory.  Also the dotlist's value
+parser."""
 
 import glob
 import json
@@ -16,6 +19,7 @@ import numpy as np
 import pytest
 
 from rise_sdf_tpu_torch.launch import apply_overrides, parse_value
+from test_torch_colmap import write_capture
 from rise_sdf_tpu_torch.utils.saving import load_ply
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -109,3 +113,40 @@ def test_parse_value_and_overrides():
         apply_overrides(cfg, ["x.b=1"])
     with pytest.raises(ValueError):
         apply_overrides(cfg, ["a.b"])
+
+
+# neus_colmap's widths and depth cut for a CPU run of a few seconds
+COLMAP_TINY = [
+    "trainer.max_steps=4", "dataset.img_downscale=2",
+    "model.num_samples_per_ray=64", "model.train_num_rays=64",
+    "model.max_train_num_rays=64", "model.train_sample_capacity=4096",
+    "model.eval_samples_per_ray=32", "model.ray_chunk=128",
+    "model.num_samples_per_ray_bg=16",
+    "model.geometry.xyz_encoding_config.log2_hashmap_size=12",
+    "model.geometry_bg.xyz_encoding_config.log2_hashmap_size=12",
+    "model.geometry.isosurface.resolution=32"]
+
+
+def test_neus_colmap_needs_root_dir_and_names_the_run(tmp_path):
+    exp = str(tmp_path / "exp_dir")
+    res = _launch("--preset", "neus_colmap", "--train", "--device", "cpu",
+                  "--exp_dir", exp)
+    assert res.returncode != 0
+    assert "missing mandatory config value: dataset.root_dir" in res.stderr
+    assert not os.path.exists(exp)
+    capture = str(tmp_path / "garden")
+    write_capture(capture)
+    res = _launch("--preset", "neus_colmap", "--train", "--device", "cpu",
+                  "--exp_dir", exp, f"dataset.root_dir={capture}/",
+                  *COLMAP_TINY)
+    assert res.returncode == 0, res.stderr[-3000:]
+    trials = glob.glob(os.path.join(exp, "neus-colmap-garden", "@*"))
+    assert len(trials) == 1
+    save = os.path.join(trials[0], "save")
+    assert sorted(os.listdir(os.path.join(save, "it4-test"))) == [
+        "0.png", "1.png"]
+    assert os.path.exists(os.path.join(trials[0], "ckpt", "step_4.ckpt.npz"))
+    with open(os.path.join(trials[0], "config", "parsed.json")) as f:
+        cfg = json.load(f)
+    assert cfg["name"] == "neus-colmap-garden"
+    assert cfg["model"]["learned_background"] is True

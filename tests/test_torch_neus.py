@@ -252,6 +252,7 @@ def test_port_imports_no_jax_yaml_or_reference():
         "import pkgutil, sys, importlib, rise_sdf_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
+        "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'yaml', 'rise_sdf_tpu', 'PIL',\n"
         "              'cv2', 'imageio'))\n"
@@ -262,7 +263,8 @@ def test_port_imports_no_jax_yaml_or_reference():
         "        'systems.split_occ', 'measure', 'export', 'ops.mcubes',\n"
         "        'launch', 'bridge', 'parallel.sharding',\n"
         "        'parallel.dryrun', 'utils.png', 'utils.hdr',\n"
-        "        'utils.image', 'datasets.tensoir', 'datasets.blender')]\n"
+        "        'utils.image', 'datasets.tensoir', 'datasets.blender',\n"
+        "        'datasets.colmap', 'datasets.colmap_utils')]\n"
         "assert all(m in sys.modules for m in need), need\n"
         "from rise_sdf_tpu_torch.bridge import to_jax_state, from_jax_state\n"
         "print(len([m for m in sys.modules if m.startswith(p.__name__)]))\n")
