@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (Hopper, sm_90a).
 
     python3 chip_smoke.py [--steps 120] [--split-steps 32]
-                          [--test-views 4] [--resume-steps 32]
+                          [--test-views 2] [--resume-steps 32]
                           [--save-streams FILE]
 
 Phases, each of which fails the run (non-zero exit) when it fails:
@@ -72,7 +72,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 9. test protocol: ``SplitOccSystem.test`` on the stage-1 state that
    phase 8 leaves (step 13031), at ``split_mixed_occ_test_full``: the
    calibrated compaction fractions, then ``--test-views`` 800x800 test
-   views (4) under the learned light and the ``warm`` and ``bright``
+   views (2) under the learned light and the ``warm`` and ``bright``
    environments in one geometry pass per chunk (``forward_multi``, the
    third bounce on); then view 0 again
    in single-light mode, one render per light
@@ -186,6 +186,34 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    (b) and (e) and read just after.  Cut from a capture's 100-300 views
    of ~5000 pixels loaded at ``img_downscale`` 4 to 9 views of 1600
    loaded at 2, and from 20,000 steps to 33.
+14. what a user's capture or config names: (a) every JPEG fixture of
+   ``tests/data/jpeg`` decoded by the port (``utils/jpeg.py``, built
+   with g++) to bytes whose SHA-256 and shape equal Pillow's in the
+   manifest; (b) phase 13's capture encoded by this script's numpy
+   writer as baseline JPEG (4:2:0, quality 95, a restart marker after
+   every MCU row) into a sibling directory with the same sparse model
+   (``NNN.jpg``): every decode at least 35 dB from its PNG (the host's
+   decode ms per image and its extrapolation by pixel count to a
+   5000-wide image printed), the colmap loader at ``img_downscale`` 2
+   giving ``resize_like_pil`` of each decode, then ``neus_colmap`` for
+   16 steps from a fresh init: finite losses, none skipped, K1 twice
+   and G1 two or three times per step; (c) ``neus_sphere_full`` with
+   ``AdamW`` (weight decay 0.01), ``ChainedScheduler[ConstantLR(0.5, 4),
+   ExponentialLR(0.999)]`` and variance modulation (from step 8 to
+   2048 at step 64) for 24 steps, each step held to a float64 host
+   recurrence: every group's lr, ``prev_inv_s`` (it tracks
+   ``exp(10 variance)`` up to step 8, then AdamW decays it by ``1 - lr
+   wd`` per step, as JAX's optax chain does) and ``inv_s`` under the
+   cap; K1 once and G1 once or twice per step, none skipped; then the
+   state saved and loaded, every tensor (``prev_inv_s`` and the AdamW
+   state among them) bit-equal; (d) seeded synthetic VGG16-LPIPS
+   weights in ``RISE_SDF_LPIPS_WEIGHTS``: LPIPS of phase 9's 800x800
+   view-0 render and ground truth on the card within 1e-5 (relative) of
+   the CPU's, its ms printed, then the test protocol on one view
+   (phase 8's state) whose ``phys_lpips``, ``albedo_lpips`` and
+   ``relight_lpips_{light}`` are finite, G1 launching and K1 not.
+   The counts are zeroed just before each training window and test run
+   and read just after.
 
 ``--save-streams FILE`` saves both recorded streams for the same-call
 A/B against another tree, ``python -m rise_sdf_tpu_torch.kernel_ab``
@@ -194,9 +222,9 @@ The last two lines are the kernels' JSON record (K1's and G1's entries
 also carry their times on the recorded streams and per NeuS and flagship
 train step, G1's its launches in the test protocol, both their launches
 in phase 10's resumed run and G1's in its export, both their
-launches per rank in phase 11, in the three parts of phase 12 and in
+launches per rank in phase 11, in the three parts of phase 12, in
 phase 13's training and renders, with their times on its background
-stream) and
+stream, and in phase 14's two training windows and test run) and
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the package
 beside it, the script exits non-zero and prints no result.
 """
@@ -207,6 +235,7 @@ import os
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -899,7 +928,9 @@ def flagship_phase(torch, scatter, gather, steps):
 def test_protocol_phase(torch, gather, scatter, system, state, views):
     """The test protocol on the flagship's stage-1 state (module
     docstring, phase 9).  Returns G1's launches in the phase, the two
-    modes' seconds per view and G1's launches per multi-emitter view."""
+    modes' seconds per view and G1's launches per multi-emitter view,
+    and view 0's phys render and ground truth (phase 14d's LPIPS
+    pair)."""
     from rise_sdf_tpu_torch import measure
 
     torch.cuda.synchronize()
@@ -944,17 +975,18 @@ def test_protocol_phase(torch, gather, scatter, system, state, views):
     return g1, {"multi_s_per_view": multi["s_per_view"],
                 "single_s_per_view": single["s_per_view"],
                 "multi_launches_per_view": multi["g1_launches"]
-                / multi["views"]}
+                / multi["views"]}, res["view0_pair"]
 
 
 def _same_state(torch, src, dst, src_state, dst_state):
     """Names of the training-state tensors of ``dst`` that are not
-    bit-equal to ``src``'s: params, Adam's ``exp_avg``, ``exp_avg_sq``
-    and ``step`` per parameter, the schedule's ``last_epoch``, ``occs``,
-    ``occ_binary`` and ``step``."""
+    bit-equal to ``src``'s: params and persistent buffers, Adam's
+    ``exp_avg``, ``exp_avg_sq`` and ``step`` for each, the groups' lr and
+    weight decay, the schedule's ``last_epoch``, ``occs``, ``occ_binary``
+    and ``step``."""
     bad = []
-    dst_params = dict(dst.model.named_parameters())
-    for name, p in src.model.named_parameters():
+    dst_params = dst.model.state_dict(keep_vars=True)
+    for name, p in src.model.state_dict(keep_vars=True).items():
         q = dst_params[name]
         if not torch.equal(p, q):
             bad.append(name)
@@ -962,6 +994,9 @@ def _same_state(torch, src, dst, src_state, dst_state):
         for k in ("exp_avg", "exp_avg_sq", "step"):
             if not torch.equal(a[k].cpu(), b[k].cpu()):
                 bad.append(f"{k}:{name}")
+    for ga, gb in zip(src.optimizer.param_groups, dst.optimizer.param_groups):
+        if (ga["lr"], ga["weight_decay"]) != (gb["lr"], gb["weight_decay"]):
+            bad.append(f"lr:{ga['name']}")
     if src.scheduler.last_epoch != dst.scheduler.last_epoch:
         bad.append("last_epoch")
     for k in ("occs", "occ_binary"):
@@ -1510,11 +1545,13 @@ def check_scene(root, written, relights):
         fail("the loaded normals are not the renderer's")
 
 
-def _train_window(torch, scatter, gather, system, state, steps, seed):
+def _train_window(torch, scatter, gather, system, state, steps, seed,
+                  each_step=None):
     """``steps`` steps of ``fit`` from ``state`` with K1's and G1's counts
-    zeroed just before and read per step.  Returns the state, steps/s over
-    all but the first step, the peak memory in GiB, the launches per step
-    and the losses."""
+    zeroed just before and read per step (``each_step(step, metrics)``
+    after each, if given).  Returns the state, steps/s over all but the
+    first step, the peak memory in GiB, the launches per step and the
+    losses."""
     from rise_sdf_tpu_torch import measure
 
     per_step, losses = [], []
@@ -1523,6 +1560,8 @@ def _train_window(torch, scatter, gather, system, state, steps, seed):
         per_step.append((scatter.scatter_add.launches,
                          gather.gather_rows.launches))
         losses.append(m["loss"])
+        if each_step is not None:
+            each_step(step, m)
 
     start = int(state["step"])
     torch.cuda.synchronize()
@@ -1714,7 +1753,8 @@ def write_capture(root, w, h, n_views):
     in COLMAP's convention and world frame (a similarity of the scene's),
     and points3D: object and floor hit points of every 16th pixel row and
     column.  Returns the views' scene-frame OpenGL poses and uint8
-    images, the points (scene frame) and which of them lie on the floor."""
+    images, the points (scene frame) and which of them lie on the floor,
+    and the sparse model's poses and points (COLMAP's frame)."""
     from rise_sdf_tpu_torch.datasets import synthetic as syn
     from rise_sdf_tpu_torch.datasets.colmap_utils import qvec2rotmat
     from rise_sdf_tpu_torch.utils.rays import get_ray_directions
@@ -1771,7 +1811,8 @@ def write_capture(root, w, h, n_views):
     colmap_pts = COLMAP_SCALE * pts @ rot.T + np.asarray(COLMAP_T)
     write_colmap_sparse(os.path.join(root, "sparse", "0"), w, h,
                         CAPTURE_FOCAL, w2c, names, colmap_pts)
-    return {"views": views, "points": pts, "floor": floor}
+    return {"views": views, "points": pts, "floor": floor, "w2c": w2c,
+            "colmap_points": colmap_pts}
 
 
 def check_capture(dm, written):
@@ -1849,12 +1890,11 @@ def _distortion_f64(out, n_rays):
     return total / max(int(out["ray_included"].sum()), 1)
 
 
-def capture_phase(torch, scatter, gather):
-    """A real capture (module docstring, phase 13).  Returns K1's and
-    G1's records: launches per part and the background stream's checks
-    and times."""
-    import tempfile
-
+def capture_phase(torch, scatter, gather, root):
+    """A real capture (module docstring, phase 13), written under the
+    empty directory ``root`` and left there.  Returns K1's and G1's
+    records (launches per part and the background stream's checks and
+    times) and what was written (``write_capture``)."""
     from rise_sdf_tpu_torch import datasets, launch, measure, presets, \
         systems
     from rise_sdf_tpu_torch.ops import hashgrid
@@ -1862,184 +1902,721 @@ def capture_phase(torch, scatter, gather):
     out_dir = os.path.join("exp", "chip_smoke_capture")
     shutil.rmtree(out_dir, ignore_errors=True)
     k1, g1 = {}, {}
-    with tempfile.TemporaryDirectory() as root:
-        t0 = time.perf_counter()
-        written = write_capture(root, CAPTURE_W, CAPTURE_H, CAPTURE_VIEWS)
-        log(f"  a. wrote the concave scene on its floor at {CAPTURE_W}x"
-            f"{CAPTURE_H}, {CAPTURE_VIEWS} views on a ring, "
-            f"{len(written['points'])} points, in COLMAP's layout in "
-            f"{time.perf_counter() - t0:.1f} s")
-        cfg = launch.resolve(launch.apply_overrides(
-            presets.neus_colmap(),
-            [f"dataset.root_dir={root}",
-             f"dataset.img_downscale={CAPTURE_DOWNSCALE}"]))
-        t0 = time.perf_counter()
-        dm = datasets.make(cfg["dataset"]["name"], cfg["dataset"])
-        splits = check_capture(dm, written)
-        log(f"     loading and checking took {time.perf_counter() - t0:.1f}"
-            f" s")
+    t0 = time.perf_counter()
+    written = write_capture(root, CAPTURE_W, CAPTURE_H, CAPTURE_VIEWS)
+    log(f"  a. wrote the concave scene on its floor at {CAPTURE_W}x"
+        f"{CAPTURE_H}, {CAPTURE_VIEWS} views on a ring, "
+        f"{len(written['points'])} points, in COLMAP's layout in "
+        f"{time.perf_counter() - t0:.1f} s")
+    cfg = launch.resolve(launch.apply_overrides(
+        presets.neus_colmap(),
+        [f"dataset.root_dir={root}",
+         f"dataset.img_downscale={CAPTURE_DOWNSCALE}"]))
+    t0 = time.perf_counter()
+    dm = datasets.make(cfg["dataset"]["name"], cfg["dataset"])
+    splits = check_capture(dm, written)
+    log(f"     loading and checking took {time.perf_counter() - t0:.1f}"
+        f" s")
 
-        seed = int(cfg["seed"])
-        t0 = time.perf_counter()
-        system = systems.make(cfg["system"]["name"], cfg, dm,
-                              save_dir=os.path.join(out_dir, "save"),
-                              ckpt_dir=os.path.join(out_dir, "ckpt"),
-                              device="cuda")
-        state = system.init_state(seed)
-        log(f"  b. {cfg['name']}: system built in "
-            f"{time.perf_counter() - t0:.1f} s")
-        bg_table = system.model.geometry_bg.encoding.encoding.table
-        lookup = hashgrid.table_grad_lookup
-        seen, stream = {}, {}
+    seed = int(cfg["seed"])
+    t0 = time.perf_counter()
+    system = systems.make(cfg["system"]["name"], cfg, dm,
+                          save_dir=os.path.join(out_dir, "save"),
+                          ckpt_dir=os.path.join(out_dir, "ckpt"),
+                          device="cuda")
+    state = system.init_state(seed)
+    log(f"  b. {cfg['name']}: system built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    bg_table = system.model.geometry_bg.encoding.encoding.table
+    lookup = hashgrid.table_grad_lookup
+    seen, stream = {}, {}
 
-        def recording_lookup(table, rows):
-            vals = lookup(table, rows)
-            if vals.requires_grad and table.data_ptr() == \
-                    bg_table.data_ptr():
-                vals.retain_grad()
-                seen.update(rows=rows, vals=vals)
-            return vals
+    def recording_lookup(table, rows):
+        vals = lookup(table, rows)
+        if vals.requires_grad and table.data_ptr() == \
+                bg_table.data_ptr():
+            vals.retain_grad()
+            seen.update(rows=rows, vals=vals)
+        return vals
 
-        per_step, losses = [], []
+    per_step, losses = [], []
 
-        def on_log(step, m):
-            per_step.append((scatter.scatter_add.launches,
-                             gather.gather_rows.launches))
-            losses.append(m["loss"])
-            if step == 1:  # the background stream (step 0's is the same)
-                hashgrid.table_grad_lookup = lookup
-                rows, cot = seen.pop("rows"), seen.pop("vals").grad
-                idx = rows.reshape(-1)
-                vals = cot.reshape(-1, F).contiguous()
-                grad = bg_table.grad.reshape(-1, F)
-                stream["step_err"] = check_scatter(
-                    torch, grad, idx, vals, grad.shape[0],
-                    "step 1: the background table's gradient (K1) vs "
-                    "float64")
-                stream.update(rows=rows.cpu(), vals=vals.cpu(),
-                              table=bg_table.detach().reshape(-1, F).cpu())
-
-        hashgrid.table_grad_lookup = recording_lookup
-        try:
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            scatter.scatter_add.launches = 0
-            gather.gather_rows.launches = 0
-            state, _, rate, _ = measure.train(
-                system, CAPTURE_STEPS, seed, state, on_log,
-                profile_from=CAPTURE_STEPS, window=15)
-            peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        finally:
+    def on_log(step, m):
+        per_step.append((scatter.scatter_add.launches,
+                         gather.gather_rows.launches))
+        losses.append(m["loss"])
+        if step == 1:  # the background stream (step 0's is the same)
             hashgrid.table_grad_lookup = lookup
-        deltas = [(a - a0, b - b0) for (a, b), (a0, b0)
-                  in zip(per_step, [(0, 0)] + per_step[:-1])]
-        k1["train_launches"], g1["train_launches"] = (
-            sum(d) for d in zip(*deltas))
-        k1["train_launches_per_step"] = sorted({d[0] for d in deltas})
-        g1["train_launches_per_step"] = sorted({d[1] for d in deltas})
-        log(f"    fit 0 -> {int(state['step'])}: {rate:.3f} steps/s over "
-            f"the last 15 steps; peak {peak:.2f} GiB; K1/G1 launches "
-            f"{k1['train_launches']}/{g1['train_launches']} (per step "
-            f"{k1['train_launches_per_step']} / "
-            f"{g1['train_launches_per_step']}); skipped updates "
-            f"{system.skipped_updates}; losses {losses[0]:.5f} -> "
-            f"{losses[-1]:.5f}")
-        if len(losses) != CAPTURE_STEPS or not np.all(np.isfinite(losses)) \
-                or system.skipped_updates:
-            fail(f"neus_colmap on the capture: losses {losses}, skipped "
-                 f"{system.skipped_updates}")
-        if min(d[0] for d in deltas) < 2 or min(d[1] for d in deltas) < 2:
-            fail(f"a neus_colmap step without two K1 and two G1 launches "
-                 f"(the foreground's and the background's tables): "
-                 f"{deltas}")
-        if "rows" not in stream:
-            fail("no background encode was recorded")
+            rows, cot = seen.pop("rows"), seen.pop("vals").grad
+            idx = rows.reshape(-1)
+            vals = cot.reshape(-1, F).contiguous()
+            grad = bg_table.grad.reshape(-1, F)
+            stream["step_err"] = check_scatter(
+                torch, grad, idx, vals, grad.shape[0],
+                "step 1: the background table's gradient (K1) vs "
+                "float64")
+            stream.update(rows=rows.cpu(), vals=vals.cpu(),
+                          table=bg_table.detach().reshape(-1, F).cpu())
 
-        # c. K1 and G1 on the background's encode stream
-        rows, vals, table = (stream.pop(k).cuda()
-                             for k in ("rows", "vals", "table"))
-        what = f"background stream (step 1, rows {list(rows.shape)})"
-        log_runs(torch, rows, what)
-        k1["bg_stream"] = check_time_scatter(
-            torch, scatter, rows.reshape(-1), vals, table.shape[0], what,
-            rows.shape[-2] * rows.shape[-1])
-        k1["bg_stream"]["step_max_abs_err"] = stream.pop("step_err")
-        g1["bg_stream"] = check_gather(torch, gather, table,
-                                       rows.reshape(-1), what)
-        del rows, vals, table
-        torch.cuda.empty_cache()
-
-        # d. one step with the distortion loss
-        system.config["system"]["loss"]["lambda_distortion"] = \
-            CAPTURE_DISTORTION
-        compute_losses, kept = system.compute_losses, {}
-
-        def spy(out, batch, step):
-            loss, terms = compute_losses(out, batch, step)
-            kept.update(out={k: out[k].detach() for k in (
-                "weights", "points", "intervals", "ray_indices",
-                "samples_valid", "ray_included")},
-                distortion=float(terms["distortion"].detach()),
-                n_rays=batch["rgb"].shape[0])
-            return loss, terms
-
-        system.compute_losses = spy
-        metrics = []
-        try:
-            state = system.fit(max_steps=CAPTURE_STEPS + 1, seed=seed,
-                               state=state, log_every=1,
-                               on_log=lambda step, m: metrics.append(m))
-        finally:
-            del system.compute_losses
-        ref = _distortion_f64(kept["out"], kept["n_rays"])
-        rel = abs(kept["distortion"] - ref) / max(abs(ref), 1e-30)
-        k1["distortion_rel_err"] = rel
-        log(f"  d. step {CAPTURE_STEPS} with lambda_distortion "
-            f"{CAPTURE_DISTORTION}: distortion {kept['distortion']:.6e}, "
-            f"float64 per-ray double sum {ref:.6e}, relative difference "
-            f"{rel:.2e}; loss {metrics[-1]['loss']:.5f}")
-        if rel > 1e-4 or not np.isfinite(metrics[-1]["loss"]) \
-                or system.skipped_updates:
-            fail("the distortion term on the card disagrees with the "
-                 "float64 brute force")
-        del kept
-
-        # e. the test view and one predict frame
+    hashgrid.table_grad_lookup = recording_lookup
+    try:
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         scatter.scatter_add.launches = 0
         gather.gather_rows.launches = 0
-        t0 = time.perf_counter()
-        test = system.render_image(state, splits["test"], 0)
-        test_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        frame = system.render_image(state, splits["predict"], 0)
-        torch.cuda.synchronize()
-        pred_s = time.perf_counter() - t0
-        k1["render_launches"] = scatter.scatter_add.launches
-        g1["render_launches"] = gather.gather_rows.launches
-        gt = splits["test"].all_images[0].reshape(-1, 3)
-        mse = float(np.mean((test["comp_rgb_full"] - gt) ** 2))
-        psnr = -10.0 * np.log10(max(mse, 1e-30))
-        dropped = int((~test["ray_included"]).sum())
-        h, w = splits["test"].h, splits["test"].w
-        log(f"  e. test view 0 ({w}x{h}) in {test_s:.1f} s: PSNR "
-            f"{psnr:.3f} dB, dropped rays {dropped}; predict frame 0 in "
-            f"{pred_s:.1f} s, dropped rays "
-            f"{int((~frame['ray_included']).sum())}; K1/G1 launches "
-            f"{k1['render_launches']}/{g1['render_launches']}")
-        k1["test_psnr"] = psnr
-        if not np.isfinite(psnr) or \
-                frame["comp_rgb_full"].shape != (h * w, 3) or \
-                not np.isfinite(frame["comp_rgb_full"]).all():
-            fail(f"capture renders: PSNR {psnr}, predict frame "
-                 f"{frame['comp_rgb_full'].shape}")
-        if g1["render_launches"] == 0 or k1["render_launches"] != 0:
-            fail(f"the capture's renders launched K1 "
-                 f"{k1['render_launches']}, G1 {g1['render_launches']} times")
-        del system, state
+        state, _, rate, _ = measure.train(
+            system, CAPTURE_STEPS, seed, state, on_log,
+            profile_from=CAPTURE_STEPS, window=15)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    finally:
+        hashgrid.table_grad_lookup = lookup
+    deltas = [(a - a0, b - b0) for (a, b), (a0, b0)
+              in zip(per_step, [(0, 0)] + per_step[:-1])]
+    k1["train_launches"], g1["train_launches"] = (
+        sum(d) for d in zip(*deltas))
+    k1["train_launches_per_step"] = sorted({d[0] for d in deltas})
+    g1["train_launches_per_step"] = sorted({d[1] for d in deltas})
+    log(f"    fit 0 -> {int(state['step'])}: {rate:.3f} steps/s over "
+        f"the last 15 steps; peak {peak:.2f} GiB; K1/G1 launches "
+        f"{k1['train_launches']}/{g1['train_launches']} (per step "
+        f"{k1['train_launches_per_step']} / "
+        f"{g1['train_launches_per_step']}); skipped updates "
+        f"{system.skipped_updates}; losses {losses[0]:.5f} -> "
+        f"{losses[-1]:.5f}")
+    if len(losses) != CAPTURE_STEPS or not np.all(np.isfinite(losses)) \
+            or system.skipped_updates:
+        fail(f"neus_colmap on the capture: losses {losses}, skipped "
+             f"{system.skipped_updates}")
+    if min(d[0] for d in deltas) < 2 or min(d[1] for d in deltas) < 2:
+        fail(f"a neus_colmap step without two K1 and two G1 launches "
+             f"(the foreground's and the background's tables): "
+             f"{deltas}")
+    if "rows" not in stream:
+        fail("no background encode was recorded")
+
+    # c. K1 and G1 on the background's encode stream
+    rows, vals, table = (stream.pop(k).cuda()
+                         for k in ("rows", "vals", "table"))
+    what = f"background stream (step 1, rows {list(rows.shape)})"
+    log_runs(torch, rows, what)
+    k1["bg_stream"] = check_time_scatter(
+        torch, scatter, rows.reshape(-1), vals, table.shape[0], what,
+        rows.shape[-2] * rows.shape[-1])
+    k1["bg_stream"]["step_max_abs_err"] = stream.pop("step_err")
+    g1["bg_stream"] = check_gather(torch, gather, table,
+                                   rows.reshape(-1), what)
+    del rows, vals, table
+    torch.cuda.empty_cache()
+
+    # d. one step with the distortion loss
+    system.config["system"]["loss"]["lambda_distortion"] = \
+        CAPTURE_DISTORTION
+    compute_losses, kept = system.compute_losses, {}
+
+    def spy(out, batch, step):
+        loss, terms = compute_losses(out, batch, step)
+        kept.update(out={k: out[k].detach() for k in (
+            "weights", "points", "intervals", "ray_indices",
+            "samples_valid", "ray_included")},
+            distortion=float(terms["distortion"].detach()),
+            n_rays=batch["rgb"].shape[0])
+        return loss, terms
+
+    system.compute_losses = spy
+    metrics = []
+    try:
+        state = system.fit(max_steps=CAPTURE_STEPS + 1, seed=seed,
+                           state=state, log_every=1,
+                           on_log=lambda step, m: metrics.append(m))
+    finally:
+        del system.compute_losses
+    ref = _distortion_f64(kept["out"], kept["n_rays"])
+    rel = abs(kept["distortion"] - ref) / max(abs(ref), 1e-30)
+    k1["distortion_rel_err"] = rel
+    log(f"  d. step {CAPTURE_STEPS} with lambda_distortion "
+        f"{CAPTURE_DISTORTION}: distortion {kept['distortion']:.6e}, "
+        f"float64 per-ray double sum {ref:.6e}, relative difference "
+        f"{rel:.2e}; loss {metrics[-1]['loss']:.5f}")
+    if rel > 1e-4 or not np.isfinite(metrics[-1]["loss"]) \
+            or system.skipped_updates:
+        fail("the distortion term on the card disagrees with the "
+             "float64 brute force")
+    del kept
+
+    # e. the test view and one predict frame
+    torch.cuda.synchronize()
+    scatter.scatter_add.launches = 0
+    gather.gather_rows.launches = 0
+    t0 = time.perf_counter()
+    test = system.render_image(state, splits["test"], 0)
+    test_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    frame = system.render_image(state, splits["predict"], 0)
+    torch.cuda.synchronize()
+    pred_s = time.perf_counter() - t0
+    k1["render_launches"] = scatter.scatter_add.launches
+    g1["render_launches"] = gather.gather_rows.launches
+    gt = splits["test"].all_images[0].reshape(-1, 3)
+    mse = float(np.mean((test["comp_rgb_full"] - gt) ** 2))
+    psnr = -10.0 * np.log10(max(mse, 1e-30))
+    dropped = int((~test["ray_included"]).sum())
+    h, w = splits["test"].h, splits["test"].w
+    log(f"  e. test view 0 ({w}x{h}) in {test_s:.1f} s: PSNR "
+        f"{psnr:.3f} dB, dropped rays {dropped}; predict frame 0 in "
+        f"{pred_s:.1f} s, dropped rays "
+        f"{int((~frame['ray_included']).sum())}; K1/G1 launches "
+        f"{k1['render_launches']}/{g1['render_launches']}")
+    k1["test_psnr"] = psnr
+    if not np.isfinite(psnr) or \
+            frame["comp_rgb_full"].shape != (h * w, 3) or \
+            not np.isfinite(frame["comp_rgb_full"]).all():
+        fail(f"capture renders: PSNR {psnr}, predict frame "
+             f"{frame['comp_rgb_full'].shape}")
+    if g1["render_launches"] == 0 or k1["render_launches"] != 0:
+        fail(f"the capture's renders launched K1 "
+             f"{k1['render_launches']}, G1 {g1['render_launches']} times")
+    del system, state
     torch.cuda.empty_cache()
     shutil.rmtree(out_dir, ignore_errors=True)
-    return k1, g1
+    return k1, g1, written
+
+
+# phase 14: what a user's capture or config names.  (b) phase 13's
+# capture as baseline JPEG, loaded at img_downscale 2, 16 neus_colmap
+# steps; (c) neus_sphere_full with AdamW, a chained schedule and variance
+# modulation, 24 steps; (d) LPIPS with seeded synthetic VGG16 weights
+JPEG_FIXTURES = os.path.join("tests", "data", "jpeg")
+JPEG_MIN_PSNR = 35.0  # dB: each decoded JPEG against its PNG original
+JPEG_STEPS, JPEG_ENCODERS = 16, 4
+WIDE_W = 5000  # a real capture's width (Mip-NeRF 360's full-size images)
+MOD_STEPS, MOD_WD = 24, 0.01
+MOD_SCHEDULER = {"name": "ChainedScheduler", "schedulers": [
+    {"name": "ConstantLR", "args": {"factor": 0.5, "total_iters": 4}},
+    {"name": "ExponentialLR", "args": {"gamma": 0.999}}]}
+MOD_VARIANCE = {"modulate": True, "mod_start_steps": 8,
+                "reach_max_steps": 64, "max_inv_s": 2048.0}
+# LPIPS card against CPU: float32 convs (TF32 off) in other algorithms
+LPIPS_RTOL = 1e-5
+LPIPS_CONVS = [(3, 64), (64, 64), (64, 128), (128, 128), (128, 256),
+               (256, 256), (256, 256), (256, 512), (512, 512), (512, 512),
+               (512, 512), (512, 512), (512, 512)]
+LPIPS_LINS = [64, 128, 256, 512, 512]
+
+# the JPEG writer of 14b: baseline, 4:2:0, JFIF, a restart marker after
+# every MCU row; Huffman codes of Annex K's code-length profiles with the
+# symbols in order of their count in the image
+JPEG_QUALITY, JPEG_RESTART_ROWS = 95, 1
+_Q_LUMA = [16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55,
+           14, 13, 16, 24, 40, 57, 69, 56, 14, 17, 22, 29, 51, 87, 80, 62,
+           18, 22, 37, 56, 68, 109, 103, 77, 24, 35, 55, 64, 81, 104, 113,
+           92, 49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100,
+           103, 99]
+_Q_CHROMA = [17, 18, 24, 47] + [99] * 4 + [18, 21, 26, 66] + [99] * 4 \
+    + [24, 26, 56] + [99] * 5 + [47, 66] + [99] * 38
+# codes per length 1..16 (Annex K.3's luminance DC and AC tables)
+_DC_COUNTS = [0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0]
+_AC_COUNTS = [0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 125]
+
+
+def _zigzag():
+    """The natural (row-major) index of each zigzag position."""
+    return np.array(sorted(range(64), key=lambda n: (
+        n // 8 + n % 8, n // 8 if (n // 8 + n % 8) % 2 else n % 8)))
+
+
+def _category(v):
+    """The bits of |v| (JPEG's size category), int64."""
+    a = np.abs(v).astype(np.int64)
+    s = np.zeros_like(a)
+    while (a >> s).any():
+        s += (a >> s) > 0
+    return s
+
+
+def _huffman(count, symbols, lengths):
+    """(DHT payload, code [256], length [256]) of the canonical code with
+    ``lengths[l - 1]`` codes of l bits, ``symbols`` in order of
+    ``count``."""
+    order = sorted(symbols, key=lambda s: (-int(count[s]), s))
+    code, length = np.zeros(256, np.int64), np.zeros(256, np.int64)
+    c, k = 0, 0
+    for n_bits, n in enumerate(lengths, start=1):
+        for _ in range(n):
+            code[order[k]], length[order[k]] = c, n_bits
+            c, k = c + 1, k + 1
+        c <<= 1
+    return bytes(lengths) + bytes(order), code, length
+
+
+def encode_jpeg(rgb, quality=JPEG_QUALITY, restart_rows=JPEG_RESTART_ROWS):
+    """uint8 [H, W, 3] -> a baseline JPEG file (bytes): JFIF YCbCr at
+    4:2:0, Annex K's quantisation tables scaled as IJG's at ``quality``,
+    a restart interval of ``restart_rows`` MCU rows; in numpy."""
+    import struct
+
+    h, w, _ = rgb.shape
+    mh, mw = -(-h // 16), -(-w // 16)
+    x = np.pad(rgb.astype(np.float64), ((0, mh * 16 - h), (0, mw * 16 - w),
+                                        (0, 0)), mode="edge")
+    r, g, b = x[..., 0], x[..., 1], x[..., 2]
+    planes = [0.299 * r + 0.587 * g + 0.114 * b,
+              -0.168736 * r - 0.331264 * g + 0.5 * b + 128.0,
+              0.5 * r - 0.418688 * g - 0.081312 * b + 128.0]
+    for c in (1, 2):  # 2 x 2 means
+        planes[c] = planes[c].reshape(mh * 8, 2, mw * 8, 2).mean((1, 3))
+    scale = 5000 // quality if quality < 50 else 200 - 2 * quality
+    tables = [np.clip((np.asarray(t) * scale + 50) // 100, 1, 255)
+              for t in (_Q_LUMA, _Q_CHROMA)]
+    k = np.arange(8)
+    dct = np.sqrt(np.where(k == 0, 1.0, 2.0) / 8)[:, None] * np.cos(
+        (2 * k[None, :] + 1) * k[:, None] * np.pi / 16)
+    zz = _zigzag()
+
+    def blocks(plane, q):
+        """[rows, cols] -> quantised zigzag coefficients [by, bx, 64]."""
+        p = np.clip(np.round(plane), 0, 255) - 128.0
+        p = p.reshape(p.shape[0] // 8, 8, p.shape[1] // 8, 8).transpose(
+            0, 2, 1, 3)
+        coef = (dct @ p @ dct.T).reshape(p.shape[0], p.shape[1], 64)
+        return np.round(coef / q.reshape(64)).astype(np.int64)[..., zz]
+
+    luma_blocks = blocks(planes[0], tables[0]).reshape(
+        mh, 2, mw, 2, 64).transpose(0, 2, 1, 3, 4).reshape(mh, mw, 4, 64)
+    coefs = np.concatenate(
+        [luma_blocks] + [blocks(planes[c], tables[1])[:, :, None]
+                         for c in (1, 2)], 2).reshape(-1, 64)
+    n_mcu, ri, n_b = mh * mw, restart_rows * mw, coefs.shape[0]
+    luma = np.tile([True] * 4 + [False] * 2, n_mcu)
+
+    # DC differences per component, restarted at every interval
+    dc = coefs[:, 0].reshape(n_mcu, 6)
+    diff = np.empty_like(dc)
+    for cols in ([0, 1, 2, 3], [4], [5]):
+        seq = dc[:, cols].reshape(-1)
+        prev = np.roll(seq, 1)
+        prev[np.arange(seq.size) % (len(cols) * ri) == 0] = 0
+        diff[:, cols] = (seq - prev).reshape(n_mcu, len(cols))
+    diff = diff.reshape(-1)
+    # AC: (zero run, size) of each nonzero coefficient, a ZRL per 16
+    # zeros, an EOB after a block's last nonzero before position 63
+    bi, kk = np.nonzero(coefs[:, 1:])
+    kk = kk + 1
+    prev_k = np.where(np.r_[True, bi[1:] != bi[:-1]], 0, np.r_[0, kk[:-1]])
+    run = kk - prev_k - 1
+    n_zrl = run // 16
+    ac_v = coefs[bi, kk]
+    last = np.zeros(n_b, np.int64)
+    last[bi] = kk  # in order: the last write is the block's last nonzero
+    eob = np.nonzero(last < 63)[0]
+    dc_s, ac_s = _category(diff), _category(ac_v)
+    ac_sym = ((run % 16) << 4) | ac_s
+    zrl_b = np.repeat(bi, n_zrl)
+    zrl_slot = np.repeat(kk * 4, n_zrl) + np.arange(zrl_b.size) \
+        - np.repeat(np.cumsum(n_zrl) - n_zrl, n_zrl)
+
+    dht, dc_tab, ac_tab = b"", [], []
+    ac_symbols = [0x00, 0xF0] + [(rr << 4) | s for rr in range(16)
+                                 for s in range(1, 11)]
+    for t, sel in enumerate((luma, ~luma)):  # 0: luma, 1: chroma
+        payload, code, length = _huffman(
+            np.bincount(dc_s[sel], minlength=256), range(12), _DC_COUNTS)
+        dht += bytes([t]) + payload
+        dc_tab.append((code, length))
+        count = np.bincount(ac_sym[sel[bi]], minlength=256)
+        count[0x00] += int(sel[eob].sum())
+        count[0xF0] += int(sel[zrl_b].sum())
+        payload, code, length = _huffman(count, ac_symbols, _AC_COUNTS)
+        dht += bytes([0x10 | t]) + payload
+        ac_tab.append((code, length))
+
+    def emit(tabs, blk, sym, s, v):
+        """(code << size | extra bits, code length + size) per symbol."""
+        lum = luma[blk]
+        code = np.where(lum, tabs[0][0][sym], tabs[1][0][sym])
+        length = np.where(lum, tabs[0][1][sym], tabs[1][1][sym])
+        return (code << s) | np.where(v < 0, v + (1 << s) - 1, v), length + s
+
+    zero = np.zeros(zrl_b.size + eob.size, np.int64)
+    parts = [emit(dc_tab, np.arange(n_b), dc_s, dc_s, diff),
+             emit(ac_tab, zrl_b, zero[:zrl_b.size] + 0xF0, zero[:zrl_b.size],
+                  zero[:zrl_b.size]),
+             emit(ac_tab, bi, ac_sym, ac_s, ac_v),
+             emit(ac_tab, eob, zero[:eob.size], zero[:eob.size],
+                  zero[:eob.size])]
+    blk = np.concatenate([np.arange(n_b), zrl_b, bi, eob])
+    slot = np.concatenate([np.zeros(n_b, np.int64), zrl_slot, kk * 4 + 3,
+                           np.full(eob.size, 300)])
+    order = np.argsort(blk * 512 + slot, kind="stable")
+    vals = np.concatenate([p[0] for p in parts])[order]
+    lens = np.concatenate([p[1] for p in parts])[order]
+    # each interval padded with 1-bits to a whole byte, then bit-packed
+    interval = (blk[order] // 6) // ri
+    n_int = -(-n_mcu // ri)
+    bits = np.bincount(interval, weights=lens, minlength=n_int).astype(
+        np.int64)
+    pad = (-bits) % 8
+    ends = np.searchsorted(interval, np.arange(n_int), side="right")
+    vals = np.insert(vals, ends, (1 << pad) - 1).astype(np.uint32)
+    lens = np.insert(lens, ends, pad).astype(np.int32)
+    rep = np.repeat(np.arange(lens.size, dtype=np.int32), lens)
+    shift = (np.cumsum(lens, dtype=np.int64)[rep] - 1
+             - np.arange(rep.size, dtype=np.int64)).astype(np.uint32)
+    stream = np.packbits(((vals[rep] >> shift) & 1).astype(np.uint8))
+    scan = bytearray()
+    for i, chunk in enumerate(np.split(stream,
+                                       np.cumsum((bits + pad) // 8)[:-1])):
+        if i:
+            scan += bytes([0xFF, 0xD0 + (i - 1) % 8])
+        scan += np.insert(chunk, np.nonzero(chunk == 0xFF)[0] + 1,
+                          0).tobytes()  # byte stuffing
+
+    def segment(marker, payload):
+        return bytes([0xFF, marker]) + struct.pack(">H", len(payload) + 2) \
+            + payload
+
+    dqt = b"".join(bytes([t]) + bytes(tables[t].astype(np.uint8)[zz])
+                   for t in (0, 1))
+    sof = struct.pack(">BHHB", 8, h, w, 3) + bytes(
+        [1, 0x22, 0, 2, 0x11, 1, 3, 0x11, 1])
+    return (b"\xff\xd8"
+            + segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")
+            + segment(0xDB, dqt) + segment(0xC0, sof) + segment(0xC4, dht)
+            + segment(0xDD, struct.pack(">H", ri))
+            + segment(0xDA, bytes([3, 1, 0x00, 2, 0x11, 3, 0x11, 0, 63, 0]))
+            + bytes(scan) + b"\xff\xd9")
+
+
+def _psnr_u8(a, b):
+    mse = float(np.mean((a.astype(np.float64) - b) ** 2))
+    return 10.0 * np.log10(255.0 ** 2 / max(mse, 1e-30))
+
+
+def jpeg_fixture_phase():
+    """14a: every committed fixture decoded by the port, its bytes'
+    SHA-256 and shape held to Pillow's in the manifest."""
+    import hashlib
+
+    from rise_sdf_tpu_torch.utils import jpeg
+
+    with open(os.path.join(JPEG_FIXTURES, "manifest.json")) as f:
+        manifest = json.load(f)
+    t0 = time.perf_counter()
+    jpeg.load_library()
+    build_s = time.perf_counter() - t0
+    bad, t0 = [], time.perf_counter()
+    for name, want in sorted(manifest["files"].items()):
+        img = jpeg.read_jpeg(os.path.join(JPEG_FIXTURES, name))
+        if list(img.shape) != want["shape"] or hashlib.sha256(
+                img.tobytes()).hexdigest() != want["sha256"]:
+            bad.append(name)
+    n = len(manifest["files"])
+    log(f"  a. decoder built (g++) and loaded in {build_s:.1f} s; "
+        f"{n - len(bad)} of {n} fixtures bit-equal to Pillow "
+        f"{manifest['pillow']} (libjpeg-turbo {manifest['libjpeg_turbo']}) "
+        f"by the manifest's SHA-256, decoded in "
+        f"{1e3 * (time.perf_counter() - t0):.1f} ms")
+    if bad or n < 10:
+        fail(f"JPEG fixtures not bit-equal to Pillow's decode: {bad}")
+    return n
+
+
+def jpeg_capture_phase(torch, scatter, gather, root, written):
+    """14b: phase 13's capture under ``root`` as baseline JPEG in a
+    sibling directory, decoded, loaded and trained on.  Returns the
+    record: decode ms, PSNRs, steps/s, launches."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from rise_sdf_tpu_torch import datasets, launch, presets, systems
+    from rise_sdf_tpu_torch.utils.image import resize_like_pil
+    from rise_sdf_tpu_torch.utils.jpeg import read_jpeg
+
+    views = written["views"]
+    jroot = root.rstrip(os.sep) + "_jpeg"
+    shutil.rmtree(jroot, ignore_errors=True)
+    os.makedirs(os.path.join(jroot, "images"))
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(JPEG_ENCODERS) as ex:
+        files = list(ex.map(lambda v: encode_jpeg(v["png"]), views))
+    enc_s = time.perf_counter() - t0
+    names = [f"{i:03d}.jpg" for i in range(len(views))]
+    for name, buf in zip(names, files):
+        with open(os.path.join(jroot, "images", name), "wb") as f:
+            f.write(buf)
+    write_colmap_sparse(os.path.join(jroot, "sparse", "0"), CAPTURE_W,
+                        CAPTURE_H, CAPTURE_FOCAL, written["w2c"], names,
+                        written["colmap_points"])
+    decoded, ms, psnrs = [], [], []
+    for name, v in zip(names, views):
+        t0 = time.perf_counter()
+        img = read_jpeg(os.path.join(jroot, "images", name))
+        ms.append(1e3 * (time.perf_counter() - t0))
+        decoded.append(img)
+        psnrs.append(_psnr_u8(img, v["png"]))
+    rec = {"decode_ms": float(np.median(ms)),
+           "min_psnr_db": float(min(psnrs)),
+           "mb_per_image": sum(map(len, files)) / len(files) / 1e6}
+    wide_h = round(WIDE_W * CAPTURE_H / CAPTURE_W)
+    rec["decode_ms_wide"] = rec["decode_ms"] * WIDE_W * wide_h / (
+        CAPTURE_W * CAPTURE_H)
+    log(f"  b. encoded {len(views)} views as baseline JPEG (4:2:0, quality "
+        f"{JPEG_QUALITY}, a restart marker per MCU row; "
+        f"{rec['mb_per_image']:.3f} MB each) in {enc_s:.1f} s "
+        f"({JPEG_ENCODERS} threads); decode {rec['decode_ms']:.1f} ms per "
+        f"{CAPTURE_W}x{CAPTURE_H} image on the host (median of "
+        f"{len(ms)}), by pixel count {rec['decode_ms_wide']:.0f} ms at "
+        f"{WIDE_W}x{wide_h}; PSNR against the PNG originals "
+        f"{min(psnrs):.2f}-{max(psnrs):.2f} dB (at least {JPEG_MIN_PSNR})")
+    if min(psnrs) < JPEG_MIN_PSNR:
+        fail(f"decoded JPEG capture PSNR {psnrs} below {JPEG_MIN_PSNR} dB")
+
+    cfg = launch.resolve(launch.apply_overrides(
+        presets.neus_colmap(), [f"dataset.root_dir={jroot}",
+                                f"dataset.img_downscale={CAPTURE_DOWNSCALE}"]))
+    t0 = time.perf_counter()
+    dm = datasets.make(cfg["dataset"]["name"], cfg["dataset"])
+    hold = int(dm.config.get("hold_every", 8))
+    wh = (CAPTURE_W // CAPTURE_DOWNSCALE, CAPTURE_H // CAPTURE_DOWNSCALE)
+    for name in ("train", "test"):
+        split = getattr(dm, name)()
+        ids = [i for i in range(len(views)) if (i % hold == 0)
+               == (name == "test")]
+        for k, i in enumerate(ids):
+            want = resize_like_pil(decoded[i], wh).astype(np.float32) / 255
+            if not np.array_equal(split.all_images[k], want):
+                fail(f"JPEG capture {name} view {i} is not resize_like_pil "
+                     "of its decode")
+    rec["load_s"] = time.perf_counter() - t0
+    log(f"     loaded through the colmap loader in {rec['load_s']:.1f} s, "
+        f"every image resize_like_pil of its decode")
+
+    seed = int(cfg["seed"])
+    out_dir = os.path.join("exp", "chip_smoke_jpeg")
+    system = systems.make(cfg["system"]["name"], cfg, dm,
+                          save_dir=os.path.join(out_dir, "save"),
+                          device="cuda")
+    state = system.init_state(seed)
+    state, rate, peak, deltas, losses = _train_window(
+        torch, scatter, gather, system, state, JPEG_STEPS, seed)
+    rec.update(steps_per_s=rate, k1=sum(d[0] for d in deltas),
+               g1=sum(d[1] for d in deltas),
+               k1_per_step=sorted({d[0] for d in deltas}),
+               g1_per_step=sorted({d[1] for d in deltas}))
+    log(f"     neus_colmap on it, {JPEG_STEPS} steps: {rate:.3f} steps/s, "
+        f"peak {peak:.2f} GiB, losses {losses[0]:.5f} -> {losses[-1]:.5f}, "
+        f"skipped {system.skipped_updates}; K1/G1 launches per step "
+        f"{rec['k1_per_step']} / {rec['g1_per_step']}")
+    if len(losses) != JPEG_STEPS or not np.all(np.isfinite(losses)) \
+            or system.skipped_updates:
+        fail(f"neus_colmap on the JPEG capture: losses {losses}, skipped "
+             f"{system.skipped_updates}")
+    if any(d[0] != 2 or not 2 <= d[1] <= 3 for d in deltas):
+        fail(f"a neus_colmap step on the JPEG capture without K1 twice and "
+             f"G1 two or three times: {deltas}")
+    del system, state
+    torch.cuda.empty_cache()
+    shutil.rmtree(out_dir, ignore_errors=True)
+    shutil.rmtree(jroot, ignore_errors=True)
+    return rec
+
+
+def config_surface_phase(torch, scatter, gather):
+    """14c: ``neus_sphere_full`` with AdamW, the chained schedule and
+    variance modulation, each step held to a float64 host recurrence;
+    then the state saved and loaded.  Returns the record."""
+    from rise_sdf_tpu_torch import datasets, systems
+    from rise_sdf_tpu_torch.presets import neus_sphere_full
+
+    cfg = neus_sphere_full()
+    opt = cfg["system"]["optimizer"]
+    opt["name"] = "AdamW"
+    opt["args"]["weight_decay"] = MOD_WD
+    cfg["system"]["scheduler"] = json.loads(json.dumps(MOD_SCHEDULER))
+    cfg["model"]["variance"].update(MOD_VARIANCE)
+    mv = cfg["model"]["variance"]
+    seed = int(cfg.get("seed", 42))
+    out_dir = os.path.join("exp", "chip_smoke_config")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    dm = datasets.make(cfg["dataset"]["name"], cfg["dataset"])
+    system = systems.make(cfg["system"]["name"], cfg, dm,
+                          save_dir=os.path.join(out_dir, "save"),
+                          device="cuda")
+    state = system.init_state(seed)
+    log(f"  c. neus_sphere_full + AdamW (weight_decay {MOD_WD}), "
+        f"ChainedScheduler[ConstantLR 0.5 x 4, ExponentialLR 0.999], "
+        f"modulation from step {mv['mod_start_steps']} to "
+        f"{mv['max_inv_s']:g} at {mv['reach_max_steps']}: built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not isinstance(system.optimizer, torch.optim.AdamW):
+        fail(f"the optimizer is {type(system.optimizer).__name__}")
+    groups = system.optimizer.param_groups
+    bases = list(system.scheduler.base_lrs)
+    iv = [g["name"] for g in groups].index("variance")
+    var = system.model.variance
+
+    def factor(s):  # the schedule at update s, in float64
+        return (0.5 if s < 4 else 1.0) * 0.999 ** s
+
+    seen = []
+
+    def on_log(step, m):
+        seen.append({"step": step, "inv_s": m["inv_s"],
+                     "lrs": [g["lr"] for g in groups],
+                     "prev": np.float32(var.prev_inv_s.item()),
+                     "var": np.float32(var.variance.item())})
+
+    prev0 = np.float32(var.prev_inv_s.item())
+    var0 = np.float32(var.variance.item())
+    state, rate, peak, deltas, losses = _train_window(
+        torch, scatter, gather, system, state, MOD_STEPS, seed, on_log)
+    # the float64 host recurrence, step by step from the card's values:
+    # inv_s is exp(10 v) of the variance before the step, capped past
+    # mod_start_steps by the ramp from the prev_inv_s before the step;
+    # prev_inv_s is exp(10 v) of the variance after the step up to
+    # mod_start_steps, then decays by (1 - lr_variance * wd), AdamW's
+    # step (float32: the buffer times the float32 factor; held to one
+    # ulp, the bit-equal steps counted)
+    bad, exact, capped = [], 0, 0
+    prev, v_before = prev0, var0
+    for r in seen:
+        s = r["step"]
+        if r["lrs"] != [b * factor(s + 1) for b in bases]:
+            bad.append(f"step {s}: lr {r['lrs']}")
+        raw = float(np.exp(10.0 * np.float64(v_before)))
+        want_inv_s = raw
+        if s > mv["mod_start_steps"]:
+            cap = min(s / mv["reach_max_steps"] * (mv["max_inv_s"]
+                                                   - float(prev))
+                      + float(prev), mv["max_inv_s"])
+            capped += raw > cap
+            want_inv_s = min(raw, cap)
+            if r["inv_s"] > cap * (1 + 1e-6):
+                bad.append(f"step {s}: inv_s {r['inv_s']} above {cap}")
+        if abs(r["inv_s"] - want_inv_s) > 5e-7 * want_inv_s:
+            bad.append(f"step {s}: inv_s {r['inv_s']}, host {want_inv_s}")
+        if s <= mv["mod_start_steps"]:
+            want = float(np.exp(10.0 * np.float64(r["var"])))
+            ok = abs(float(r["prev"]) - want) <= 5e-7 * want
+        else:
+            want = prev * np.float32(1.0 - bases[iv] * factor(s) * MOD_WD)
+            ok = abs(float(r["prev"]) - float(want)) <= float(
+                np.spacing(want))
+            exact += bool(r["prev"] == want)
+        if not ok:
+            bad.append(f"step {s}: prev_inv_s {r['prev']}, host {want}")
+        prev, v_before = r["prev"], r["var"]
+    rec = {"steps_per_s": rate, "k1": sum(d[0] for d in deltas),
+           "g1": sum(d[1] for d in deltas),
+           "k1_per_step": sorted({d[0] for d in deltas}),
+           "g1_per_step": sorted({d[1] for d in deltas}),
+           "prev_inv_s": [float(seen[0]["prev"]), float(seen[-1]["prev"])],
+           "exact_steps": exact, "capped_steps": capped}
+    log(f"     {MOD_STEPS} steps: {rate:.3f} steps/s, peak {peak:.2f} GiB, "
+        f"losses {losses[0]:.5f} -> {losses[-1]:.5f}, skipped "
+        f"{system.skipped_updates}; K1/G1 launches per step "
+        f"{rec['k1_per_step']} / {rec['g1_per_step']}; every group's lr "
+        f"equal to base x schedule; prev_inv_s {rec['prev_inv_s'][0]:.4f} "
+        f"-> {rec['prev_inv_s'][1]:.4f} ({exact} of "
+        f"{MOD_STEPS - 1 - mv['mod_start_steps']} decay steps bit-equal to "
+        f"the recurrence), inv_s <= the cap ({capped} steps capped)")
+    if bad or len(seen) != MOD_STEPS:
+        fail(f"config surface against the host recurrence: {bad[:6]}")
+    if len(losses) != MOD_STEPS or not np.all(np.isfinite(losses)) \
+            or system.skipped_updates:
+        fail(f"config surface: losses {losses}, skipped "
+             f"{system.skipped_updates}")
+    if any(d[0] != 1 or not 1 <= d[1] <= 2 for d in deltas):
+        fail(f"a config-surface step without K1 once and G1 once or twice: "
+             f"{deltas}")
+    ckpt = os.path.join(out_dir, "state.ckpt.npz")
+    t0 = time.perf_counter()
+    system.save_checkpoint(state, ckpt)
+    other = systems.make(cfg["system"]["name"], cfg, dm,
+                         save_dir=os.path.join(out_dir, "save"),
+                         device="cuda")
+    loaded = other.load_checkpoint(ckpt)
+    diff = _same_state(torch, system, other, state, loaded)
+    log(f"     saved and loaded in {time.perf_counter() - t0:.1f} s: "
+        f"prev_inv_s {float(other.model.variance.prev_inv_s):.6f}; "
+        f"{len(diff)} tensors differ (params, buffers, AdamW moments and "
+        f"counts, lrs)")
+    if diff:
+        fail(f"the AdamW / modulation state does not load back: {diff}")
+    del system, other, state, loaded
+    torch.cuda.empty_cache()
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return rec
+
+
+def write_lpips_weights(path, seed=0):
+    """Seeded synthetic VGG16-LPIPS weights (fan-in scaled) in the keys of
+    ``scripts/convert_lpips_weights.py``: ``conv{i}_w`` HWIO,
+    ``conv{i}_b``, ``lin{k}``."""
+    rng = np.random.RandomState(seed)
+    w = {}
+    for i, (cin, cout) in enumerate(LPIPS_CONVS):
+        w[f"conv{i}_w"] = (rng.randn(3, 3, cin, cout)
+                           * np.sqrt(2.0 / (9 * cin))).astype(np.float32)
+        w[f"conv{i}_b"] = (rng.randn(cout) * 0.01).astype(np.float32)
+    for k, c in enumerate(LPIPS_LINS):
+        w[f"lin{k}"] = (np.abs(rng.randn(c)) / c).astype(np.float32)
+    np.savez(path, **w)
+
+
+def lpips_phase(torch, scatter, gather, trained, state, pair):
+    """14d: LPIPS on phase 9's view-0 pair, card against CPU, and the
+    test protocol on one view with the weights set.  Returns the
+    record."""
+    from rise_sdf_tpu_torch import measure
+    from rise_sdf_tpu_torch.systems import lpips
+
+    pred, gt = pair
+    rec = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "vgg16_lpips.npz")
+        write_lpips_weights(path)
+        os.environ["RISE_SDF_LPIPS_WEIGHTS"] = path
+        lpips.reset_cache()
+        try:
+            card = lpips.lpips(pred, gt, device="cuda")  # cuDNN warm-up
+            times = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                card = lpips.lpips(pred, gt, device="cuda")
+                times.append(1e3 * (time.perf_counter() - t0))
+            t0 = time.perf_counter()
+            cpu = lpips.lpips(pred, gt, device="cpu")
+            rec.update(card=card, cpu=cpu, ms=float(np.median(times)),
+                       cpu_ms=1e3 * (time.perf_counter() - t0),
+                       rel_err=abs(card - cpu) / max(abs(cpu), 1e-30))
+            log(f"  d. LPIPS (synthetic VGG16 weights) of phase 9's view 0 "
+                f"({pred.shape[1]}x{pred.shape[0]}): card {card:.8f} in "
+                f"{rec['ms']:.2f} ms (median of 5, TF32 off), CPU "
+                f"{cpu:.8f} in {rec['cpu_ms']:.0f} ms; relative difference "
+                f"{rec['rel_err']:.2e} (at most {LPIPS_RTOL:g})")
+            if not np.isfinite(card) or rec["rel_err"] > LPIPS_RTOL:
+                fail("LPIPS on the card disagrees with the CPU")
+            test_system = measure.test_system(trained, n_images=1)
+            run = measure.run_test(test_system, state, log=log)
+        finally:
+            del os.environ["RISE_SDF_LPIPS_WEIGHTS"]
+            lpips.reset_cache()
+    shutil.rmtree(os.path.join("exp", "test_protocol"), ignore_errors=True)
+    want = ["phys_lpips", "albedo_lpips"] + [
+        f"relight_lpips_{light}" for light in test_system.relight_list]
+    got = {k: run["metrics"].get(k) for k in want}
+    rec.update(test_s=run["s_per_view"], g1=run["g1_launches"],
+               k1=run["k1_launches"], metrics=got)
+    log(f"     test protocol on one view with the weights: "
+        f"{run['s_per_view']:.1f} s, {json.dumps(got)}; G1/K1 launches "
+        f"{run['g1_launches']}/{run['k1_launches']}")
+    if not all(v is not None and np.isfinite(v) for v in got.values()):
+        fail(f"test protocol LPIPS metrics {got}")
+    if run["g1_launches"] == 0 or run["k1_launches"]:
+        fail(f"the test protocol launched G1 {run['g1_launches']}, K1 "
+             f"{run['k1_launches']} times")
+    return rec
 
 
 def check_recorded_step(torch, scatter, table, encodes, stream):
@@ -2081,7 +2658,7 @@ def main():
     ap.add_argument("--steps", type=int, default=120)
     ap.add_argument("--split-steps", type=int, default=32,
                     help="steps in each of the flagship's two windows")
-    ap.add_argument("--test-views", type=int, default=4,
+    ap.add_argument("--test-views", type=int, default=2,
                     help="test views of the test protocol's multi-emitter "
                          "run")
     ap.add_argument("--resume-steps", type=int, default=32,
@@ -2142,8 +2719,9 @@ def main():
     log(f"test protocol: split_mixed_occ_test_full at step "
         f"{int(state['step'])}, {args.test_views} views x (learned, warm, "
         f"bright) + view 0 in single-light mode:")
-    g1["test_launches"], g1["test_protocol"] = test_protocol_phase(
-        torch, gather, scatter, system, state, args.test_views)
+    g1["test_launches"], g1["test_protocol"], lpips_pair = \
+        test_protocol_phase(torch, gather, scatter, system, state,
+                            args.test_views)
     log(f"lifecycle: split_mixed_occ_test_full from step "
         f"{int(state['step'])}: save, load, {args.resume_steps} resumed "
         f"steps, export, the launch CLI:")
@@ -2151,7 +2729,6 @@ def main():
     life = lifecycle_phase(torch, gather, scatter, system, state,
                            args.resume_steps)
     log(f"  phase {time.perf_counter() - t0:.1f} s")
-    del system, state
     log(f"data parallel: split_mixed_occ_train_full from step "
         f"{measure.SPLIT_STAGE1_STEP}, {measure.DDP_STEPS} steps over ranks "
         f"+ 1 sharded view:")
@@ -2177,9 +2754,34 @@ def main():
         f"at img_downscale {CAPTURE_DOWNSCALE}, {CAPTURE_STEPS} steps, one "
         f"step with the distortion loss, the test view and one predict "
         f"frame:")
-    t0 = time.perf_counter()
-    k1["capture"], g1["capture"] = capture_phase(torch, scatter, gather)
-    log(f"  phase {time.perf_counter() - t0:.1f} s")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        png_root = os.path.join(tmp, "png")
+        os.makedirs(png_root)
+        k1["capture"], g1["capture"], written = capture_phase(
+            torch, scatter, gather, png_root)
+        log(f"  phase {time.perf_counter() - t0:.1f} s")
+        log(f"what a capture or config names: the JPEG fixtures; the "
+            f"capture as JPEG, neus_colmap {JPEG_STEPS} steps; "
+            f"neus_sphere_full with AdamW, a chained schedule and variance "
+            f"modulation, {MOD_STEPS} steps; LPIPS:")
+        t0 = time.perf_counter()
+        p14 = {"fixtures": jpeg_fixture_phase(),
+               "jpeg_capture": jpeg_capture_phase(
+                   torch, scatter, gather, os.path.join(tmp, "jpeg"),
+                   written)}
+        del written
+    p14["config_surface"] = config_surface_phase(torch, scatter, gather)
+    p14["lpips"] = lpips_phase(torch, scatter, gather, system, state,
+                               lpips_pair)
+    del system, state, lpips_pair
+    torch.cuda.empty_cache()
+    p14["seconds"] = time.perf_counter() - t0
+    log(f"  phase {p14['seconds']:.1f} s")
+    log(f"  phase 14: {json.dumps(p14)}")
+    for key, rec in (("k1", k1), ("g1", g1)):
+        rec["phase14"] = {part: p14[part][key] for part in (
+            "jpeg_capture", "config_surface", "lpips")}
     k1["resume_launches"] = life["k1"]
     g1["resume_launches"] = life["g1"]
     g1["export_launches"] = life["g1_export"]
@@ -2199,7 +2801,7 @@ def main():
     extra = ("train_stream", "render_stream", "per_step", "probe_stream",
              "flagship_per_step", "flagship_launches", "test_launches",
              "test_protocol", "resume_launches", "resume_launches_per_step",
-             "export_launches", "ddp", "scene", "capture")
+             "export_launches", "ddp", "scene", "capture", "phase14")
     log(json.dumps({"kernels": [
         {"name": "scatter_add (K1)", "route": "cuda", "source": SRC_K1,
          "replaces": REPLACES_K1, **{k: k1[k] for k in keys},

@@ -13,8 +13,12 @@ state beside them, in the keys of the JAX package's optax chain
 (``scale_by_adam``, a stateless per-group scale, ``scale_by_schedule``,
 ``scale``): ``opt_state/0/count`` (Adam's update count, one scalar: the
 ``step`` of every torch parameter), ``opt_state/0/mu/<param>`` and
-``opt_state/0/nu/<param>`` (torch's ``exp_avg`` and ``exp_avg_sq``),
-``opt_state/2/count`` (the schedule's count: ``LambdaLR.last_epoch``).
+``opt_state/0/nu/<param>`` (torch's ``exp_avg`` and ``exp_avg_sq``; a
+persistent buffer such as ``variance/prev_inv_s`` is a leaf of JAX's
+params and has its moments too, see ``systems/optim.py``),
+``opt_state/2/count`` (the schedule's count: ``LambdaLR.last_epoch``;
+``opt_state/3/count`` under AdamW, whose ``add_decayed_weights`` takes
+index 1 and holds no state).
 The system adds ``occs``, ``occ_binary`` and ``step``.
 """
 
@@ -72,12 +76,28 @@ def to_jax_params(state_dict) -> Dict[str, np.ndarray]:
 
 MU, NU = "opt_state/0/mu/", "opt_state/0/nu/"
 ADAM_COUNT, SCHEDULE_COUNT = "opt_state/0/count", "opt_state/2/count"
+# AdamW's chain has add_decayed_weights (no state) at index 1, so its
+# schedule sits one further on
+ADAMW_SCHEDULE_COUNT = "opt_state/3/count"
+
+
+def schedule_count_key(optimizer) -> str:
+    """The state path of the schedule's count in the JAX chain that
+    ``optimizer`` stands for."""
+    return ADAMW_SCHEDULE_COUNT if isinstance(
+        optimizer, torch.optim.AdamW) else SCHEDULE_COUNT
 
 
 def host_copy(t: torch.Tensor) -> np.ndarray:
     """A host copy (never a view of a live tensor: an asynchronous
     writer may still read it while training goes on)."""
     return t.detach().to("cpu", copy=True).numpy()
+
+
+def leaf_names(model) -> Dict[torch.Tensor, str]:
+    """Each tensor of the model's state_dict (its parameters and
+    persistent buffers, the leaves of the JAX params tree) -> its name."""
+    return {t: n for n, t in model.state_dict(keep_vars=True).items()}
 
 
 def to_jax_state(model, optimizer, scheduler) -> Dict[str, np.ndarray]:
@@ -87,7 +107,7 @@ def to_jax_state(model, optimizer, scheduler) -> Dict[str, np.ndarray]:
     Raises ``ValueError`` when the parameters' step counts differ: the
     JAX state has one count for all."""
     flat = {jax_path(k): host_copy(v) for k, v in model.state_dict().items()}
-    names = {p: n for n, p in model.named_parameters()}
+    names = leaf_names(model)
     counts = set()
     for group in optimizer.param_groups:
         for p in group["params"]:
@@ -101,7 +121,8 @@ def to_jax_state(model, optimizer, scheduler) -> Dict[str, np.ndarray]:
         raise ValueError(f"Adam's step counts differ across parameters: "
                          f"{sorted(counts)}")
     flat[ADAM_COUNT] = np.asarray(counts.pop() if counts else 0, np.int32)
-    flat[SCHEDULE_COUNT] = np.asarray(scheduler.last_epoch, np.int32)
+    flat[schedule_count_key(optimizer)] = np.asarray(scheduler.last_epoch,
+                                                     np.int32)
     return flat
 
 
@@ -119,7 +140,8 @@ def from_jax_state(flat: Dict[str, np.ndarray]) -> Dict:
     return {"params": from_jax_params(flat), "exp_avg": moments(MU),
             "exp_avg_sq": moments(NU),
             "count": int(flat.get(ADAM_COUNT, 0)),
-            "schedule_count": int(flat.get(SCHEDULE_COUNT, 0))}
+            "schedule_count": int(flat.get(
+                SCHEDULE_COUNT, flat.get(ADAMW_SCHEDULE_COUNT, 0)))}
 
 
 def load_npz(path: str) -> Dict[str, np.ndarray]:

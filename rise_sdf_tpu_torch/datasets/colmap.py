@@ -12,9 +12,9 @@ is a spheric trajectory of ``n_test_traj_steps`` poses.
 
 Images are read as PIL's ``Image.open(p).convert("RGB")`` and masks as
 ``.convert("L")`` give them, then resized as ``Image.resize(wh,
-Image.BICUBIC)`` (``utils/image.py``).  Only PNG files are read: any
-other image type raises ``ValueError`` (JPEG is an open item of
-``ROADMAP.md``).  Where the JAX loader reads every image for each split
+Image.BICUBIC)`` (``utils/image.py``).  PNG (``utils/png.py``) and
+baseline JPEG (``utils/jpeg.py``) are read, told apart by their first
+bytes; any other file raises ``ValueError``.  Where the JAX loader reads every image for each split
 and keeps the split's, this one reads only the split's (none for
 ``predict``), and the data module builds each split once.
 """
@@ -35,6 +35,7 @@ from .colmap_utils import (
     read_points3d_binary,
 )
 from ..utils.image import resize_like_pil
+from ..utils.jpeg import SIGNATURE as JPEG_SIGNATURE, read_jpeg
 from ..utils.png import read_png
 from ..utils.rays import get_ray_directions
 
@@ -149,14 +150,16 @@ def create_spheric_poses(cameras: np.ndarray, n_steps=120) -> np.ndarray:
 
 
 def _read(path: str) -> np.ndarray:
-    """A PNG as uint8 [H, W, C]; ``ValueError`` for any other file."""
+    """A PNG or JPEG as uint8 [H, W, C]; ``ValueError`` for any other
+    file."""
     with open(path, "rb") as f:
         head = f.read(len(_PNG))
-    if head != _PNG:
-        raise ValueError(
-            f"{path}: the colmap loader reads PNG images only; JPEG and "
-            "other image types are not read yet (ROADMAP.md, Queue 1)")
-    return read_png(path)
+    if head == _PNG:
+        return read_png(path)
+    if head.startswith(JPEG_SIGNATURE):
+        return read_jpeg(path)
+    raise ValueError(f"{path}: the colmap loader reads PNG and JPEG "
+                     "images only")
 
 
 def to_rgb(img: np.ndarray) -> np.ndarray:
@@ -285,7 +288,7 @@ class ColmapDataModule:
 
     def split(self, name):
         """The split ``name``, read on first use (a capture's hundreds of
-        PNGs are decoded once per run, not at every validation)."""
+        images are decoded once per run, not at every validation)."""
         if name not in self._splits:
             self._splits[name] = ColmapSplit(self.config, name)
         return self._splits[name]

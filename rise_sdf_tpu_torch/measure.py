@@ -371,7 +371,8 @@ def test_protocol(trained, state, views=None, profile_view=None,
     single-light run's images and metrics are held against the
     multi-emitter run's view 0: the largest difference of each image and
     the share of its pixels more than 1e-4 apart, and the largest
-    difference of the metrics."""
+    difference of the metrics.  ``view0_pair`` is view 0's phys render
+    and its ground truth, [H, W, 3] each (LPIPS' input)."""
     multi = run_test(test_system(trained, n_images=views), state,
                      profile_view=profile_view, log=log)
     log(f"  multi-emitter: {multi['s_per_view']:.2f} s/view "
@@ -396,7 +397,11 @@ def test_protocol(trained, state, views=None, profile_view=None,
         abs(single["metrics"][k] - v) for k, v in view0_metrics.items())
     for run in (multi, single):
         del run["images"]
-    return {"multi": multi, "single": single}
+    split = single_system.datamodule.test()
+    shape = (split.h, split.w, 3)
+    pair = (view0["comp_rgb_phys_full"].reshape(shape),
+            single_system._gt(split, 0)[0].reshape(shape))
+    return {"multi": multi, "single": single, "view0_pair": pair}
 
 
 def _split_main(steps):
@@ -441,6 +446,7 @@ def _test_main(steps):
     res = test_protocol(system, state, profile_view=1,
                         log=lambda msg: print(msg, file=sys.stderr,
                                               flush=True))
+    del res["view0_pair"]
     shutil.rmtree(save, ignore_errors=True)
     shutil.rmtree(os.path.join("exp", "test_protocol"), ignore_errors=True)
     return {"step": int(state["step"]), "stage1_steps_per_s": rate, **res}

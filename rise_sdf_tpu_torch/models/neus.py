@@ -110,7 +110,7 @@ class NeuSModel(nn.Module):
     def occ_eval(self, x, step):
         """Per-cell occupancy alpha for the grid EMA update."""
         sdf = self.geometry.sdf(x, step)
-        return occ_eval_alpha(sdf, self.variance.inv_s(),
+        return occ_eval_alpha(sdf, self.variance.inv_s(step),
                               self.render_step_size)
 
     def forward_bg(self, rays_o, rays_d, step):
@@ -174,7 +174,7 @@ class NeuSModel(nn.Module):
                             levels=levels)
         sdf, sdf_grad, feature = geo["sdf"], geo["grad"], geo["feature"]
         normal = _normalize(sdf_grad)
-        inv_s = self.variance.inv_s()
+        inv_s = self.variance.inv_s(step)
         true_cos = torch.sum(t_dirs * normal, -1)
         alpha = neus_alpha(sdf, inv_s, true_cos, dists,
                            self.cos_anneal_ratio(step))

@@ -150,7 +150,7 @@ class SplitMixedOccModel(nn.Module):
 
     def occ_eval(self, x, step, levels=None):
         sdf = self.geometry.sdf(x, step, levels=levels)
-        return occ_eval_alpha(sdf, self.variance.inv_s(),
+        return occ_eval_alpha(sdf, self.variance.inv_s(step),
                               self.render_step_size)
 
     def prefilter_on(self, step: int, train: bool = True) -> bool:
@@ -191,7 +191,7 @@ class SplitMixedOccModel(nn.Module):
                                 levels=levels)
             sdf, grad = geo["sdf"], geo["grad"]
         true_cos = torch.sum(t_dirs * _normalize(grad), -1)
-        return neus_alpha(sdf, self.variance.inv_s(), true_cos, dists,
+        return neus_alpha(sdf, self.variance.inv_s(step), true_cos, dists,
                           cos_anneal_ratio)
 
     def compute_indirect_radiance(self, rays_o, rays_d, occ_binary, step,
@@ -373,7 +373,7 @@ class SplitMixedOccModel(nn.Module):
             def sdf_fn(p):
                 return self.geometry.sdf(p, step, levels=levels)
         return march.compute_visibility_cut(
-            rays_o, rays_d, sdf_fn=sdf_fn, inv_s=self.variance.inv_s(),
+            rays_o, rays_d, sdf_fn=sdf_fn, inv_s=self.variance.inv_s(step),
             aabb_min=self.aabb_min, aabb_max=self.aabb_max,
             step_size=self.render_step_size,
             num_samples=self.num_samples_per_ray, capacity=cap,
@@ -429,7 +429,7 @@ class SplitMixedOccModel(nn.Module):
                             laplace_dirs=laplace_dirs)
         feature = geo["feature"]
         normal = _normalize(geo["grad"])
-        inv_s = self.variance.inv_s()
+        inv_s = self.variance.inv_s(step)
         true_cos = torch.sum(t_dirs * normal, -1)
         alpha = neus_alpha(geo["sdf"], inv_s, true_cos, dists,
                            self.cos_anneal_ratio(step))

@@ -193,6 +193,16 @@ class MLP(nn.Module):
 # --------------------------------------------------------------------------- #
 
 
+class Identity(nn.Module):
+    """``otype: Identity`` (``rise_sdf_tpu/nn.py:Identity``): no
+    parameters, the input as it is (the JAX params subtree is empty)."""
+
+    n_output_dims = None
+
+    def forward(self, x):
+        return x
+
+
 class FrequencyEncoding(nn.Module):
     """sin/cos at frequencies 2^0 .. 2^(n-1), band-major, with the
     optional cosine-window progressive mask over ``n_masking_step``."""
@@ -345,8 +355,10 @@ def get_encoding(n_input_dims: int, config) -> CompositeEncoding:
     )
 
 
-def get_mlp(n_input_dims: int, n_output_dims: int, config) -> MLP:
+def get_mlp(n_input_dims: int, n_output_dims: int, config) -> nn.Module:
     otype = config["otype"]
     if otype == "VanillaMLP":
         return MLP(n_input_dims, n_output_dims, dict(config))
-    raise ValueError(f"MLP otype '{otype}' is not ported")
+    if otype == "Identity":
+        return Identity()
+    raise ValueError(f"Unknown MLP otype '{otype}'")

@@ -102,20 +102,21 @@ class BaseSystem:
         """Every entry a full checkpoint of this system holds, by JAX
         state path, with its shape."""
         shapes = {bridge.jax_path(n): tuple(p.shape)
-                  for n, p in self.model.named_parameters()}
+                  for n, p in self.model.state_dict().items()}
         for group in self.optimizer.param_groups:
             for p in group["params"]:
                 path = bridge.jax_path(self._param_names[p])[len("params/"):]
                 shapes[bridge.MU + path] = shapes[bridge.NU + path] = \
                     tuple(p.shape)
         cells = (self.model.grid_resolution ** 3,)
-        shapes.update({bridge.ADAM_COUNT: (), bridge.SCHEDULE_COUNT: (),
+        shapes.update({bridge.ADAM_COUNT: (),
+                       bridge.schedule_count_key(self.optimizer): (),
                        "occs": cells, "occ_binary": cells, "step": ()})
         return shapes
 
     @property
     def _param_names(self):
-        return {p: n for n, p in self.model.named_parameters()}
+        return bridge.leaf_names(self.model)
 
     def save_checkpoint(self, state, path: Optional[str] = None,
                         async_write: bool = False) -> str:

@@ -18,8 +18,10 @@ rendered under the learned light and under each light of the dataset's
 chunk (``forward_multi``) unless ``system.multi_emitter_eval`` is false;
 it reports novel-view PSNR, phys PSNR and SSIM, median-aligned albedo
 PSNR and SSIM and roughness PSNR, the normals' mean angular error, and
-per light the relight PSNR and SSIM.  There is no LPIPS (its weights are
-a download).  Then, by default, ``export`` writes the mesh with its
+per light the relight PSNR and SSIM, and, when the LPIPS weights are
+present (``systems/lpips.py``), the phys, albedo and per-light relight
+LPIPS (``phys_lpips``, ``albedo_lpips``, ``relight_lpips_{light}``, where
+JAX adds them; without weights the keys are absent).  Then, by default, ``export`` writes the mesh with its
 baked albedo, metallic and roughness (``NeuSSystem.export``).
 ``predict`` renders every test view under one environment file.
 """
@@ -33,6 +35,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from . import lpips as lpips_metric
 from . import register
 from .criterions import mean_angular_error, psnr, ssim
 from .neus import NeuSSystem
@@ -324,15 +327,25 @@ class SplitOccSystem(NeuSSystem):
         for each light of ``relight_list``: PSNR, phys PSNR and SSIM,
         median-aligned albedo PSNR and SSIM and roughness PSNR, the
         normals' mean angular error in degrees over the foreground, and
-        per light the median-aligned relight PSNR and SSIM.  The median
-        alignment runs on the host; the metrics on the device."""
+        per light the median-aligned relight PSNR and SSIM; with the
+        LPIPS weights present, the phys, albedo and relight LPIPS beside
+        them.  The median alignment runs on the host; the metrics on the
+        device."""
         h, w = split.h, split.w
         gt, mask = self._gt(split, i)
         phys = out["comp_rgb_phys_full"]
+        use_lpips = lpips_metric.available()
+
+        def lpips(a, b):
+            return lpips_metric.lpips(a.reshape(h, w, 3), b.reshape(h, w, 3),
+                                      device=self.device)
+
         res = {"psnr": psnr(self._dev(out["comp_rgb_full"]), self._dev(gt)),
                "phys_psnr": psnr(self._dev(phys), self._dev(gt)),
                "phys_ssim": ssim(self._dev(phys.reshape(h, w, 3)),
                                  self._dev(gt.reshape(h, w, 3)))}
+        if use_lpips:
+            res["phys_lpips"] = lpips(phys, gt)
         ds = self.config["dataset"]
         if ds.get("has_albedo", False):
             gt_alb = split.all_albedo[i].reshape(-1, 3)
@@ -340,6 +353,8 @@ class SplitOccSystem(NeuSSystem):
             res["albedo_psnr"] = psnr(self._dev(alb), self._dev(gt_alb))
             res["albedo_ssim"] = ssim(self._dev(alb.reshape(h, w, 3)),
                                       self._dev(gt_alb.reshape(h, w, 3)))
+            if use_lpips:
+                res["albedo_lpips"] = lpips(alb, gt_alb)
         if ds.get("has_roughness", False):
             gt_r = split.all_roughness[i].reshape(-1, 1)
             r = self._median_align(out["comp_roughness"], gt_r, mask)
@@ -358,6 +373,8 @@ class SplitOccSystem(NeuSSystem):
             res[f"relight_ssim_{light}"] = ssim(
                 self._dev(pred.reshape(h, w, 3)),
                 self._dev(gt_rel.reshape(h, w, 3)))
+            if use_lpips:
+                res[f"relight_lpips_{light}"] = lpips(pred, gt_rel)
         return {k: float(v) for k, v in res.items()}
 
     def test(self, state, export: bool = True) -> Dict[str, float]:

@@ -9,8 +9,10 @@ float64 numpy, so it is in fact exact); the splits' images, masks,
 directions and poses are bit-equal to JAX's ``ColmapSplit`` (whose
 images PIL reads and resizes), for every camera model the JAX loader
 reads, without masks and with masks under both name forms.  The predict
-trajectory is held at 1e-6.  A JPEG in ``images/`` raises
-``ValueError`` in the port."""
+trajectory is held at 1e-6.  A capture of JPEG images and masks (grey,
+4:4:4, 4:2:2 and 4:2:0, with and without restart intervals) is read
+bit-equal to JAX's; a progressive JPEG raises ``ValueError`` naming the
+file in the port."""
 
 import os
 import struct
@@ -114,11 +116,30 @@ def rotmat2qvec(r):
     return q * (1 if q[0] >= 0 else -1)
 
 
-def write_capture(root, model="PINHOLE", masks=None, seed=0, jpeg=False):
+# PIL JPEG settings of the JPEG captures, one per view in turn
+JPEG_KINDS = [{"subsampling": 2, "quality": 90},
+              {"subsampling": 0, "quality": 75, "restart_marker_blocks": 3},
+              {"quality": 95},
+              {"subsampling": 1, "quality": 50, "restart_marker_rows": 1,
+               "optimize": True}]
+
+
+def _save(img, path, jpeg, i):
+    if jpeg is None:
+        img.save(path)
+    elif jpeg == "all":
+        img.save(path, "JPEG", **JPEG_KINDS[i % len(JPEG_KINDS)])
+    else:
+        img.save(path, "JPEG", **jpeg)
+
+
+def write_capture(root, model="PINHOLE", masks=None, seed=0, jpeg=None):
     """A capture of ``N_VIEWS`` W x H images (RGB, RGBA and grey PNGs in
     turn) under ``root``; ``masks``: None, or "both" (grey and RGB mask
     PNGs, every other one under the name without its first three
-    characters)."""
+    characters).  ``jpeg="all"``: every image and mask a JPEG instead
+    (RGB, RGB and grey in turn, in the ``JPEG_KINDS`` settings); a dict:
+    image 4 a JPEG written with those PIL settings."""
     rng = np.random.default_rng(seed)
     os.makedirs(os.path.join(root, "images"))
     os.makedirs(os.path.join(root, "sparse", "0"))
@@ -136,10 +157,11 @@ def write_capture(root, model="PINHOLE", masks=None, seed=0, jpeg=False):
         mode = ("RGB", "RGBA", "L")[i % 3]
         c = {"RGB": 3, "RGBA": 4, "L": 1}[mode]
         px = rng.integers(0, 256, (H, W, c), dtype=np.uint8)
-        if jpeg and i == 4:
+        every = jpeg == "all"
+        if every or (jpeg and i == 4):
             name = f"img{i:03d}.jpg"
-            Image.fromarray(px[..., :3] if c >= 3 else px[..., 0]).save(
-                os.path.join(root, "images", name))
+            _save(Image.fromarray(px[..., :3] if c >= 3 else px[..., 0]),
+                  os.path.join(root, "images", name), jpeg, i)
         else:
             Image.fromarray(px if c > 1 else px[..., 0], mode).save(
                 os.path.join(root, "images", name))
@@ -147,8 +169,9 @@ def write_capture(root, model="PINHOLE", masks=None, seed=0, jpeg=False):
             m = rng.integers(0, 256, (H, W, 3), dtype=np.uint8)
             img = Image.fromarray(m[..., 0], "L") if i % 2 \
                 else Image.fromarray(m, "RGB")
-            img.save(os.path.join(root, "masks",
-                                  name if i % 4 < 2 else name[3:]))
+            _save(img, os.path.join(root, "masks",
+                                    name if i % 4 < 2 else name[3:]),
+                  "all" if every else None, i + 1)
         metas.append((i + 1, q, t, 1, name, rng.uniform(0, W, (3, 2)),
                       [1, 2, -1]))
     # COLMAP's images.bin order is not the id order
@@ -272,15 +295,42 @@ def test_img_wh_and_full_size(tmp_path):
         colmap.ColmapSplit(dict(_config(root), img_wh=[12, 12]), "train")
 
 
-def test_jpeg_raises_value_error(tmp_path):
+@pytest.mark.parametrize("masks", [None, "both"])
+def test_jpeg_capture_is_bit_equal_to_jax(tmp_path, masks):
     root = str(tmp_path)
-    write_capture(root, "PINHOLE", jpeg=True)
-    # the JAX loader reads it with PIL
+    write_capture(root, "SIMPLE_RADIAL", masks, seed=3, jpeg="all")
+    assert sorted(os.listdir(os.path.join(root, "images")))[0] == \
+        "img000.jpg"
+    cfg = _config(root)
+    for name in ("train", "test"):
+        got = colmap.ColmapSplit(cfg, name)
+        want = jcolmap.ColmapSplit(dict(cfg), name)
+        for k in ("all_images", "all_fg_masks"):
+            a, b = getattr(got, k), getattr(want, k)
+            assert a.dtype == b.dtype and a.shape == b.shape, k
+            np.testing.assert_array_equal(a, b, err_msg=k)
+    # at the stored size too: the decoded bytes themselves
+    cfg = dict(cfg, img_downscale=1)
+    np.testing.assert_array_equal(
+        colmap.ColmapSplit(cfg, "train").all_images,
+        jcolmap.ColmapSplit(dict(cfg), "train").all_images)
+
+
+def test_jpeg_raises_value_error(tmp_path):
+    """A JPEG kind the port does not read (progressive) raises
+    ``ValueError`` naming the file; the JAX loader reads it with PIL."""
+    root = str(tmp_path)
+    write_capture(root, "PINHOLE", jpeg={"progressive": True})
     assert len(jcolmap.ColmapSplit(_config(root), "train")) == 7
-    with pytest.raises(ValueError, match=r"img004\.jpg.*PNG.*ROADMAP\.md"):
+    with pytest.raises(ValueError, match=r"img004\.jpg.*progressive"):
         colmap.ColmapSplit(_config(root), "train")
     # the predict split reads no image
     assert len(colmap.ColmapSplit(_config(root), "predict")) == 5
+    # neither PNG nor JPEG
+    with open(os.path.join(root, "images", "img004.jpg"), "wb") as f:
+        f.write(b"GIF89a" + bytes(32))
+    with pytest.raises(ValueError, match=r"img004\.jpg.*PNG and JPEG"):
+        colmap.ColmapSplit(_config(root), "train")
 
 
 def test_grey_and_rgb_conversions_match_pil():

@@ -264,7 +264,8 @@ def test_port_imports_no_jax_yaml_or_reference():
         "        'launch', 'bridge', 'parallel.sharding',\n"
         "        'parallel.dryrun', 'utils.png', 'utils.hdr',\n"
         "        'utils.image', 'datasets.tensoir', 'datasets.blender',\n"
-        "        'datasets.colmap', 'datasets.colmap_utils')]\n"
+        "        'datasets.colmap', 'datasets.colmap_utils',\n"
+        "        'utils.jpeg', 'systems.lpips')]\n"
         "assert all(m in sys.modules for m in need), need\n"
         "from rise_sdf_tpu_torch.bridge import to_jax_state, from_jax_state\n"
         "print(len([m for m in sys.modules if m.startswith(p.__name__)]))\n")
