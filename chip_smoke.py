@@ -214,6 +214,38 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    ``relight_lpips_{light}`` are finite, G1 launching and K1 not.
    The counts are zeroed just before each training window and test run
    and read just after.
+15. the JAX package's remaining appearance library: (a) NeuS at
+   ``neus_sphere_color_full`` (``neus_sphere_full`` with a
+   ``volume-color`` head: the 48 geometry features through the radiance
+   head's 4 x 128 MLP) from a fresh init for 16 steps, then ``validate``
+   on one view: steps/s, peak memory, finite losses, no skipped update,
+   one K1 and at least one G1 launch per step, G1 and no K1 in the
+   validation; (b) ``volume-pbr`` with ``brdf-ggx`` on phase 9's view 0
+   (640,000 shading points: positions and normals from its depth and
+   normals, materials from a seed), the phase-8 emitter and
+   ``compute_indirect`` wrapping the flagship's
+   ``compute_indirect_radiance`` (no compaction, on the eval bake) and
+   secondary head, in chunks of 64,000 points: finite, G1 launching;
+   the CPU repeats one chunk on the same uniforms: sampled directions
+   within 1e-3 and within 1e-5 on all but 0.5 % of them (square roots
+   near 0 amplify float32 rounding), outputs within 2e-3 of max(1,
+   their largest entry) (the flagship's bf16 heads); (c) the learned
+   light's ``update_pdf`` at 128 x 256 and 1,048,576 ``sample`` draws,
+   card against CPU on the same uniforms: the CDFs within 1e-4
+   (relative: the projection of the 512^2 base), the directions on the
+   same state within 1e-5, the pdf within 1e-5 (relative) but for at
+   most 1 in 10,000 draws on a texel edge, and the mean of 1/pdf within
+   2 % of 4 pi; (d) every warp sampler, ``ray_resampling``,
+   ``grid_sample_2d`` / ``_3d``, ``prepare_shading_normal``,
+   ``xfm_points``, the eight image losses and two rendering drivers at
+   one 800x800 view's size (640,000 points or rays; the drivers in eval
+   chunks of 4096 rays), card against CPU in float64 within 1e-9 (the
+   losses relative; in float32 these functions amplify rounding where
+   they normalise short vectors or take square roots near 0); (e) the
+   test GIFs that phases 9 and 14d wrote (``it{step}-test.gif``,
+   ``it{step}-test-pbr.gif``) read back by the port's decoder: one
+   frame per view, the first equal to its PNG quantised, the
+   quantisation error printed.
 
 ``--save-streams FILE`` saves both recorded streams for the same-call
 A/B against another tree, ``python -m rise_sdf_tpu_torch.kernel_ab``
@@ -224,7 +256,8 @@ train step, G1's its launches in the test protocol, both their launches
 in phase 10's resumed run and G1's in its export, both their
 launches per rank in phase 11, in the three parts of phase 12, in
 phase 13's training and renders, with their times on its background
-stream, and in phase 14's two training windows and test run) and
+stream, in phase 14's two training windows and test run, and in phase
+15's NeuS training, its validation and the ``volume-pbr`` run) and
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the package
 beside it, the script exits non-zero and prints no result.
 """
@@ -929,8 +962,9 @@ def test_protocol_phase(torch, gather, scatter, system, state, views):
     """The test protocol on the flagship's stage-1 state (module
     docstring, phase 9).  Returns G1's launches in the phase, the two
     modes' seconds per view and G1's launches per multi-emitter view,
-    and view 0's phys render and ground truth (phase 14d's LPIPS
-    pair)."""
+    view 0's phys render and ground truth (phase 14d's LPIPS pair), its
+    rays, depth and normals (phase 15b's shading points) and the GIFs'
+    record (phase 15e)."""
     from rise_sdf_tpu_torch import measure
 
     torch.cuda.synchronize()
@@ -940,6 +974,8 @@ def test_protocol_phase(torch, gather, scatter, system, state, views):
     res = measure.test_protocol(system, state, views=views, log=log)
     phase_s = time.perf_counter() - t0
     g1, k1 = gather.gather_rows.launches, scatter.scatter_add.launches
+    gifs = check_test_gifs(os.path.join("exp", "test_protocol"),
+                           int(state["step"]), views, "9")
     shutil.rmtree(os.path.join("exp", "test_protocol"), ignore_errors=True)
     multi, single = res["multi"], res["single"]
     for name, run in (("multi-emitter", multi), ("single-light", single)):
@@ -975,7 +1011,8 @@ def test_protocol_phase(torch, gather, scatter, system, state, views):
     return g1, {"multi_s_per_view": multi["s_per_view"],
                 "single_s_per_view": single["s_per_view"],
                 "multi_launches_per_view": multi["g1_launches"]
-                / multi["views"]}, res["view0_pair"]
+                / multi["views"]}, res["view0_pair"], res["view0_surface"], \
+        gifs
 
 
 def _same_state(torch, src, dst, src_state, dst_state):
@@ -2602,6 +2639,8 @@ def lpips_phase(torch, scatter, gather, trained, state, pair):
         finally:
             del os.environ["RISE_SDF_LPIPS_WEIGHTS"]
             lpips.reset_cache()
+    rec["gifs"] = check_test_gifs(os.path.join("exp", "test_protocol"),
+                                  int(state["step"]), 1, "14d")
     shutil.rmtree(os.path.join("exp", "test_protocol"), ignore_errors=True)
     want = ["phys_lpips", "albedo_lpips"] + [
         f"relight_lpips_{light}" for light in test_system.relight_list]
@@ -2616,6 +2655,457 @@ def lpips_phase(torch, scatter, gather, trained, state, pair):
     if run["g1_launches"] == 0 or run["k1_launches"]:
         fail(f"the test protocol launched G1 {run['g1_launches']}, K1 "
              f"{run['k1_launches']} times")
+    return rec
+
+
+# phase 15: the JAX package's remaining appearance library.  15b's
+# shading points are phase 9's view 0 (800x800) with materials from
+# PBR_SEED, shaded in chunks of PBR_CHUNK points; the CPU repeats chunk
+# PBR_CPU_CHUNK (image rows 400-479).  The heads of the flagship run in
+# bf16 with float32 products, whose rounding the card and the CPU reach
+# by different sums, so 15b holds rgb_phys to PBR_RGB_TOL of
+# max(1, its largest entry).  Sampled directions take square roots of
+# differences near 0 (the disk's rim, grazing views), which amplify
+# float32 rounding: on the CPU the samplers stay within DIR_TOL of
+# float64, and within 1e-5 on all but DIR_SHARE of the directions
+# (tests/test_torch_warp.py), the bounds 15b holds the card's
+# directions to.  15d compares in float64, where the same amplification
+# (normalising short vectors, a resampled point moving by the CDF's
+# rounding over a dead bin's ~1e-5 of the mass, the drivers' scan over
+# a chunk's buffer) stays far below OPS_TOL, which float32 exceeds.
+COLOR_STEPS = 16
+PBR_SEED = 15
+PBR_CHUNK = 64000
+PBR_CPU_CHUNK = 5
+PBR_RGB_TOL = 2e-3
+DIR_TOL, DIR_SHARE = 1e-3, 5e-3
+LIGHT_RES = (128, 256)
+LIGHT_DRAWS = 1 << 20
+LIGHT_INV_PDF_TOL = 0.02
+# the lat-long projection samples the 512^2 base bilinearly at
+# directions from sin and cos, whose rounding (2 ulp on the card) moves a
+# sample by ~1e-4 of a texel: 2.8e-5 of the pdf's largest value
+LIGHT_CDF_TOL = 1e-4
+OPS_SEED = 16
+OPS_POINTS = 800 * 800
+OPS_TOL = 1e-9
+DRIVER_CHUNK = 4096
+WARP_SAMPLERS = [
+    ("square_to_cosine_hemisphere", ["u"]),
+    ("sample_uniform_disk_concentric", ["u"]),
+    ("sample_uniform_cylinder", ["u"]),
+    ("sample_uniform_hemisphere", ["u", "n"]),
+    ("sample_lambertian_surface", ["u", "n"]),
+    ("sample_specular_mirror", [None, "n", "wi"]),
+    ("sample_sggx_vndf", ["u", "n", "wi", "alpha"]),
+    ("sample_diffuse_sggx", ["u", "u2", "n", "wi", "alpha"]),
+    ("sample_specular_sggx", ["u", "n", "wi", "alpha"]),
+    ("sample_ggx_vndf", ["wl", "alpha", "u"]),
+]
+
+
+def check_test_gifs(save, step, views, phase):
+    """15e: the test run's ``it{step}-test.gif`` and
+    ``it{step}-test-pbr.gif`` under ``save`` read back by the port's
+    decoder: ``views`` frames, the first equal to the port's quantised
+    ``0.png`` (``0-pbr.png``).  Returns each file's frames, bytes, first
+    frame's quantisation error and decode seconds."""
+    from rise_sdf_tpu_torch.utils import gif
+    from rise_sdf_tpu_torch.utils.png import read_png
+
+    rec = {}
+    for name, suffix in (("test", ""), ("test-pbr", "-pbr")):
+        path = os.path.join(save, f"it{step}-{name}.gif")
+        if not os.path.exists(path):
+            fail(f"phase {phase}: no {path}")
+        t0 = time.perf_counter()
+        frames, delays = gif.read_gif(path)
+        dec_s = time.perf_counter() - t0
+        png = read_png(os.path.join(save, f"it{step}-test", f"0{suffix}.png"))
+        idx, pal = gif.quantize(png)
+        if len(frames) != views or frames[0].shape != png.shape \
+                or not np.array_equal(frames[0], pal[idx]):
+            fail(f"phase {phase}: {path} has {len(frames)} frames (want "
+                 f"{views}) or its first is not 0{suffix}.png quantised")
+        err = np.abs(frames[0].astype(np.int64) - png)
+        rec[name] = {"frames": len(frames), "bytes": os.path.getsize(path),
+                     "first_max_err": int(err.max()),
+                     "first_mean_err": float(err.mean()),
+                     "decode_s": dec_s}
+        log(f"  e. phase {phase}'s it{step}-{name}.gif: {len(frames)} frames "
+            f"of {png.shape[1]}x{png.shape[0]}, {rec[name]['bytes']} bytes, "
+            f"delay {delays[0]}/100 s, decoded in {dec_s:.1f} s; frame 0 "
+            f"against 0{suffix}.png: max {err.max()}, mean {err.mean():.2f} "
+            f"levels (256-colour quantisation)")
+    return rec
+
+
+def color_phase(torch, scatter, gather):
+    """15a: NeuS at ``neus_sphere_color_full`` from a fresh init for
+    ``COLOR_STEPS`` steps, then one validation view."""
+    from rise_sdf_tpu_torch import datasets, systems
+    from rise_sdf_tpu_torch.presets import neus_sphere_color_full
+
+    cfg = neus_sphere_color_full()
+    seed = int(cfg["seed"])
+    out_dir = os.path.join("exp", "chip_smoke_color")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    dm = datasets.make(cfg["dataset"]["name"], cfg["dataset"])
+    system = systems.make(cfg["system"]["name"], cfg, dm, save_dir=out_dir,
+                          device="cuda")
+    if type(system.model.texture).__name__ != "VolumeColor":
+        fail(f"the texture is {type(system.model.texture).__name__}")
+    state = system.init_state(seed)
+    built = time.perf_counter() - t0
+    state, rate, peak, deltas, losses = _train_window(
+        torch, scatter, gather, system, state, COLOR_STEPS, seed)
+    torch.cuda.synchronize()
+    scatter.scatter_add.launches = 0
+    gather.gather_rows.launches = 0
+    t0 = time.perf_counter()
+    val = system.validate(state, n_images=1)
+    torch.cuda.synchronize()
+    val_s = time.perf_counter() - t0
+    val_k1, val_g1 = scatter.scatter_add.launches, gather.gather_rows.launches
+    rec = {"steps_per_s": rate, "peak_gib": peak,
+           "k1": sum(d[0] for d in deltas), "g1": sum(d[1] for d in deltas),
+           "k1_per_step": sorted({d[0] for d in deltas}),
+           "g1_per_step": sorted({d[1] for d in deltas}),
+           "psnr": val["psnr"], "validate_s": val_s, "validate_g1": val_g1,
+           "validate_k1": val_k1}
+    log(f"  a. neus_sphere_color_full (volume-color on the 48 features, "
+        f"4 x 128 hidden): built in {built:.1f} s; {COLOR_STEPS} steps at "
+        f"{rate:.3f} steps/s, peak {peak:.2f} GiB, losses {losses[0]:.5f} "
+        f"-> {losses[-1]:.5f}, skipped {system.skipped_updates}; K1 "
+        f"launches {rec['k1']} ({rec['k1_per_step']} per step), G1 "
+        f"{rec['g1']} ({rec['g1_per_step']} per step); validate 1 view "
+        f"800x800 in {val_s:.1f} s: PSNR {val['psnr']:.3f} dB, G1/K1 "
+        f"launches {val_g1}/{val_k1}")
+    if len(losses) != COLOR_STEPS or not np.all(np.isfinite(losses)) \
+            or system.skipped_updates:
+        fail(f"volume-color NeuS: losses {losses}, skipped "
+             f"{system.skipped_updates}")
+    if any(d[0] != 1 or d[1] < 1 for d in deltas):
+        fail(f"a volume-color step without one K1 and a G1 launch: {deltas}")
+    if not np.isfinite(val["psnr"]) or val_g1 == 0 or val_k1:
+        fail(f"volume-color validation {val}, G1/K1 {val_g1}/{val_k1}")
+    del system, state
+    torch.cuda.empty_cache()
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return rec
+
+
+def _indirect(model, occ, bake, normals, step):
+    """``compute_indirect`` of 15b: the flagship's transmittance along
+    the secondary rays (``compute_indirect_radiance`` without
+    compaction, so each ray is its own, on the eval bake) and its
+    secondary radiance head at the shading point."""
+    def fn(o, d):
+        tr = model.compute_indirect_radiance(o, d, occ, step, frac=1.0,
+                                             bake=bake)[0]
+        feat = model.geometry(o, step, with_grad=False,
+                              with_feature=True)["feature"]
+        return tr, model.texture.secondary_shading(feat, d, normals,
+                                                   step=step)
+    return fn
+
+
+def pbr_phase(torch, gather, trained, state, cpu_model, surface):
+    """15b: ``volume-pbr`` with ``brdf-ggx`` on phase 9's view 0."""
+    from rise_sdf_tpu_torch import models
+
+    step = int(state["step"])
+    rays = torch.from_numpy(surface["rays"])
+    n = rays.shape[0]
+    o, d = rays[:, :3], rays[:, 3:]
+    nrm = torch.from_numpy(surface["normal"]).reshape(n, 3)
+    length = torch.linalg.vector_norm(nrm, dim=-1, keepdim=True)
+    rng = np.random.default_rng(PBR_SEED)
+    host = {
+        "pos": o + torch.from_numpy(surface["depth"]).reshape(n, 1) * d,
+        "dirs": d,
+        # the background's pixels (no surface) face the camera
+        "normals": torch.where(length > 0.5, nrm / length.clamp(min=1e-6),
+                               -d),
+        "albedo": torch.from_numpy(rng.uniform(0, 1, (n, 3)).astype(
+            np.float32)),
+        "rough": torch.from_numpy(rng.uniform(0.05, 1, (n, 1)).astype(
+            np.float32)),
+        "metal": torch.from_numpy(rng.uniform(0, 1, (n, 1)).astype(
+            np.float32))}
+    pbr = models.make("volume-pbr", {"name": "volume-pbr",
+                                     "scatterer": {"name": "brdf-ggx"}})
+    u_host = pbr.scatterer.draw_uniforms(
+        (n,), torch.Generator().manual_seed(PBR_SEED))
+    card = {k: v.cuda() for k, v in host.items()}
+    u_card = tuple(v.cuda() for v in u_host)
+
+    def run(model, x, u, occ, bake, sl):
+        return pbr(x["pos"][sl], x["dirs"][sl], x["normals"][sl],
+                   x["albedo"][sl], x["rough"][sl], x["metal"][sl],
+                   _indirect(model, occ, bake, x["normals"][sl], step),
+                   model.emitter, uniforms=tuple(v[sl] for v in u))
+
+    occ = state["occ_binary"]
+    with torch.no_grad():
+        bake = trained.model.bake_eval_sdf(step)
+        torch.cuda.synchronize()
+        gather.gather_rows.launches = 0
+        t0 = time.perf_counter()
+        outs = [run(trained.model, card, u_card, occ, bake,
+                    slice(s, s + PBR_CHUNK)) for s in range(0, n, PBR_CHUNK)]
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        g1 = gather.gather_rows.launches
+        rgb = torch.cat([x["rgb_phys"] for x in outs])
+        sl = slice(PBR_CPU_CHUNK * PBR_CHUNK, (PBR_CPU_CHUNK + 1) * PBR_CHUNK)
+        t0 = time.perf_counter()
+        host_bake = bake and {k: v.cpu() if torch.is_tensor(v) else v
+                              for k, v in bake.items()}
+        cpu = run(cpu_model, host, u_host, occ.cpu(), host_bake, sl)
+        cpu_s = time.perf_counter() - t0
+        sc = pbr.scatterer
+        dirs_card = sc.sample_from_uniforms(
+            *(v[sl] for v in u_card), card["normals"][sl], -card["dirs"][sl],
+            card["rough"][sl, 0])
+        dirs_cpu = sc.sample_from_uniforms(
+            *(v[sl] for v in u_host), host["normals"][sl], -host["dirs"][sl],
+            host["rough"][sl, 0])
+    dir_diff = (dirs_card.cpu() - dirs_cpu).abs().amax(-1)
+    dir_err = float(dir_diff.max())
+    dir_share = float((dir_diff > 1e-5).double().mean())
+    errs = {k: float((outs[PBR_CPU_CHUNK][k].cpu() - cpu[k]).abs().max()
+                     / max(1.0, float(cpu[k].abs().max())))
+            for k in cpu}
+    rec = {"points": n, "card_s": card_s, "cpu_points": sl.stop - sl.start,
+           "cpu_s": cpu_s, "g1": g1, "dir_max_abs_err": dir_err,
+           "dir_share_above_1e-5": dir_share,
+           "rel_err": errs, "rgb_phys_mean": float(rgb.mean()),
+           "rgb_phys_max": float(rgb.max())}
+    log(f"  b. volume-pbr + brdf-ggx on phase 9's view 0 ({n} shading "
+        f"points, materials from seed {PBR_SEED}, the phase-8 emitter, "
+        f"compute_indirect = the flagship's compute_indirect_radiance and "
+        f"secondary head) in {len(outs)} chunks: card {card_s:.2f} s (G1 "
+        f"launches {g1}); rgb_phys mean {rec['rgb_phys_mean']:.4f}, max "
+        f"{rec['rgb_phys_max']:.4f}; the CPU on chunk {PBR_CPU_CHUNK} "
+        f"({rec['cpu_points']} points, the same uniforms) in {cpu_s:.1f} s: "
+        f"directions max |card - CPU| {dir_err:.2e} (at most {DIR_TOL:g}), "
+        f"{dir_share:.2e} of them beyond 1e-5 (at most {DIR_SHARE:g}), "
+        f"outputs "
+        f"max |card - CPU| / max(1, max |CPU|) {json.dumps(errs)} (at most "
+        f"{PBR_RGB_TOL:g})")
+    finite = bool(torch.isfinite(rgb).all())
+    if not finite or g1 == 0:
+        fail(f"volume-pbr on the card: finite {finite}, G1 launches {g1}")
+    if dir_err > DIR_TOL or dir_share > DIR_SHARE \
+            or max(errs.values()) > PBR_RGB_TOL:
+        fail("volume-pbr on the card disagrees with the CPU")
+    return rec
+
+
+def light_phase(torch, trained, cpu_model):
+    """15c: the learned emitter's CDFs and ``LIGHT_DRAWS`` importance
+    samples, card against CPU on the same uniforms and state."""
+    em, em_cpu = trained.model.emitter, cpu_model.emitter
+    gen = torch.Generator().manual_seed(OPS_SEED)
+    u = (torch.rand(LIGHT_DRAWS, generator=gen),
+         torch.rand(LIGHT_DRAWS, generator=gen))
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = em.update_pdf(LIGHT_RES)
+        torch.cuda.synchronize()
+        pdf_ms = 1e3 * (time.perf_counter() - t0)
+        st_cpu = em_cpu.update_pdf(LIGHT_RES)
+        state_err = {k: float((st[k].cpu() - st_cpu[k]).abs().max()
+                              / st_cpu[k].abs().max()) for k in st}
+        u_card = tuple(v.cuda() for v in u)
+        em.sample(st, uniforms=u_card)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dirs = em.sample(st, uniforms=u_card)
+        torch.cuda.synchronize()
+        sample_ms = 1e3 * (time.perf_counter() - t0)
+        pdf = em.pdf(st, dirs)
+        inv = float(torch.mean(1.0 / pdf.double()))
+        st_host = {k: v.cpu() for k, v in st.items()}
+        dir_err = float((dirs.cpu() - em_cpu.sample(st_host, uniforms=u))
+                        .abs().max())
+        pdf_cpu = em_cpu.pdf(st_host, dirs.cpu())
+    rel = (pdf.cpu() - pdf_cpu).abs() / pdf_cpu
+    flips = int((rel > 1e-5).sum())
+    rec = {"update_pdf_ms": pdf_ms, "sample_ms": sample_ms,
+           "state_rel_err": state_err, "dir_max_abs_err": dir_err,
+           "pdf_rel_err": float(rel[rel <= 1e-5].max()), "pdf_bin_flips":
+           flips, "mean_inv_pdf_over_4pi": inv / (4 * np.pi)}
+    log(f"  c. the learned light ({em.base_res}^2): update_pdf at "
+        f"{LIGHT_RES} in "
+        f"{pdf_ms:.2f} ms, {LIGHT_DRAWS} draws in {sample_ms:.2f} ms; card "
+        f"against CPU: CDFs {json.dumps(state_err)} (relative, at most "
+        f"{LIGHT_CDF_TOL:g}), directions on the same state {dir_err:.2e} "
+        f"(at most 1e-5), "
+        f"pdf {rec['pdf_rel_err']:.2e} relative with {flips} draws in "
+        f"another texel (at most {LIGHT_DRAWS // 10000}); mean 1/pdf = "
+        f"{rec['mean_inv_pdf_over_4pi']:.5f} x 4 pi")
+    if max(state_err.values()) > LIGHT_CDF_TOL or dir_err > 1e-5 \
+            or rec["pdf_rel_err"] > 1e-5 or flips > LIGHT_DRAWS // 10000:
+        fail("the emitter's sampling on the card disagrees with the CPU")
+    if abs(rec["mean_inv_pdf_over_4pi"] - 1) > LIGHT_INV_PDF_TOL:
+        fail("the mean of 1/pdf is not 4 pi")
+    return rec
+
+
+def _unit(rng, n, upper=False):
+    v = rng.normal(size=(n, 3))
+    if upper:
+        v[:, 2] = np.abs(v[:, 2]) + 0.05
+    return (v / np.linalg.norm(v, axis=-1, keepdims=True)).astype(np.float32)
+
+
+def _driver_field(torch):
+    def fn(ts, te, ridx):
+        t = 0.5 * (ts + te)
+        n = ts.shape[0]
+        one = torch.ones_like(t)
+        return {"rgb": torch.stack([torch.sin(t) * 0.5 + 0.5,
+                                    torch.cos(t) * 0.5 + 0.5, 0.3 * one], -1),
+                "alpha": 0.02 + 0.01 * torch.sin(7 * t),
+                "normal": torch.stack([0 * one, 0 * one, one], -1),
+                "albedo": torch.full((n, 3), 0.6, dtype=ts.dtype,
+                                     device=ts.device),
+                "roughness": 0.4 * one, "metallic": 0.2 * one,
+                "sdf": t - 1.0,
+                "sdf_grad": torch.stack([one, 0 * one, 0 * one], -1)}
+    return fn
+
+
+def ops_phase(torch):
+    """15d: the warp samplers and the four ops at one 800^2 view's size,
+    card against CPU in float64 (see OPS_TOL)."""
+    from rise_sdf_tpu_torch.ops import grid_sample, march, \
+        rendering_drivers, renderutils_misc, resample, warp
+
+    n = OPS_POINTS
+    rng = np.random.default_rng(OPS_SEED)
+    wi = _unit(rng, n)
+    nrm = _unit(rng, n)
+    wi[: n // 2] *= np.sign(np.sum(wi[: n // 2] * nrm[: n // 2], -1))[:, None]
+    host = {"u": rng.uniform(size=(n, 2)), "u2": rng.uniform(size=(n, 2)),
+            "n": nrm, "wi": wi, "wl": _unit(rng, n, upper=True),
+            "alpha": rng.uniform(0.05, 1, n)}
+    host = {k: torch.from_numpy(np.asarray(v, np.float64))
+            for k, v in host.items()}
+    card = {k: v.cuda() for k, v in host.items()}
+    errs, ms = {}, {}
+
+    def both(name, fn, args_host, args_card, rel=False):
+        """``fn`` on the card against the CPU, every entry within
+        OPS_TOL (of max(1, |CPU value|) with ``rel``)."""
+        with torch.no_grad():
+            fn(*args_card)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = fn(*args_card)
+            torch.cuda.synchronize()
+            ms[name] = 1e3 * (time.perf_counter() - t0)
+            want = fn(*args_host)
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        errs[name] = max(float(((g.cpu() - w).abs() / (
+            w.abs().clamp(min=1) if rel else 1)).max())
+            for g, w in zip(got, want))
+        if not errs[name] <= OPS_TOL:
+            fail(f"{name} on the card disagrees with the CPU: {errs[name]}")
+
+    for name, keys in WARP_SAMPLERS:
+        both(name, getattr(warp, name),
+             [host[k] if k else None for k in keys],
+             [card[k] if k else None for k in keys])
+    # resample: [R, 32] intervals per pixel, 16 new ones
+    edges = np.sort(rng.uniform(0, 4, (n, 33)), 1)
+    w = rng.exponential(size=(n, 32))
+    live = rng.uniform(size=(n, 32)) > 0.2
+    rs_host = [torch.from_numpy(np.ascontiguousarray(a))
+               for a in (edges[:, :-1], edges[:, 1:], w, live,
+                         rng.uniform(size=(n, 16)))]
+    both("ray_resampling",
+         lambda *a: resample.ray_resampling(*a[:4], 16, u=a[4]),
+         rs_host, [a.cuda() for a in rs_host])
+    img = torch.from_numpy(rng.standard_normal((800, 800, 3)))
+    vol = torch.from_numpy(rng.standard_normal((64, 64, 64, 4)))
+    g2 = torch.from_numpy(rng.uniform(-1.1, 1.1, (n, 2)))
+    g3 = torch.from_numpy(rng.uniform(-1.1, 1.1, (n, 3)))
+    both("grid_sample_2d", grid_sample.grid_sample_2d, [img, g2],
+         [img.cuda(), g2.cuda()])
+    both("grid_sample_3d", grid_sample.grid_sample_3d, [vol, g3],
+         [vol.cuda(), g3.cuda()])
+    pts = [torch.from_numpy(rng.standard_normal((n, 3))) for _ in range(6)]
+    both("prepare_shading_normal", renderutils_misc.prepare_shading_normal,
+         pts, [p.cuda() for p in pts])
+    mat = torch.from_numpy(rng.standard_normal((4, 4)))
+    both("xfm_points", renderutils_misc.xfm_points, [pts[0], mat],
+         [pts[0].cuda(), mat.cuda()])
+    a, b = (torch.from_numpy(rng.uniform(0, 4, (800, 800, 3)))
+            for _ in range(2))
+    for loss in ("mse", "l1", "smape", "relmse"):
+        for tm in ("none", "log_srgb"):
+            both(f"image_loss_{loss}_{tm}",
+                 lambda x, y, loss=loss, tm=tm: renderutils_misc.image_loss(
+                     x, y, loss, tm), [a, b], [a.cuda(), b.cuda()],
+                 rel=True)
+    # the drivers over the view's 640,000 rays, in eval chunks
+    z = rng.uniform(-0.35, 0.35, (n, 2))
+    dirs = np.concatenate([z, np.ones((n, 1))], -1)
+    dirs = torch.from_numpy(dirs / np.linalg.norm(dirs, axis=-1,
+                                                  keepdims=True))
+    orig = torch.tensor([[0.0, 0.0, -3.0]], dtype=torch.float64).repeat(n, 1)
+    field = _driver_field(torch)
+
+    def drive(o, dd):
+        lo = torch.full((3,), -1.5, dtype=o.dtype, device=o.device)
+        out = []
+        for s in range(0, o.shape[0], DRIVER_CHUNK):
+            rays_o, rays_d = o[s:s + DRIVER_CHUNK], dd[s:s + DRIVER_CHUNK]
+            r = rays_o.shape[0]
+            rs = march.march_rays(rays_o, rays_d, aabb_min=lo, aabb_max=-lo,
+                                  step_size=0.1, num_samples=32,
+                                  capacity=r * 32, grid_binary=None)
+            full = rendering_drivers.rendering_with_normals_mats_sdf_dir(
+                rs, field, r, rays_d, render_bkgd=torch.ones(
+                    3, dtype=o.dtype, device=o.device))
+            sec = rendering_drivers.secondary_rendering(rs, field, r)
+            out.append(torch.cat([full[k] for k in (
+                "comp_rgb", "comp_normal", "comp_albedo", "comp_roughness",
+                "comp_metallic", "opacity")] + [sec["depth"],
+                                                sec["transmittance"]], -1))
+        return torch.cat(out)
+
+    both("rendering_drivers", drive, [orig, dirs], [orig.cuda(), dirs.cuda()])
+    log(f"  d. {n} points / rays in float64, card against CPU, max "
+        f"|difference| (at most {OPS_TOL:g}; the losses relative; the "
+        f"drivers in chunks of {DRIVER_CHUNK} rays); card ms:")
+    for k in errs:
+        log(f"     {k}: {errs[k]:.2e}, {ms[k]:.2f} ms")
+    return {"max_abs_err": errs, "card_ms": ms}
+
+
+def appearance_phase(torch, scatter, gather, trained, state, surface,
+                     gifs):
+    """Phase 15 (module docstring).  Returns its record."""
+    from rise_sdf_tpu_torch import models
+
+    rec = {"color": color_phase(torch, scatter, gather)}
+    cpu_model = models.make(trained.config["model"]["name"],
+                            trained.config["model"])
+    cpu_model.load_state_dict(trained.model.state_dict())
+    cpu_model.requires_grad_(False)
+    rec["pbr"] = pbr_phase(torch, gather, trained, state, cpu_model, surface)
+    rec["light"] = light_phase(torch, trained, cpu_model)
+    del cpu_model
+    rec["ops"] = ops_phase(torch)
+    rec["gifs"] = gifs
+    torch.cuda.empty_cache()
     return rec
 
 
@@ -2719,9 +3209,9 @@ def main():
     log(f"test protocol: split_mixed_occ_test_full at step "
         f"{int(state['step'])}, {args.test_views} views x (learned, warm, "
         f"bright) + view 0 in single-light mode:")
-    g1["test_launches"], g1["test_protocol"], lpips_pair = \
-        test_protocol_phase(torch, gather, scatter, system, state,
-                            args.test_views)
+    (g1["test_launches"], g1["test_protocol"], lpips_pair, surface,
+     gifs9) = test_protocol_phase(torch, gather, scatter, system, state,
+                                  args.test_views)
     log(f"lifecycle: split_mixed_occ_test_full from step "
         f"{int(state['step'])}: save, load, {args.resume_steps} resumed "
         f"steps, export, the launch CLI:")
@@ -2774,14 +3264,31 @@ def main():
     p14["config_surface"] = config_surface_phase(torch, scatter, gather)
     p14["lpips"] = lpips_phase(torch, scatter, gather, system, state,
                                lpips_pair)
-    del system, state, lpips_pair
-    torch.cuda.empty_cache()
     p14["seconds"] = time.perf_counter() - t0
     log(f"  phase {p14['seconds']:.1f} s")
     log(f"  phase 14: {json.dumps(p14)}")
     for key, rec in (("k1", k1), ("g1", g1)):
         rec["phase14"] = {part: p14[part][key] for part in (
             "jpeg_capture", "config_surface", "lpips")}
+    log(f"the appearance library: neus_sphere_color_full {COLOR_STEPS} "
+        f"steps + 1 view; volume-pbr + brdf-ggx on phase 9's view 0; the "
+        f"learned light's importance sampling; the warp samplers and four "
+        f"ops at 800x800; the test GIFs of phases 9 and 14d:")
+    t0 = time.perf_counter()
+    p15 = appearance_phase(torch, scatter, gather, system, state, surface,
+                           {"phase9": gifs9,
+                            "phase14d": p14["lpips"].pop("gifs")})
+    del system, state, lpips_pair, surface
+    torch.cuda.empty_cache()
+    p15["seconds"] = time.perf_counter() - t0
+    log(f"  phase {p15['seconds']:.1f} s")
+    log(f"  phase 15: {json.dumps(p15)}")
+    color = p15["color"]
+    k1["phase15"] = {"color_train": color["k1"],
+                     "color_validate": color["validate_k1"]}
+    g1["phase15"] = {"color_train": color["g1"],
+                     "color_validate": color["validate_g1"],
+                     "pbr": p15["pbr"]["g1"]}
     k1["resume_launches"] = life["k1"]
     g1["resume_launches"] = life["g1"]
     g1["export_launches"] = life["g1_export"]
@@ -2801,7 +3308,8 @@ def main():
     extra = ("train_stream", "render_stream", "per_step", "probe_stream",
              "flagship_per_step", "flagship_launches", "test_launches",
              "test_protocol", "resume_launches", "resume_launches_per_step",
-             "export_launches", "ddp", "scene", "capture", "phase14")
+             "export_launches", "ddp", "scene", "capture", "phase14",
+             "phase15")
     log(json.dumps({"kernels": [
         {"name": "scatter_add (K1)", "route": "cuda", "source": SRC_K1,
          "replaces": REPLACES_K1, **{k: k1[k] for k in keys},

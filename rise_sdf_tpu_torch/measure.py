@@ -372,7 +372,9 @@ def test_protocol(trained, state, views=None, profile_view=None,
     multi-emitter run's view 0: the largest difference of each image and
     the share of its pixels more than 1e-4 apart, and the largest
     difference of the metrics.  ``view0_pair`` is view 0's phys render
-    and its ground truth, [H, W, 3] each (LPIPS' input)."""
+    and its ground truth, [H, W, 3] each (LPIPS' input);
+    ``view0_surface`` its rays [H * W, 6] in pixel order, ``depth`` [H *
+    W, 1] and ``normal`` [H * W, 3] (host arrays)."""
     multi = run_test(test_system(trained, n_images=views), state,
                      profile_view=profile_view, log=log)
     log(f"  multi-emitter: {multi['s_per_view']:.2f} s/view "
@@ -401,7 +403,11 @@ def test_protocol(trained, state, views=None, profile_view=None,
     shape = (split.h, split.w, 3)
     pair = (view0["comp_rgb_phys_full"].reshape(shape),
             single_system._gt(split, 0)[0].reshape(shape))
-    return {"multi": multi, "single": single, "view0_pair": pair}
+    rays, inv = single_system.view_rays(split, 0)
+    surface = {"rays": (rays if inv is None else rays[inv]).cpu().numpy(),
+               "depth": view0["depth"], "normal": view0["comp_normal"]}
+    return {"multi": multi, "single": single, "view0_pair": pair,
+            "view0_surface": surface}
 
 
 def _split_main(steps):
@@ -446,7 +452,7 @@ def _test_main(steps):
     res = test_protocol(system, state, profile_view=1,
                         log=lambda msg: print(msg, file=sys.stderr,
                                               flush=True))
-    del res["view0_pair"]
+    del res["view0_pair"], res["view0_surface"]
     shutil.rmtree(save, ignore_errors=True)
     shutil.rmtree(os.path.join("exp", "test_protocol"), ignore_errors=True)
     return {"step": int(state["step"]), "stage1_steps_per_s": rate, **res}

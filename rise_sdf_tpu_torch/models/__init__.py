@@ -3,5 +3,5 @@ from ..registry import models as _registry
 make = _registry.make
 register = _registry.register
 
-from . import (geometry, light, neus, split_mixed_occ,  # noqa: E402,F401
-               texture, variance)
+from . import (geometry, light, neus, scatterer,  # noqa: E402,F401
+               split_mixed_occ, texture, variance)

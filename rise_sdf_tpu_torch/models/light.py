@@ -13,11 +13,19 @@ With ``hdr_filepath`` the base starts from a lat-long ``.exr`` or
 Radiance ``.hdr`` file (clamped to [0, 1] when ``clamp``; NMF's mirrored
 azimuth when ``nmf_format``); ``relight_params`` loads a relighting environment the
 same way, without the clamp, and ``build_mips(base)`` filters it.
+
+The Monte-Carlo half: ``eval_base`` looks up the raw base cubemap;
+``update_pdf`` builds the importance-sampling CDFs over a lat-long
+projection of the base (brightest channel times sin(theta)); ``sample``
+inverts them, ``pdf`` gives a direction's solid-angle density under
+them, and ``sample_stratified`` jitters a lat-long grid (TensoIR's
+sampler).  The samplers take their uniforms, or a ``torch.Generator``.
 """
 
 from __future__ import annotations
 
-from typing import List, NamedTuple, Optional, Tuple
+import math
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -147,3 +155,111 @@ class EnvLightMipCube(nn.Module):
             return sample_cubemap_mips_atlas(mips.specular, directions, mip,
                                              atlas=mips.atlas)
         return sample_cubemap(mips.diffuse, directions)
+
+    def eval_base(self, directions, base: Optional[torch.Tensor] = None):
+        """[N, 3] directions -> [N, 3] radiance of the base cubemap (or of
+        ``base``), bilinear."""
+        return sample_cubemap(self.base if base is None else base,
+                              directions)
+
+    def update_pdf(self, res=(128, 256), base: Optional[torch.Tensor] = None
+                   ) -> Dict[str, torch.Tensor]:
+        """``{"pdf" [H, W], "rows" [H + 1], "cols" [H, W + 1]}``: the
+        normalised pdf over a lat-long projection of the base (or of
+        ``base``) at ``res`` and its row and per-row column CDFs."""
+        base = self.base if base is None else base
+        img = cubemap_to_latlong(base, res)
+        h, w = res
+        y = (torch.arange(h, dtype=torch.float32, device=img.device) + 0.5) / h
+        pdf = torch.amax(img, dim=-1) * torch.sin(y * math.pi)[:, None]
+        pdf = torch.clamp(pdf, min=1e-6)
+        pdf = pdf / pdf.sum()
+        cols = torch.cumsum(pdf, dim=1)
+        rows = torch.cumsum(cols[:, -1], dim=0)
+        cols = cols / torch.clamp(cols[:, -1:], min=1e-12)
+        rows = rows / torch.clamp(rows[-1], min=1e-12)
+        return {"pdf": pdf,
+                "rows": torch.cat([rows.new_zeros(1), rows]),
+                "cols": torch.cat([cols.new_zeros((h, 1)), cols], dim=1)}
+
+    def sample(self, pdf_state, num_samples: Optional[int] = None,
+               generator: Optional[torch.Generator] = None, uniforms=None):
+        """[N, 3] directions importance-sampled from ``pdf_state``, from
+        ``uniforms`` (u_row [N], u_col [N]) or ``num_samples`` pairs drawn
+        from ``generator``; y-up, as ``cubemap_to_latlong`` lays the
+        image out."""
+        h, w = pdf_state["pdf"].shape
+        rows, cols = pdf_state["rows"], pdf_state["cols"]
+        if uniforms is None:
+            uniforms = (torch.rand(num_samples, generator=generator,
+                                   device=rows.device),
+                        torch.rand(num_samples, generator=generator,
+                                   device=rows.device))
+        u1, u2 = uniforms
+        ri = torch.clamp(torch.searchsorted(rows, u1, right=True) - 1, 0,
+                         h - 1)
+        rfrac = (u1 - rows[ri]) / torch.clamp(rows[ri + 1] - rows[ri],
+                                              min=1e-12)
+        crow = cols[ri]
+        ci = torch.clamp(torch.searchsorted(crow, u2[:, None],
+                                            right=True)[:, 0] - 1, 0, w - 1)
+        c0 = torch.gather(crow, 1, ci[:, None])[:, 0]
+        c1 = torch.gather(crow, 1, ci[:, None] + 1)[:, 0]
+        cfrac = (u2 - c0) / torch.clamp(c1 - c0, min=1e-12)
+        theta = (ri + rfrac) / h * math.pi
+        phi = (ci + cfrac) / w * 2 * math.pi - math.pi
+        st, ct = torch.sin(theta), torch.cos(theta)
+        return torch.stack([st * torch.sin(phi), ct, -st * torch.cos(phi)], -1)
+
+    def sample_stratified(self, batch_size: int, n_rows: int, n_cols: int,
+                          jitter: bool = True,
+                          generator: Optional[torch.Generator] = None,
+                          uniforms=None):
+        """(dirs [B * H * W, 3], inv_pdf [B * H * W, 1]): a lat-long grid
+        of ``n_rows`` x ``n_cols`` cells per batch element, each jittered
+        within its cell when ``jitter`` by ``uniforms`` (u_phi, u_theta,
+        each [B, H, W]) or by draws from ``generator`` (none of the two:
+        the cells' centres), on the base's device."""
+        device = self.base.device
+        lat_step = math.pi / n_rows
+        lng_step = 2 * math.pi / n_cols
+        theta = torch.linspace(math.pi / 2 - 0.5 * lat_step,
+                               -math.pi / 2 + 0.5 * lat_step, n_rows,
+                               device=device)
+        phi = torch.linspace(math.pi - 0.5 * lng_step,
+                             -math.pi + 0.5 * lng_step, n_cols, device=device)
+        theta, phi = torch.meshgrid(theta, phi, indexing="ij")
+        sin_t = torch.sin(math.pi / 2 - theta)
+        inv_pdf = (4 * math.pi * sin_t / torch.sum(sin_t))[None].expand(
+            batch_size, n_rows, n_cols)
+        if jitter and uniforms is None and generator is not None:
+            shape = (batch_size, n_rows, n_cols)
+            uniforms = (torch.rand(shape, generator=generator, device=device),
+                        torch.rand(shape, generator=generator, device=device))
+        if jitter and uniforms is not None:
+            phi = phi[None] + lng_step * (uniforms[0] - 0.5)
+            theta = theta[None] + lat_step * (uniforms[1] - 0.5)
+        else:
+            theta = theta[None].expand(batch_size, n_rows, n_cols)
+            phi = phi[None].expand(batch_size, n_rows, n_cols)
+        dirs = torch.stack([torch.cos(phi) * torch.cos(theta),
+                            torch.sin(phi) * torch.cos(theta),
+                            torch.sin(theta)], -1)
+        dirs = dirs / torch.sqrt(torch.sum(dirs ** 2, -1, keepdim=True)
+                                 + 1e-12)
+        return dirs.reshape(-1, 3), inv_pdf.reshape(-1, 1)
+
+    def pdf(self, pdf_state, directions):
+        """The solid-angle pdf of ``directions`` [..., 3] under the
+        lat-long CDFs of ``pdf_state``."""
+        h, w = pdf_state["pdf"].shape
+        x, y, z = directions[..., 0], directions[..., 1], directions[..., 2]
+        theta = torch.arccos(torch.clamp(y, -1.0, 1.0))
+        phi = torch.atan2(x, -z)
+        u = (phi + math.pi) / (2 * math.pi)
+        v = theta / math.pi
+        ci = torch.clamp((u * w).to(torch.int64), 0, w - 1)
+        ri = torch.clamp((v * h).to(torch.int64), 0, h - 1)
+        sin_t = torch.clamp(torch.sin(theta), min=1e-6)
+        scale = (h * w) / (2 * math.pi * math.pi)
+        return pdf_state["pdf"][ri, ci] * scale / sin_t

@@ -1,6 +1,8 @@
 """Appearance heads (counterpart of ``rise_sdf_tpu/models/texture.py``).
 
 * ``VolumeRadiance``: features, SH(dirs) and extras -> rgb (NeuS).
+* ``VolumeColor``: features alone -> rgb (NeuS; the direction and normal
+  it is handed go unused).
 * ``VolumeMixedMipSplitOcc``: the flagship's five heads (albedo +
   diffuse, roughness, blend + metallic, NN specular, secondary
   radiance) with split-sum shading against the mip-cubemap emitter and
@@ -9,14 +11,24 @@
   the relighting third bounce splits the same way
   (``secondary_pbr_cache``, then ``secondary_shade_pbr_cached`` per
   light).
+* ``VolumeSplitSumMip``: the split sum alone (albedo 3, roughness 1,
+  metallic 1 and the secondary head).  Its ``apply`` returns the
+  physically based channels only, no ``diff_rgb``, ``spec_rgb`` or
+  ``blend``, as the JAX head does, so neither flagship's forward takes
+  it (both raise ``KeyError``).
+* ``VolumePBR``: the Monte-Carlo GGX path: one direction per sample from
+  the ``brdf-ggx`` scatterer, the caller's ``compute_indirect`` along
+  it, the emitter's base lookup, weighted by BRDF over pdf.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 from torch import nn
 
-from . import register
+from . import make, register
 from ..nn import get_activation, get_encoding, get_mlp
 from ..ops.cubemap import sample_texture2d
 from ..ops.fg_lut import fg_lut
@@ -50,12 +62,29 @@ class VolumeRadiance(nn.Module):
         return self.color_activation(self.mlp(inp))
 
 
+@register("volume-color")
+class VolumeColor(nn.Module):
+    def __init__(self, config):
+        super().__init__()
+        self.config = config
+        self.mlp = get_mlp(int(config["input_feature_dim"]), 3,
+                           config["mlp_network_config"])
+        self.color_activation = get_activation(
+            config.get("color_activation", None))
+
+    def forward(self, features, *args, step=None):
+        return self.color_activation(self.mlp(features))
+
+
 @register("volume-mixed-mip-split-occ")
 class VolumeMixedMipSplitOcc(nn.Module):
     """Five-head appearance model with split-sum PBR.  Stage 0 gives the
     NN radiance split (diffuse, specular, blend); stage 1 adds the
     physically based branch.  Head names follow the JAX params tree
     (``secondary``, ``albedo``, ``roughness``, ``metallic``, ``env``)."""
+
+    # material_cache / shade_cached split (multi-emitter eval)
+    supports_multi_emitter = True
 
     def __init__(self, config):
         super().__init__()
@@ -194,3 +223,106 @@ class VolumeMixedMipSplitOcc(nn.Module):
         return self.secondary_shade_pbr_cached(
             self.secondary_pbr_cache(features, dirs, normals, positions,
                                      step), emitter, mips)
+
+
+@register("volume-pbr")
+class VolumePBR(nn.Module):
+    """The Monte-Carlo GGX path: the ``scatterer`` config names the BRDF
+    (``brdf-ggx``); ``global_illumination`` (default on) adds the
+    indirect radiance to the emitter's."""
+
+    def __init__(self, config):
+        super().__init__()
+        self.config = config
+        self.scatterer = make(config["scatterer"]["name"],
+                              config["scatterer"])
+        self.global_illumination = bool(config.get("global_illumination",
+                                                   True))
+
+    def forward(self, positions, dirs, normals, albedo, roughness, metallic,
+                compute_indirect, emitter, emitter_base=None,
+                generator: Optional[torch.Generator] = None,
+                uniforms=None):
+        """Per-sample radiance {rgb_phys, diffuse_color, specular_color}.
+        One secondary direction per sample, from ``uniforms`` (the
+        scatterer's ``(u_spec, u_diff, u_pick)``) or drawn from
+        ``generator``, held constant for the gradient.
+        ``compute_indirect(origins, dirs)`` -> (transmittance [N, 1],
+        radiance [N, 3]); the emitter's base is its own, or
+        ``emitter_base``."""
+        wi = -dirs
+        alpha = roughness[..., 0]
+        sc = self.scatterer
+        if uniforms is None:
+            uniforms = sc.draw_uniforms(alpha.shape, generator, alpha.device)
+        secondary_d = sc.sample_from_uniforms(*uniforms, normals, wi,
+                                              alpha).detach()
+        secondary_tr, secondary_rgb = compute_indirect(positions, secondary_d)
+        pdf = sc.pdf(normals, wi, secondary_d, alpha)
+        pdf = torch.where(pdf > 0, pdf, torch.ones_like(pdf))
+        diff, spec = sc.eval(wi, normals, secondary_d, alpha, albedo=albedo,
+                             metallic=metallic)
+        li = emitter.eval_base(secondary_d, emitter_base) * secondary_tr
+        if self.global_illumination:
+            li = li + secondary_rgb
+        lo_diff = (1.0 - metallic) * albedo * li * diff / pdf
+        lo_spec = li * spec / pdf
+        return {"rgb_phys": lo_diff + lo_spec, "diffuse_color": lo_diff,
+                "specular_color": lo_spec}
+
+
+@register("volume-split-sum-mip-occ")
+class VolumeSplitSumMip(VolumeMixedMipSplitOcc):
+    """The split sum without the NN radiance branch: heads ``albedo``
+    (3), ``roughness`` (1), ``metallic`` (1) and ``secondary``."""
+
+    # no NN radiance branch, so no material_cache / shade_cached split
+    supports_multi_emitter = False
+
+    def __init__(self, config):
+        nn.Module.__init__(self)
+        self.config = config
+        self.n_dir_dims = int(config.get("n_dir_dims", 3))
+        self.n_pos_dims = int(config.get("n_pos_dims", 3))
+        self.dir_encoding = get_encoding(self.n_dir_dims,
+                                         config["dir_encoding_config"])
+        self.xyz_encoding = get_encoding(self.n_pos_dims,
+                                         config["xyz_encoding_config"])
+        fdim = int(config["input_feature_dim"])
+        other = int(config.get("other_dim", 3))
+        xdim = self.xyz_encoding.n_output_dims
+        ddim = self.dir_encoding.n_output_dims
+        self.secondary = get_mlp(fdim + other + ddim, 3,
+                                 config["secondary_mlp_network_config"])
+        self.albedo = get_mlp(fdim + xdim, 3,
+                              config["albedo_mlp_network_config"])
+        self.roughness = get_mlp(fdim + xdim, 1,
+                                 config["roughness_mlp_network_config"])
+        self.metallic = get_mlp(fdim + xdim, 1,
+                                config["metallic_mlp_network_config"])
+        self.color_activation = get_activation(
+            config.get("color_activation", None))
+        self.register_buffer("fg", torch.from_numpy(fg_lut(256)),
+                             persistent=False)
+
+    def _material_heads(self, features, positions, step=None):
+        inp = torch.cat([features, self.xyz_encoding(positions, step)], -1)
+        act = self.color_activation
+        return (None, act(self.albedo(inp)), act(self.roughness(inp)), None,
+                act(self.metallic(inp)))
+
+    def apply(self, features, dirs, normals, positions, emitter=None,
+              mips=None, stage: int = 1, step=None):
+        """The split-sum channels of every sample (``stage`` unused)."""
+        wi = -dirs
+        wo = _reflect(wi, normals)
+        nov = torch.sum(normals * wi, -1, keepdim=True)
+        _, albedo, roughness, _, metallic = self._material_heads(
+            features, positions, step)
+        diff_pbr, spec_pbr, spec_ref, spec_light = self._split_sum(
+            albedo, roughness, metallic, normals, wo, nov, emitter, mips)
+        return {
+            "diff_rgb_pbr": diff_pbr, "spec_rgb_pbr": spec_pbr,
+            "spec_ref": spec_ref, "spec_light": spec_light,
+            "albedo": albedo, "metallic": metallic, "roughness": roughness,
+        }

@@ -11,7 +11,8 @@ scene in the Blender layout); like the yamls they leave
 ``dataset.root_dir``.  ``split_mixed_occ_full`` is the flagship's model
 section.  The others train on the procedural ``synthetic-sphere`` at
 800x800 in place of a download: ``neus_sphere_full`` (the model and
-system of ``neus_blender``), ``split_mixed_occ_train_full`` (the whole
+system of ``neus_blender``; ``neus_sphere_color_full`` the same with a
+``volume-color`` head), ``split_mixed_occ_train_full`` (the whole
 flagship config), ``split_mixed_occ_test_full`` (that plus the test
 protocol on the sphere's test split, relighting under two analytic
 environments) and its tiny counterpart ``tiny_split_test_config``.
@@ -178,6 +179,21 @@ def neus_sphere_full():
         "trainer": {"max_steps": max_steps, "log_every_n_steps": 100,
                     "val_check_interval": 10000},
     }
+
+
+def neus_sphere_color_full():
+    """``neus_sphere_full`` with a ``volume-color`` head: the geometry's
+    48 features alone -> rgb, through the radiance head's MLP (4 hidden
+    layers of 128, sigmoid)."""
+    cfg = neus_sphere_full()
+    radiance = cfg["model"]["texture"]
+    cfg["name"] = "neus-color-synthetic-sphere"
+    cfg["model"]["texture"] = {
+        "name": "volume-color",
+        "input_feature_dim": cfg["model"]["geometry"]["feature_dim"],
+        "mlp_network_config": radiance["mlp_network_config"],
+        "color_activation": radiance["color_activation"]}
+    return cfg
 
 
 def _merge(dst: dict, src: dict) -> dict:

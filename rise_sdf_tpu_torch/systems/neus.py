@@ -440,7 +440,8 @@ class NeuSSystem(BaseSystem):
 
     def test(self, state, export: bool = True) -> Dict[str, float]:
         """Render every test view, save its grid under ``it{step}-test/``
-        and return the mean PSNR; then, with ``export``, the mesh."""
+        and the grids as ``it{step}-test.gif``, and return the mean PSNR;
+        then, with ``export``, the mesh."""
         split = self.datamodule.test()
         step = int(state["step"])
         psnrs = []
@@ -456,13 +457,16 @@ class NeuSSystem(BaseSystem):
                                  split.h, split.w)
         res = {"psnr": float(np.mean(psnrs))}
         print(f"test/psnr = {res['psnr']:.3f}", flush=True)
+        self.saver.save_img_sequence(f"it{step}-test", f"it{step}-test",
+                                     r"(\d+)\.png")
         if export:
             self.export(state)
         return res
 
     def predict(self, state, hdr_filepath=None):
         """Render every view of the predict split (the test split when
-        the dataset has none) into ``it{step}-predict/``."""
+        the dataset has none) into ``it{step}-predict/`` and
+        ``it{step}-predict.gif``."""
         dm = self.datamodule
         split = dm.predict() if hasattr(dm, "predict") else dm.test()
         step = int(state["step"])
@@ -472,6 +476,8 @@ class NeuSSystem(BaseSystem):
                 {"type": "rgb",
                  "img": out["comp_rgb_full"].reshape(split.h, split.w, 3),
                  "kwargs": {"data_format": "HWC"}}])
+        self.saver.save_img_sequence(f"it{step}-predict",
+                                     f"it{step}-predict", r"(\d+)\.png")
 
     def export(self, state, times: Optional[Dict[str, float]] = None):
         """The mesh of ``export_mesh`` as ``it{step}-{method}{res}.ply``

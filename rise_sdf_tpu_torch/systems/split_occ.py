@@ -381,8 +381,9 @@ class SplitOccSystem(NeuSSystem):
         """The evaluation protocol over the test split (module
         docstring); returns the mean of each metric over the views and
         ``dropped_rays``, the rays left out after escalation in every
-        render; then, with ``export``, the mesh and its materials
-        (``export``)."""
+        render.  The views' grids go into ``it{step}-test.gif`` and, at
+        stage 1, their PBR grids into ``it{step}-test-pbr.gif``; then,
+        with ``export``, the mesh and its materials (``export``)."""
         split = self.datamodule.test()
         step = int(state["step"])
         stage = self.model.stage(step)
@@ -437,6 +438,11 @@ class SplitOccSystem(NeuSSystem):
               f"incl. metrics/IO)", flush=True)
         res["dropped_rays"] = dropped
         print(f"test: {res}", flush=True)
+        self.saver.save_img_sequence(f"it{step}-test", f"it{step}-test",
+                                     r"(\d+)\.png")
+        if stage != 0:
+            self.saver.save_img_sequence(f"it{step}-test-pbr",
+                                         f"it{step}-test", r"(\d+)\-pbr.png")
         if export:
             self.export(state)
         return res
@@ -470,7 +476,7 @@ class SplitOccSystem(NeuSSystem):
     def predict(self, state, hdr_filepath: str):
         """Render every test view under the environment file
         ``hdr_filepath`` (the relighting path, third bounce on) and save
-        the images."""
+        the images and their GIF, ``it{step}-predict-{name}.gif``."""
         split = self.datamodule.test()
         base = self.model.emitter.relight_params(hdr_filepath)["base"]
         step = int(state["step"])
@@ -481,3 +487,5 @@ class SplitOccSystem(NeuSSystem):
             self.saver.save_image_grid(
                 f"it{step}-predict-{name}/{i}.png",
                 [_rgb(out["comp_rgb_phys_full"], split.h, split.w)])
+        self.saver.save_img_sequence(f"it{step}-predict-{name}",
+                                     f"it{step}-predict-{name}", r"(\d+)\.png")

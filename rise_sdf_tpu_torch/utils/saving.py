@@ -1,15 +1,19 @@
-"""Artifact saving: image grids (PNG, EXR), arrays and meshes (PLY)
-(counterpart of ``rise_sdf_tpu/utils/saving.py``).
+"""Artifact saving: image grids (PNG, EXR), cubemaps, image sequences,
+arrays and meshes (PLY) (counterpart of ``rise_sdf_tpu/utils/saving.py``).
 
 The JAX package writes PNGs with cv2; the port writes them itself (8-bit
 RGB, every row unfiltered, one zlib stream at level 1, cv2's default
 speed) and maps grayscale images through a numpy ``jet`` table, so it
-needs neither cv2 nor PIL.  EXR grids go through ``utils/exr.py``.
+needs neither cv2 nor PIL.  EXR grids go through ``utils/exr.py``.  The
+JAX package writes an image sequence as mp4 through imageio where ffmpeg
+is installed and as GIF otherwise; the port always writes GIF
+(``utils/gif.py``).
 """
 
 from __future__ import annotations
 
 import os
+import re
 import struct
 import zlib
 from typing import List, Optional
@@ -17,6 +21,8 @@ from typing import List, Optional
 import numpy as np
 
 from .exr import write_exr
+from .gif import write_gif
+from .png import read_png
 
 
 def _jet_table() -> np.ndarray:
@@ -120,6 +126,54 @@ class Saver:
                 for i in imgs]
         return self._save(filename, lambda path: write_png(
             path, np.concatenate(imgs, axis=1)))
+
+    def save_cubemap(self, filename: str, img, data_range=(0, 1)) -> str:
+        """A cubemap [6, S, S, C] as a horizontal cross, one cross per
+        group of 3 channels side by side: rows [_, +y, _, _], [-x, +z,
+        +x, -z], [_, -y, _, _] (faces 2; 1, 4, 0, 5; 3), blank black."""
+        img = np.asarray(img, np.float32)
+        if img.ndim != 4 or img.shape[0] != 6 or img.shape[1] != img.shape[2]:
+            raise ValueError(f"save_cubemap takes [6, S, S, C], not "
+                             f"{img.shape}")
+        crosses = []
+        for start in range(0, img.shape[-1], 3):
+            faces = [self._img_to_u8({"type": "rgb",
+                                      "img": img[i, ..., start:start + 3],
+                                      "kwargs": {"data_range": data_range}})
+                     for i in range(6)]
+            blank = np.zeros_like(faces[0])
+            crosses.append(np.concatenate([
+                np.concatenate([blank, faces[2], blank, blank], axis=1),
+                np.concatenate([faces[1], faces[4], faces[0], faces[5]],
+                               axis=1),
+                np.concatenate([blank, faces[3], blank, blank], axis=1)],
+                axis=0))
+        return self._save(filename, lambda path: write_png(
+            path, np.concatenate(crosses, axis=1)))
+
+    def save_img_sequence(self, filename: str, img_dir: str, matcher: str,
+                          fps: int = 30) -> Optional[str]:
+        """The PNGs under ``img_dir`` whose names the regular expression
+        ``matcher`` finds, ordered by its first group as an integer, as
+        the GIF ``{filename}.gif`` (a frame every ``1 / fps`` s); None
+        when the directory or the matches are missing."""
+        path = os.path.join(self.save_dir, f"{filename}.gif")
+        if not self.write:
+            return path
+        src_dir = os.path.join(self.save_dir, img_dir)
+        if not os.path.isdir(src_dir):
+            return None
+        pattern = re.compile(matcher)
+        frames = []
+        for f in sorted(os.listdir(src_dir)):
+            m = pattern.search(f)
+            if m:
+                frames.append((int(m.groups()[0]), os.path.join(src_dir, f)))
+        if not frames:
+            return None
+        frames.sort()
+        return self._save(f"{filename}.gif", lambda p: write_gif(
+            p, [read_png(f) for _, f in frames], fps))
 
     def save_npy(self, filename: str, arr) -> str:
         return self._save(filename,

@@ -107,8 +107,9 @@ def test_torchrun_cli_two_ranks(tmp_path):
     files = sorted(os.path.relpath(os.path.join(d, f), trial)
                    for d, _, fs in os.walk(trial) for f in fs)
     assert files == ["ckpt/step_25.ckpt.npz", "config/parsed.json",
-                     "save/it25-mc32.ply", "save/it25-test/0.png",
-                     "save/it25-test/1.png", "save/it25-test/2.png"]
+                     "save/it25-mc32.ply", "save/it25-test.gif",
+                     "save/it25-test/0.png", "save/it25-test/1.png",
+                     "save/it25-test/2.png"]
     assert res.stdout.count("test/psnr") == 2  # both ranks tested
 
 

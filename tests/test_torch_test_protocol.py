@@ -36,6 +36,7 @@ from rise_sdf_tpu.utils.color import linear_to_srgb_np as jsrgb
 from rise_sdf_tpu_torch import bridge, datasets, presets, systems
 from rise_sdf_tpu_torch.ops import scatter as port_scatter
 from rise_sdf_tpu_torch.utils.exr import read_exr
+from rise_sdf_tpu_torch.utils.gif import quantize, read_gif
 from rise_sdf_tpu_torch.utils.saving import JET, Saver
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -220,6 +221,16 @@ def test_protocol_with_one_light_reports_every_metric(tmp_path, jax_side,
         for suffix in ("", "-pbr", "-albedo", "-relight-warm"):
             assert os.path.exists(os.path.join(
                 save, f"it{STEP}-test", f"{i}{suffix}.png")), (i, suffix)
+    # the views' grids and their PBR grids as GIFs, JAX's names
+    for name, suffix in ((f"it{STEP}-test", ""), (f"it{STEP}-test-pbr",
+                                                   "-pbr")):
+        frames, _ = read_gif(os.path.join(save, f"{name}.gif"))
+        assert len(frames) == 2, name
+        for i, frame in enumerate(frames):
+            png = _read_png(os.path.join(save, f"it{STEP}-test",
+                                         f"{i}{suffix}.png"))
+            idx, pal = quantize(png)
+            np.testing.assert_array_equal(frame, pal[idx])
     system.test(state)
     assert calls == []
     iso = system.config["model"]["geometry"]["isosurface"]
@@ -269,6 +280,9 @@ def test_predict_renders_every_test_view(tmp_path, jax_side):
         img = _read_png(os.path.join(system.save_dir,
                                      f"it{STEP}-predict-bright", f"{i}.png"))
         assert img.shape == (split.h, split.w, 3) and img.max() > 0
+    frames, _ = read_gif(os.path.join(system.save_dir,
+                                      f"it{STEP}-predict-bright.gif"))
+    assert len(frames) == len(split)
 
 
 def _read_png(path):
