@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (Hopper, sm_90a).
 
     python3 chip_smoke.py [--steps 120] [--split-steps 32]
-                          [--test-views 2] [--resume-steps 32]
+                          [--test-views 1] [--resume-steps 32]
                           [--save-streams FILE]
 
 Phases, each of which fails the run (non-zero exit) when it fails:
@@ -35,7 +35,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    ``split_mixed_occ_full`` at full width, the headline protocol of the
    JAX package's ``bench.py``), G1 and K1 counts zeroed just before and
    read just after: the image must be finite, G1 must launch and K1 must
-   not.  The band-sample hash encode of one chunk from the middle of the
+   not (the run includes the bench's sphere-traced row, checked in phase
+   16b).  The band-sample hash encode of one chunk from the middle of the
    image is recorded (the render stream); G1 is held to and timed
    against ``index_select`` on its rows;
 7. training slice: the NeuS system at ``neus_sphere_full`` widths (hash
@@ -72,7 +73,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 9. test protocol: ``SplitOccSystem.test`` on the stage-1 state that
    phase 8 leaves (step 13031), at ``split_mixed_occ_test_full``: the
    calibrated compaction fractions, then ``--test-views`` 800x800 test
-   views (2) under the learned light and the ``warm`` and ``bright``
+   views (1) under the learned light and the ``warm`` and ``bright``
    environments in one geometry pass per chunk (``forward_multi``, the
    third bounce on); then view 0 again
    in single-light mode, one render per light
@@ -246,6 +247,30 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    ``it{step}-test-pbr.gif``) read back by the port's decoder: one
    frame per view, the first equal to its PNG quantised, the
    quantisation error printed.
+16. the sphere-traced eval (``model.eval_mode: sphere_trace``): (a)
+   ``forward_surface`` and ``forward_surface_multi`` (the learned light
+   and a relight light with the third bounce) at the tiny split config,
+   stage 1, variance 0.9, on 128 fan rays in float64, under full, shell
+   and absent occupancy: card against CPU, masks and counts equal, every
+   channel within 1e-6, misses the background within 1e-5, G1 launching
+   and K1 not; (b) the bench's sphere row from phase 6's run (the 800x800
+   headline scene rendered by ``forward_surface`` in chunks of 4096
+   rays): rays/s, unresolved rays, G1 launches per image and the PSNR
+   against phase 6's volumetric image printed; the image finite, misses
+   the background within 1e-5, G1 launching and K1 not; (c) the test
+   protocol of phase 9 with ``eval_mode: sphere_trace`` on phase 8's
+   parameters made sharp as the bench's headline makes them (variance
+   0.67, inv_s ~ 812, and the bench's solid occupancy grid: the stand-in
+   for a converged field that sphere tracing is meant for), one 800x800
+   test view in multi-emitter mode and then in single-light mode, phase
+   9's bounds between the modes, every metric finite and no ray dropped
+   after the volumetric residual; the residual rays, seconds per view
+   and counts printed.  (On phase 8's soft state itself, inv_s ~ 20,
+   the guard sends 620,369 of a view's 640,000 rays to the residual,
+   whose 2x buffer drops 134,475 of them, as the JAX package's would,
+   and the two modes take 389 s.)  The counts are zeroed
+   just before (a) and (c) and read just after; (b) reads the bench's
+   own count differences.
 
 ``--save-streams FILE`` saves both recorded streams for the same-call
 A/B against another tree, ``python -m rise_sdf_tpu_torch.kernel_ab``
@@ -257,7 +282,8 @@ in phase 10's resumed run and G1's in its export, both their
 launches per rank in phase 11, in the three parts of phase 12, in
 phase 13's training and renders, with their times on its background
 stream, in phase 14's two training windows and test run, and in phase
-15's NeuS training, its validation and the ``volume-pbr`` run) and
+15's NeuS training, its validation and the ``volume-pbr`` run, and in
+phase 16's three parts) and
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the package
 beside it, the script exits non-zero and prints no result.
 """
@@ -644,6 +670,10 @@ def render_phase(torch, gather, scatter):
     g1, k1 = gather.gather_rows.launches, scatter.scatter_add.launches
     img = res.pop("image")
     res.pop("included")
+    sphere = {"image": res.pop("sphere_image").reshape(img.shape),
+              "opacity": res.pop("sphere_opacity").reshape(img.shape[:2]),
+              "headline": img, **{k: res[k] for k in res
+                                  if k.startswith("sphere_")}}
     log(f"  bench: {json.dumps(res)}")
     log(f"  prefilter bank {res['prefilter_bank_s']:.2f} s, mip build "
         f"{res['mip_build_s'] * 1e3:.1f} ms, bake {res['bake_s'] * 1e3:.1f} "
@@ -674,7 +704,7 @@ def render_phase(torch, gather, scatter):
     stream = check_gather(torch, gather, seen["table"], rows.reshape(-1),
                           what)
     return g1, stream, {"render_rows": rows.cpu(),
-                        "render_table": seen["table"].cpu()}
+                        "render_table": seen["table"].cpu()}, sphere
 
 
 def slice_phase(torch, scatter, steps, cfg, device="cuda"):
@@ -978,18 +1008,33 @@ def test_protocol_phase(torch, gather, scatter, system, state, views):
                            int(state["step"]), views, "9")
     shutil.rmtree(os.path.join("exp", "test_protocol"), ignore_errors=True)
     multi, single = res["multi"], res["single"]
+    check_protocol(res)
+    log(f"  phase {phase_s:.1f} s; G1 launches {g1}, K1 launches {k1}")
+    return g1, {"multi_s_per_view": multi["s_per_view"],
+                "single_s_per_view": single["s_per_view"],
+                "multi_launches_per_view": multi["g1_launches"]
+                / multi["views"]}, res["view0_pair"], res["view0_surface"], \
+        gifs
+
+
+def check_protocol(res):
+    """Print and check ``measure.test_protocol``'s result: every metric
+    finite, no ray dropped, G1 launching and K1 not in either mode, and
+    the single-light view 0 within 1e-3 of the multi-emitter render in
+    its metrics and 1e-4 in its images."""
+    multi, single = res["multi"], res["single"]
     for name, run in (("multi-emitter", multi), ("single-light", single)):
         log(f"  {name}: {run['views']} views, {run['s_per_view']:.2f} "
             f"s/view ({run['render_s_per_view']:.2f} s/view rendering); "
             f"fractions {run['fractions']}; chunks rendered "
-            f"{run['chunks']}; G1 launches {run['g1_launches']}, K1 "
-            f"launches {run['k1_launches']}")
+            f"{run['chunks']}; residual rays {run['residual_rays']}; G1 "
+            f"launches {run['g1_launches']}, K1 launches "
+            f"{run['k1_launches']}")
         log(f"    metrics {json.dumps(run['metrics'])}")
     log(f"  single-light view 0 vs multi-emitter view 0: max |difference| "
         f"{json.dumps(single['max_abs_diff'])}, share of pixels above 1e-4 "
         f"{json.dumps(single['share_above_1e-4'])}; metrics within "
         f"{single['max_metric_diff']:.2e}")
-    log(f"  phase {phase_s:.1f} s; G1 launches {g1}, K1 launches {k1}")
     want = {"psnr", "phys_psnr", "phys_ssim", "albedo_psnr", "albedo_ssim",
             "roughness_psnr", "normal_mae", "dropped_rays"} | {
         f"relight_{m}_{light}" for m in ("psnr", "ssim")
@@ -1008,11 +1053,6 @@ def test_protocol_phase(torch, gather, scatter, system, state, views):
         fail("the single-light metrics differ from the multi-emitter ones")
     if max(single["max_abs_diff"].values()) > 1e-4:
         fail("the single-light images differ from the multi-emitter ones")
-    return g1, {"multi_s_per_view": multi["s_per_view"],
-                "single_s_per_view": single["s_per_view"],
-                "multi_launches_per_view": multi["g1_launches"]
-                / multi["views"]}, res["view0_pair"], res["view0_surface"], \
-        gifs
 
 
 def _same_state(torch, src, dst, src_state, dst_state):
@@ -3109,6 +3149,188 @@ def appearance_phase(torch, scatter, gather, trained, state, surface,
     return rec
 
 
+# phase 16: the sphere-traced eval.  (a) the tiny split config on 128
+# fan rays (tests/test_sphere_trace.py's) in float64; (b) phase 6's bench
+# run, whose sphere row renders the 800x800 headline scene by sphere
+# tracing; (c) phase 8's parameters, sharp, at split_mixed_occ_test_full
+# with eval_mode sphere_trace, one 800x800 test view in both modes.
+SURFACE_RAYS, SURFACE_VIEWS = 128, 1
+
+
+def surface_small_phase(torch, gather, scatter):
+    """16a: ``forward_surface`` and ``forward_surface_multi`` (the learned
+    light and a relight light with the third bounce) at the tiny split
+    config, stage 1, variance 0.9, in float64, under full, shell and
+    absent occupancy: card against CPU.  Returns G1's and K1's launches
+    on the card."""
+    import copy
+
+    from rise_sdf_tpu_torch import models
+    from rise_sdf_tpu_torch.presets import tiny_split_config
+
+    cfg = tiny_split_config()["model"]
+    cfg["variance"]["init_val"] = 0.9  # inv_s ~ 8103
+    model = models.make(cfg["name"], cfg)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    z = torch.linspace(-0.3, 0.3, SURFACE_RAYS, dtype=torch.float64)
+    d = torch.stack([z * 0.5, z, torch.ones_like(z)], -1)
+    d = d / torch.linalg.vector_norm(d, dim=-1, keepdim=True)
+    rays = torch.cat([torch.tensor([[0.0, 0.0, -4.0]],
+                                   dtype=torch.float64).expand_as(d), d], -1)
+    res = model.grid_resolution
+    g = (torch.arange(res, dtype=torch.float64) + 0.5) / res \
+        * 2 * model.radius - model.radius
+    centres = torch.stack(torch.meshgrid(g, g, g, indexing="ij"),
+                          -1).reshape(-1, 3)
+    cpu = copy.deepcopy(model).double().requires_grad_(False)
+    sdf = cpu.geometry.sdf(centres, 20)
+    occs = {"full": torch.ones(res ** 3, dtype=torch.bool),
+            "shell": sdf.abs() < 2 * 2 * model.radius / res, "absent": None}
+    runs = {dev: {} for dev in ("cpu", "cuda")}
+    launches = {}
+    for dev in runs:
+        m = cpu if dev == "cpu" else copy.deepcopy(cpu).to(dev)
+        gather.gather_rows.launches = 0
+        scatter.scatter_add.launches = 0
+        mips = [m.emitter.build_mips(), m.emitter.build_mips(
+            torch.roll(m.emitter.base * 1.7 + 0.05, 1, -1))]
+        for name, occ in occs.items():
+            kw = dict(occ_binary=None if occ is None else occ.to(dev),
+                      step=20, stage=1, background_color=torch.ones(
+                          3, dtype=torch.float64, device=dev))
+            outs = [m.forward_surface(rays.to(dev), mips=mips[0], **kw)] \
+                + m.forward_surface_multi(rays.to(dev), mips_list=mips,
+                                          relight_flags=(False, True), **kw)
+            runs[dev][name] = [{k: v.cpu() for k, v in o.items()}
+                               for o in outs]
+        launches[dev] = (gather.gather_rows.launches,
+                         scatter.scatter_add.launches)
+    worst, hits, included = 0.0, {}, {}
+    for name in occs:
+        for j, (c, g_) in enumerate(zip(runs["cpu"][name],
+                                        runs["cuda"][name])):
+            for k, v in c.items():
+                if not v.is_floating_point():
+                    if not torch.equal(g_[k], v):
+                        fail(f"16a: {k} of render {j} under {name} "
+                             f"occupancy differs between card and CPU")
+                else:
+                    worst = max(worst, float((g_[k] - v).abs().max()))
+            if not torch.equal(g_["opacity"] > 0.5, c["opacity"] > 0.5):
+                fail(f"16a: the hit masks differ under {name} occupancy")
+            miss = c["opacity"][:, 0] <= 0.5
+            bg = float((g_["comp_rgb_full"][miss] - 1.0).abs().max())
+            if bg > 1e-5:
+                fail(f"16a: misses on the card are {bg:.2e} off the "
+                     f"background")
+        c = runs["cpu"][name][0]
+        hits[name] = int((c["opacity"] > 0.5).sum())
+        included[name] = int(c["ray_included"].sum())
+    g1, k1 = launches["cuda"]
+    lights = float((runs["cpu"]["full"][1]["comp_rgb_phys_full"]
+                    - runs["cpu"]["full"][2]["comp_rgb_phys_full"])
+                   .abs().max())
+    log(f"  a. tiny split forward_surface + forward_surface_multi (learned "
+        f"+ relight light) in float64 on {SURFACE_RAYS} rays, full / shell "
+        f"/ absent occupancy: max |card - CPU| over every channel "
+        f"{worst:.2e}; masks and counts equal; hits {hits}, included "
+        f"{included}; the lights differ by {lights:.3f}; G1 launches {g1}, "
+        f"K1 launches {k1}")
+    if not (worst <= 1e-6 and g1 > 0 and k1 == 0 and lights > 1e-3):
+        fail("card and CPU disagree on the tiny sphere-traced renders")
+    return g1, k1
+
+
+def surface_render_check(torch, sphere):
+    """16b: the bench's sphere row of phase 6 (the 800x800 headline scene
+    rendered by ``forward_surface``): finite, misses the exact
+    background, G1 launching; its PSNR against the volumetric headline
+    image printed.  Returns its record."""
+    from rise_sdf_tpu_torch.systems.criterions import psnr
+
+    img, opacity = sphere["image"], sphere["opacity"]
+    miss = opacity <= 0.5
+    bg = float((img[miss] - 1.0).abs().max()) if bool(miss.any()) else 0.0
+    rec = {"rays_per_s": sphere["sphere_trace_rays_per_sec"],
+           "unresolved_rays": sphere["sphere_trace_unresolved_rays"],
+           "seconds": sphere["sphere_trace_s"],
+           "g1_launches": sphere["sphere_trace_g1_launches"],
+           "k1_launches": sphere["sphere_trace_k1_launches"],
+           "hits": int((~miss).sum()),
+           "profile": {k[len("sphere_"):]: sphere[k] for k in (
+               "sphere_profile_chunks", "sphere_profile_wall_ms",
+               "sphere_profile_device_ms", "sphere_kernels_per_chunk",
+               "sphere_g1_device_ms", "sphere_device_busy_share")},
+           "psnr_vs_volume": float(psnr(img, sphere["headline"])),
+           "miss_background_err": bg}
+    log(f"  b. bench sphere row (phase 6's run), 800x800 in chunks of 4096: "
+        f"{rec['rays_per_s']:.0f} rays/s ({rec['seconds']:.3f} s), "
+        f"{rec['unresolved_rays']} unresolved rays, {rec['hits']} hits; G1 "
+        f"launches per image {rec['g1_launches']}; PSNR against the "
+        f"volumetric headline image {rec['psnr_vs_volume']:.2f} dB "
+        f"(untrained weights); misses within {bg:.1e} of the background; "
+        f"profile {json.dumps(rec['profile'])}")
+    if not bool(torch.isfinite(img).all()):
+        fail("16b: the sphere-traced 800x800 image is not finite")
+    if bg > 1e-5:
+        fail(f"16b: misses are {bg:.2e} off the background")
+    if rec["g1_launches"] == 0 or rec["k1_launches"] != 0:
+        fail(f"16b: the sphere row launched G1 {rec['g1_launches']}, K1 "
+             f"{rec['k1_launches']} times")
+    return rec
+
+
+def surface_test_phase(torch, gather, scatter, system, state):
+    """16c: the test protocol with ``eval_mode: sphere_trace`` on phase
+    8's parameters made sharp as the bench's headline makes them
+    (variance ``bench.VARIANCE``, its solid occupancy grid),
+    ``SURFACE_VIEWS`` test view in multi-emitter mode, then single-light
+    mode (``check_protocol``'s bounds).  Returns its record."""
+    from rise_sdf_tpu_torch import bench, measure
+
+    variance = system.model.variance.variance
+    soft = variance.detach().clone()
+    sharp = {**state, "occ_binary": bench.solid_occupancy(system.model,
+                                                          system.device)}
+    torch.cuda.synchronize()
+    gather.gather_rows.launches = 0
+    scatter.scatter_add.launches = 0
+    try:
+        with torch.no_grad():
+            variance.fill_(bench.VARIANCE)
+        res = measure.test_protocol(system, sharp, views=SURFACE_VIEWS,
+                                    log=log,
+                                    model={"eval_mode": "sphere_trace"})
+    finally:
+        with torch.no_grad():
+            variance.copy_(soft)
+    g1, k1 = gather.gather_rows.launches, scatter.scatter_add.launches
+    shutil.rmtree(os.path.join("exp", "test_protocol"), ignore_errors=True)
+    log("  c. test protocol, eval_mode sphere_trace:")
+    check_protocol(res)
+    multi, single = res["multi"], res["single"]
+    log(f"    G1 launches {g1}, K1 launches {k1}")
+    if k1 != 0:
+        fail(f"16c: K1 launched {k1} times")
+    return {mode: {"s_per_view": run["s_per_view"],
+                   "residual_rays": run["residual_rays"],
+                   "g1_launches": run["g1_launches"],
+                   "k1_launches": run["k1_launches"],
+                   "metrics": run["metrics"]}
+            for mode, run in (("multi", multi), ("single", single))}
+
+
+def surface_phase(torch, gather, scatter, system, state, sphere):
+    """Phase 16 (module docstring).  Returns its record."""
+    t0 = time.perf_counter()
+    rec = {"small": surface_small_phase(torch, gather, scatter),
+           "bench": surface_render_check(torch, sphere),
+           "test": surface_test_phase(torch, gather, scatter, system,
+                                      state)}
+    rec["seconds"] = time.perf_counter() - t0
+    return rec
+
+
 def check_recorded_step(torch, scatter, table, encodes, stream):
     """The step's table gradient (the sum of its encodes' K1 launches)
     against the float64 plain scatter of every encode's rows and
@@ -3148,7 +3370,7 @@ def main():
     ap.add_argument("--steps", type=int, default=120)
     ap.add_argument("--split-steps", type=int, default=32,
                     help="steps in each of the flagship's two windows")
-    ap.add_argument("--test-views", type=int, default=2,
+    ap.add_argument("--test-views", type=int, default=1,
                     help="test views of the test protocol's multi-emitter "
                          "run")
     ap.add_argument("--resume-steps", type=int, default=32,
@@ -3188,9 +3410,9 @@ def main():
     split_train_reference_phase(torch, gather, scatter)
     log("render slice: rise_sdf_tpu_torch.bench, split_mixed_occ_full, "
         "800x800:")
-    g1["launches"], g1["render_stream"], streams = render_phase(
+    g1["launches"], g1["render_stream"], streams, sphere = render_phase(
         torch, gather, scatter)
-    from rise_sdf_tpu_torch import measure
+    from rise_sdf_tpu_torch import bench, measure
     from rise_sdf_tpu_torch.presets import neus_sphere_full
 
     log(f"training slice: NeuS neus_sphere_full, {args.steps} steps + 1 "
@@ -3278,11 +3500,28 @@ def main():
     p15 = appearance_phase(torch, scatter, gather, system, state, surface,
                            {"phase9": gifs9,
                             "phase14d": p14["lpips"].pop("gifs")})
-    del system, state, lpips_pair, surface
-    torch.cuda.empty_cache()
     p15["seconds"] = time.perf_counter() - t0
     log(f"  phase {p15['seconds']:.1f} s")
     log(f"  phase 15: {json.dumps(p15)}")
+    log(f"the sphere-traced eval: tiny forward_surface / "
+        f"forward_surface_multi card vs CPU; the bench's sphere row at "
+        f"800x800; split_mixed_occ_test_full with eval_mode sphere_trace at "
+        f"step {int(state['step'])} (variance {bench.VARIANCE}, solid "
+        f"occupancy), {SURFACE_VIEWS} view in both modes:")
+    p16 = surface_phase(torch, gather, scatter, system, state, sphere)
+    del system, state, lpips_pair, surface, sphere
+    torch.cuda.empty_cache()
+    log(f"  phase {p16['seconds']:.1f} s")
+    log(f"  phase 16: {json.dumps(p16)}")
+    test16 = p16["test"]
+    k1["phase16"] = {"small": p16["small"][1],
+                     "sphere_row": p16["bench"]["k1_launches"],
+                     "test_multi": test16["multi"]["k1_launches"],
+                     "test_single": test16["single"]["k1_launches"]}
+    g1["phase16"] = {"small": p16["small"][0],
+                     "sphere_row": p16["bench"]["g1_launches"],
+                     "test_multi": test16["multi"]["g1_launches"],
+                     "test_single": test16["single"]["g1_launches"]}
     color = p15["color"]
     k1["phase15"] = {"color_train": color["k1"],
                      "color_validate": color["validate_k1"]}
@@ -3309,7 +3548,7 @@ def main():
              "flagship_per_step", "flagship_launches", "test_launches",
              "test_protocol", "resume_launches", "resume_launches_per_step",
              "export_launches", "ddp", "scene", "capture", "phase14",
-             "phase15")
+             "phase15", "phase16")
     log(json.dumps({"kernels": [
         {"name": "scatter_add (K1)", "route": "cuda", "source": SRC_K1,
          "replaces": REPLACES_K1, **{k: k1[k] for k in keys},

@@ -24,7 +24,18 @@ mip-build, bake and render seconds, the kernels' launches in the timed
 image, peak device memory and the image's largest opacity (above 1 by
 the float32 error of the transmittance scan); with ``--profile-chunks N``, the device
 time of ``N`` chunks by kernel under ``torch.profiler`` and G1's share
-of it.
+of it, and the same (``sphere_profile_*``) for ``N // 4`` chunks of the
+sphere row.
+
+After the headline, the ``sphere`` row of the JAX package's bench: the
+same model, sharp variance and solid occupancy rendered by sphere tracing
+(``forward_surface`` at stage 1, no bake), in serial chunks of 4096 rays
+in row-major order, the mips built inside the timed image;
+``sphere_trace_rays_per_sec`` and ``sphere_trace_unresolved_rays`` (the
+rays the trace or its guard leaves to a volumetric re-render, which the
+row does not run) join the JSON line, with the row's G1 and K1
+launches.  The JAX bench pads its last chunk with zero rays; here it is
+shorter.
 
 ``--preset tiny`` renders the tiny split config at 16x16 (CPU smoke).
 The default device is the card; without CUDA it raises unless
@@ -142,7 +153,7 @@ def run(preset: str = "full", device="cuda", profile_chunks: int = 0,
         f"{res['prefilter_bank_s']:.1f} s)")
 
     occ = solid_occupancy(model, device)
-    rays = image_rays(size, device)
+    rays = rowmajor = image_rays(size, device)
     n, chunk = rays.shape[0], int(mcfg["ray_chunk"])
     order, inv = interleave_order(n, chunk,
                                   mcfg.get("eval_ray_interleave", False))
@@ -216,25 +227,76 @@ def run(preset: str = "full", device="cuda", profile_chunks: int = 0,
         f"dropped, mips {res['mip_build_s']:.3f} s, bake "
         f"{res['bake_s']:.3f} s, render {res['render_s']:.3f} s")
 
+    res.update(sphere_row(model, rowmajor, occ, step, log))
     if profile_chunks > 0 and device.type == "cuda":
-        res.update(profile(model, rays, chunk, profile_chunks, mips, bake,
-                           kw))
+        res.update(profile(
+            lambda s: model(rays[s:s + chunk], mips=mips, bake=bake, **kw),
+            device, chunk, profile_chunks))
+        # the sphere row's chunks from the middle of the image
+        mid = rowmajor.shape[0] // 2 - SPHERE_CHUNK * profile_chunks // 4
+        sphere = profile(
+            lambda s: model.forward_surface(
+                rowmajor[mid + s:mid + s + SPHERE_CHUNK], mips=mips,
+                occ_binary=occ, step=step, stage=1,
+                background_color=torch.ones(3, device=device)),
+            device, SPHERE_CHUNK, max(profile_chunks // 4, 1))
+        res.update({f"sphere_{k}": v for k, v in sphere.items()})
     return res
 
 
-def profile(model, rays, chunk, n_chunks, mips, bake, kw) -> dict:
-    """Device time of ``n_chunks`` chunks by kernel (``torch.profiler``)
-    beside their wall time; G1's share of the device time."""
+SPHERE_CHUNK = 4096  # the JAX bench's continuity chunk
+
+
+def sphere_row(model, rays, occ, step, log) -> dict:
+    """The sphere-traced image of ``rays`` (row-major): one warm-up
+    chunk, then the mips and every chunk timed.  Returns rays/s, the
+    unresolved rays, the seconds, G1's and K1's launches in the timed
+    image and (on the device) the image ``sphere_image`` [N, 3] and its
+    opacity ``sphere_opacity`` [N]."""
+    device, n = rays.device, rays.shape[0]
+    kw = dict(occ_binary=occ, step=step, stage=1,
+              background_color=torch.ones(3, device=device))
+    model.forward_surface(rays[:SPHERE_CHUNK],
+                          mips=model.emitter.build_mips(), **kw)
+    _sync(device)
+    g1, k1 = gather_rows.launches, scatter_add.launches
+    rgb = torch.empty((n, 3), device=device)
+    opacity = torch.empty((n,), device=device)
+    unresolved = torch.zeros((), dtype=torch.int64, device=device)
+    t0 = time.perf_counter()
+    mips = model.emitter.build_mips()
+    for s in range(0, n, SPHERE_CHUNK):
+        out = model.forward_surface(rays[s:s + SPHERE_CHUNK], mips=mips,
+                                    **kw)
+        rgb[s:s + SPHERE_CHUNK] = out["comp_rgb_full"]
+        opacity[s:s + SPHERE_CHUNK] = out["opacity"][:, 0]
+        unresolved += (~out["ray_included"]).sum()
+    _sync(device)
+    dt = time.perf_counter() - t0
+    res = {"sphere_trace_rays_per_sec": n / dt,
+           "sphere_trace_unresolved_rays": int(unresolved),
+           "sphere_trace_s": dt,
+           "sphere_trace_g1_launches": gather_rows.launches - g1,
+           "sphere_trace_k1_launches": scatter_add.launches - k1,
+           "sphere_image": rgb, "sphere_opacity": opacity}
+    log(f"sphere trace: {res['sphere_trace_rays_per_sec']:.0f} rays/s, "
+        f"{res['sphere_trace_unresolved_rays']} unresolved")
+    return res
+
+
+def profile(render, device, chunk, n_chunks) -> dict:
+    """Device time of ``n_chunks`` chunks (``render(s)`` renders the one
+    at ray ``s``) by kernel (``torch.profiler``) beside their wall time;
+    G1's share of the device time."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
-    device = rays.device
     _sync(device)
     with torch_profile(activities=[ProfilerActivity.CPU,
                                    ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for s in range(0, n_chunks * chunk, chunk):
-            model(rays[s:s + chunk], mips=mips, bake=bake, **kw)
+            render(s)
         _sync(device)
         wall_ms = (time.perf_counter() - t0) * 1e3
     times = _kernel_times(prof)
@@ -260,8 +322,8 @@ def main(argv: Optional[list] = None):
               log=lambda msg: print(msg, file=sys.stderr, flush=True))
     if torch.device(args.device).type == "cuda":
         res["card"] = torch.cuda.get_device_name(0)
-    print(json.dumps({k: v for k, v in res.items()
-                      if k not in ("image", "included")}))
+    print(json.dumps({k: v for k, v in res.items() if k not in (
+        "image", "included", "sphere_image", "sphere_opacity")}))
     return res
 
 

@@ -263,15 +263,17 @@ def train_split(system, steps, seed, on_log=None):
     return state, out, per_step
 
 
-def test_system(trained, multi=True, n_images=None):
+def test_system(trained, multi=True, n_images=None, model=None):
     """The split-occ system at ``split_mixed_occ_test_full`` (in
-    multi-emitter mode or not, with ``n_images`` test views) with the
-    parameters of the ``trained`` system."""
+    multi-emitter mode or not, with ``n_images`` test views, the
+    ``model`` keys over the preset's) with the parameters of the
+    ``trained`` system."""
     from . import datasets, systems
     from .presets import split_mixed_occ_test_full
 
     cfg = split_mixed_occ_test_full()
     cfg["system"]["multi_emitter_eval"] = multi
+    cfg["model"].update(model or {})
     if n_images:
         cfg["dataset"]["n_images"] = n_images
     system = systems.make(cfg["system"]["name"], cfg,
@@ -292,7 +294,9 @@ def run_test(system, state, profile_view=None, log=print):
     ``profile_view`` the device ms by kernel of that view's renders
     (``torch.profiler``, CUDA activity only: a view is some 10^5
     kernels) and their seconds under it, which the per-view rates leave
-    out.  Logs each render's seconds."""
+    out; ``residual_rays``, the rays that surface chunks sent to the
+    volumetric residual (0 in volume mode).  Logs each render's
+    seconds."""
     from .bench import _kernel_times, _sync
     from .ops.gather import gather_rows
     from .ops.scatter import scatter_add
@@ -331,6 +335,7 @@ def run_test(system, state, profile_view=None, log=print):
 
     system.render_image, system.render_chunk = timed, counted
     g1, k1 = gather_rows.launches, scatter_add.launches
+    residual = system.residual_rays
     _sync(system.device)
     t0 = time.perf_counter()
     try:
@@ -348,6 +353,7 @@ def run_test(system, state, profile_view=None, log=print):
            "g1_launches": gather_rows.launches - g1,
            "k1_launches": scatter_add.launches - k1,
            "chunks": {f"{m}x": n for m, n in chunks.items()},
+           "residual_rays": system.residual_rays - residual,
            "images": images}
     if times:
         top = sorted(times.items(), key=lambda kv: -kv[1][0])
@@ -364,9 +370,10 @@ def run_test(system, state, profile_view=None, log=print):
 
 
 def test_protocol(trained, state, views=None, profile_view=None,
-                  log=print):
-    """The test protocol on ``state`` of the ``trained`` flagship: the
-    preset's 4 views (or ``views``) in multi-emitter mode (with
+                  log=print, model=None):
+    """The test protocol on ``state`` of the ``trained`` flagship (with
+    the ``model`` keys over the preset's): the preset's 4 views (or
+    ``views``) in multi-emitter mode (with
     ``profile_view`` profiled), then view 0 in single-light mode.  The
     single-light run's images and metrics are held against the
     multi-emitter run's view 0: the largest difference of each image and
@@ -375,11 +382,12 @@ def test_protocol(trained, state, views=None, profile_view=None,
     and its ground truth, [H, W, 3] each (LPIPS' input);
     ``view0_surface`` its rays [H * W, 6] in pixel order, ``depth`` [H *
     W, 1] and ``normal`` [H * W, 3] (host arrays)."""
-    multi = run_test(test_system(trained, n_images=views), state,
-                     profile_view=profile_view, log=log)
+    multi = run_test(test_system(trained, n_images=views, model=model),
+                     state, profile_view=profile_view, log=log)
     log(f"  multi-emitter: {multi['s_per_view']:.2f} s/view "
         f"({multi['render_s_per_view']:.2f} s/view rendering)")
-    single_system = test_system(trained, multi=False, n_images=1)
+    single_system = test_system(trained, multi=False, n_images=1,
+                                model=model)
     single = run_test(single_system, state, log=log)
     view0 = multi["images"][0]
     names = ["comp_rgb_phys_full"] + [f"relight{j}/comp_rgb_phys_full"

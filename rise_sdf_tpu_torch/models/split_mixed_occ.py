@@ -29,8 +29,17 @@ kept entry its slot, the scatter sends the rest to one spare slot past
 the buffer (``.at[dest].set(..., mode="drop")``), and a ray whose
 entries overflow is reported in ``ray_included``.
 
-Stages 0 and 1 are served; the sphere-traced ``forward_surface`` is not
-ported.
+With ``eval_mode: sphere_trace`` an eval renders through
+``forward_surface`` (and ``forward_surface_multi``) instead: a
+fixed-iteration sphere trace of the hash-grid SDF
+(``ops/sphere_trace.py``) finds one hit per ray, which the same texture
+and secondary pass shade, with the same eval channels.  An occupancy
+guard flags rays the trace may have tunnelled through; those and the
+unresolved rays leave ``ray_included`` False, and the system re-renders
+them volumetrically.  Any other ``eval_mode`` renders volumetrically,
+as in the JAX package, which does not refuse a misspelt mode.
+
+Stages 0 and 1 are served.
 """
 
 from __future__ import annotations
@@ -44,6 +53,7 @@ from . import make, register
 from .neus import _normalize, neus_alpha, occ_eval_alpha
 from .variance import Variance
 from ..ops import march, sdf_bake, volrend
+from ..ops.sphere_trace import sphere_trace
 from ..utils.color import rgb_to_srgb
 
 
@@ -100,6 +110,23 @@ class SplitMixedOccModel(nn.Module):
                                                    128))
         self.eval_band_exact = bool(config.get("eval_band_exact", True))
         self.cone_angle = float(config.get("cone_angle", 0.0))
+        # the sphere-traced eval (``forward_surface``), chosen with
+        # ``eval_mode: sphere_trace``; any other mode renders volumetrically
+        self.eval_mode = str(config.get("eval_mode", "volume"))
+        self.st_iters = int(config.get("sphere_trace_iters", 48))
+        self.st_refine = int(config.get("sphere_trace_refine_iters", 4))
+        self.st_hit_eps = float(config.get("sphere_trace_hit_eps", 1e-3))
+        self.st_relax = float(config.get("sphere_trace_relax", 0.9))
+        self.st_occ_guard = bool(config.get("sphere_trace_occ_guard", True))
+        # a surface's own occupied lead: ~2 cells of dilation plus the
+        # cell-centre slop, stretched by the eikonal residual
+        self.st_guard_margin = float(
+            config.get("sphere_trace_guard_margin_cells", 4.0))
+        # a miss whose least SDF clears k / inv_s (0 turns the gate off)
+        # carries no NeuS weight anywhere: its occupied cells are the
+        # grid's dilation, not a tunnelled surface
+        self.st_sdf_clearance = float(
+            config.get("sphere_trace_sdf_clearance", 4.0))
         self.cos_anneal_end = int(config.get("cos_anneal_end", 0))
         self.randomized = bool(config.get("randomized", True))
         self.split_sum_kick_in_step = int(
@@ -656,4 +683,170 @@ class SplitMixedOccModel(nn.Module):
                 albedo_map=maps.get("albedo"),
                 metallic_map=maps.get("metallic")))
         self._eval_stats(outs[0], mc, sg["sec_live"])
+        return outs
+
+    # ------------------------------------------------------------------ #
+    def _surface_geometry(self, rays, *, occ_binary, step, levels):
+        """The light-independent front of the sphere-traced eval: the
+        trace on the hash-grid SDF, the hit's geometry (analytic normal
+        and feature) and the occupancy tunnelling guard."""
+        rays_o, rays_d = rays[:, 0:3], rays[:, 3:6]
+        res = sphere_trace(
+            rays_o, rays_d,
+            sdf_fn=lambda p: self.geometry.sdf(p, step, levels=levels),
+            aabb_min=self.aabb_min, aabb_max=self.aabb_max,
+            n_iters=self.st_iters, refine_iters=self.st_refine,
+            hit_eps=self.st_hit_eps, relax=self.st_relax)
+        hit, included = res.hit, res.converged
+        pos = rays_o + rays_d * res.t_hit[:, None]
+        geo = self.geometry(pos, step, with_grad=True, with_feature=True,
+                            grad_mode="analytic", levels=levels)
+        normal = _normalize(geo["grad"])
+        if occ_binary is not None and self.st_occ_guard:
+            # the trace can step over a thin sheet where the learned SDF
+            # overestimates the distance, and then reports a clean exit
+            # or a hit too far.  64 occupancy probes across the box flag
+            # rays whose first occupied cell lies well before the hit, or
+            # that "exited" through occupied space: they re-render
+            # volumetrically.  A hit's own dilation leads it by about
+            # margin / cos(incidence) along the ray.
+            t_near, t_far = march.ray_aabb_intersect(
+                rays_o, rays_d, self.aabb_min, self.aabb_max)
+            m = 64
+            frac = (torch.arange(m, dtype=rays.dtype, device=rays.device)
+                    + 0.5) / m
+            span = torch.clamp(t_far - t_near, min=0.0)
+            ts = t_near[:, None] + span[:, None] * frac[None]
+            pts = rays_o[:, None] + rays_d[:, None] * ts[..., None]
+            occ = march.occupancy_lookup(
+                occ_binary, pts.reshape(-1, 3), self.aabb_min,
+                self.aabb_max, self.grid_resolution).reshape(ts.shape)
+            cell = 2.0 * self.radius / self.grid_resolution
+            cos = torch.sum(rays_d * normal, -1).abs()
+            margin = self.st_guard_margin * cell / torch.clamp(cos, 0.15,
+                                                               1.0)
+            limit = torch.where(hit, res.t_hit - margin, t_far + 1.0)
+            suspect = (occ & (ts < limit[:, None])).any(-1)
+            if self.st_sdf_clearance > 0:
+                # half a marching step on top: the NeuS section estimator
+                # reaches cos * step / 2 beyond each sample
+                clear_miss = ~hit & (
+                    (res.sdf_min - 0.5 * self.render_step_size)
+                    * self.variance.inv_s(step) > self.st_sdf_clearance)
+                suspect = suspect & ~clear_miss
+            included = included & ~suspect
+        w = hit.to(rays.dtype)[:, None]
+        return {"res": res, "hit": hit, "w": w, "included": included,
+                "pos": pos, "normal": normal, "geo": geo,
+                "num_samples": hit.sum() * (self.st_iters + self.st_refine)}
+
+    @torch.no_grad()
+    def forward_surface(self, rays, *, occ_binary, mips, step,
+                        stage: int = 1, relighting: bool = False,
+                        background_color, levels=None, secondary_frac=None,
+                        bake=None):
+        """Sphere-traced eval (``eval_mode: sphere_trace``): the trace's
+        hit shaded through the texture, split-sum and secondary pass of
+        ``forward``, with ``forward``'s eval channels.  Rays the trace
+        did not resolve, or that the guard flags, have ``ray_included``
+        False (the system re-renders them volumetrically).
+        ``num_samples`` counts ``iters + refine_iters`` probes per hit;
+        ``stat_secondary_live`` rides along.  ``bake`` serves the
+        secondary transmittance as in ``forward``; the trace reads the
+        hash grid."""
+        sr = self._surface_geometry(rays, occ_binary=occ_binary, step=step,
+                                    levels=levels)
+        rays_o, rays_d = rays[:, 0:3], rays[:, 3:6]
+        w, normal = sr["w"], sr["normal"]
+        tex = self.texture.apply(sr["geo"]["feature"], rays_d, normal,
+                                 sr["pos"], emitter=self.emitter, mips=mips,
+                                 stage=stage, step=step)
+        normal_map = normal * w
+        depth_map = sr["res"].t_hit[:, None] * w
+        maps = {"spec_rgb": tex["spec_rgb"] * w}
+        if stage != 0:
+            maps.update({k: tex[k] * w for k in (
+                "spec_rgb_pbr", "spec_ref", "spec_light", "roughness")})
+        sg = self._secondary_geom(
+            rays_o, rays_d, occ_binary, step, levels=levels,
+            secondary_frac=secondary_frac, normal_map=normal_map,
+            depth_map=depth_map, acc_map=w, included=sr["included"],
+            bake=bake, need_third=stage != 0 and relighting)
+        maps = self._secondary_shade(sg, maps, stage=stage,
+                                     relighting=relighting, mips=mips)
+
+        def hit_map(k):
+            return tex[k] * w if stage != 0 else None
+
+        out = self._assemble_out(
+            diff_rgb_map=tex["diff_rgb"] * w, maps=maps,
+            blend_map=tex["blend"] * w, normal_map=normal_map,
+            depth_map=depth_map, acc_map=w, num_samples=sr["num_samples"],
+            included=sg["included"], inv_s=self.variance.inv_s(step),
+            background_color=background_color, stage=stage,
+            diff_rgb_pbr_map=hit_map("diff_rgb_pbr"),
+            albedo_map=hit_map("albedo"), metallic_map=hit_map("metallic"))
+        if self.indirect_pred:
+            out["stat_secondary_live"] = sg["sec_live"]
+        return out
+
+    @torch.no_grad()
+    def forward_surface_multi(self, rays, *, occ_binary, mips_list, step,
+                              relight_flags, stage: int = 1,
+                              background_color, levels=None,
+                              secondary_frac=None, bake=None):
+        """Multi-emitter sphere-traced eval: one trace, hit geometry,
+        guard and secondary geometry, shaded under each of ``mips_list``
+        (``forward_multi``'s contract); ``stat_secondary_live`` rides on
+        output 0."""
+        if len(mips_list) != len(relight_flags) or not mips_list:
+            raise ValueError("one relight flag per mips, at least one")
+        if not getattr(self.texture, "supports_multi_emitter", False):
+            raise ValueError("the texture lacks the material_cache / "
+                             "shade_cached split of a multi-emitter render")
+        sr = self._surface_geometry(rays, occ_binary=occ_binary, step=step,
+                                    levels=levels)
+        rays_o, rays_d = rays[:, 0:3], rays[:, 3:6]
+        w, normal = sr["w"], sr["normal"]
+        texc = self.texture.material_cache(
+            sr["geo"]["feature"], rays_d, normal, sr["pos"], stage=stage,
+            step=step)
+        normal_map = normal * w
+        depth_map = sr["res"].t_hit[:, None] * w
+        hit_maps = {k: texc[k] * w for k in (
+            ("diff_rgb", "spec_rgb", "blend") + (
+                ("albedo", "metallic", "spec_ref", "roughness")
+                if stage != 0 else ()))}
+        sg = self._secondary_geom(
+            rays_o, rays_d, occ_binary, step, levels=levels,
+            secondary_frac=secondary_frac, normal_map=normal_map,
+            depth_map=depth_map, acc_map=w, included=sr["included"],
+            bake=bake, need_third=stage != 0 and any(relight_flags))
+
+        outs = []
+        for mips, relighting in zip(mips_list, relight_flags):
+            maps = {"spec_rgb": hit_maps["spec_rgb"]}
+            diff_rgb_pbr_map = None
+            if stage != 0:
+                shade = self.texture.shade_cached(texc, self.emitter, mips,
+                                                  stage=stage)
+                maps.update(spec_rgb_pbr=shade["spec_rgb_pbr"] * w,
+                            spec_light=shade["spec_light"] * w,
+                            spec_ref=hit_maps["spec_ref"],
+                            roughness=hit_maps["roughness"])
+                diff_rgb_pbr_map = shade["diff_rgb_pbr"] * w
+            maps = self._secondary_shade(sg, maps, stage=stage,
+                                         relighting=relighting, mips=mips)
+            outs.append(self._assemble_out(
+                diff_rgb_map=hit_maps["diff_rgb"], maps=maps,
+                blend_map=hit_maps["blend"], normal_map=normal_map,
+                depth_map=depth_map, acc_map=w,
+                num_samples=sr["num_samples"], included=sg["included"],
+                inv_s=self.variance.inv_s(step),
+                background_color=background_color, stage=stage,
+                diff_rgb_pbr_map=diff_rgb_pbr_map,
+                albedo_map=hit_maps.get("albedo"),
+                metallic_map=hit_maps.get("metallic")))
+        if self.indirect_pred:
+            outs[0]["stat_secondary_live"] = sg["sec_live"]
         return outs

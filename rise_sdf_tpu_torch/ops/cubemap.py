@@ -96,6 +96,25 @@ def sample_cubemap(cubemap, dirs):
     return top * (1 - wv) + bot * wv
 
 
+def sample_cubemap_mips(mips: Sequence[torch.Tensor], dirs, mip_level):
+    """Trilinear (bilinear x mip lerp) lookup over a mip pyramid
+    ``mips`` [6, N_l, N_l, C] with ``mip_level`` [...] in [0, L - 1]:
+    every level is sampled, then the two bracketing levels are blended
+    (``sample_cubemap_mips_atlas`` gathers only those two)."""
+    n_levels = len(mips)
+    m = torch.clamp(mip_level, 0.0, n_levels - 1.0)
+    l0 = torch.clamp(torch.floor(m).long(), 0, n_levels - 1)
+    l1 = torch.clamp(l0 + 1, 0, n_levels - 1)
+    frac = (m - l0.to(m.dtype))[..., None]
+    samples = torch.stack([sample_cubemap(mp, dirs) for mp in mips], -1)
+
+    def take(lvl):
+        idx = lvl[..., None, None].expand(*lvl.shape, samples.shape[-2], 1)
+        return torch.gather(samples, -1, idx)[..., 0]
+
+    return take(l0) * (1 - frac) + take(l1) * frac
+
+
 def mips_atlas(mips: Sequence[torch.Tensor]) -> Tuple[torch.Tensor,
                                                       torch.Tensor]:
     """A power-of-two mip pyramid flattened into one ``[sum 6 N_l^2, C]``

@@ -24,6 +24,30 @@ def psnr(pred, gt, valid_mask=None):
     return -10.0 * torch.log10(torch.clamp(mse, min=1e-12))
 
 
+def binary_cross_entropy(x, y):
+    """Mean binary cross-entropy of probabilities ``x`` against ``y``."""
+    return -(y * torch.log(x) + (1 - y) * torch.log(1 - x)).mean()
+
+
+def weighted_mse(pred, gt, weights=None):
+    """Squared error, averaged with ``weights`` (broadcast to it) when
+    given."""
+    return _weighted_mean((pred - gt) ** 2, weights)
+
+
+def weighted_l1(pred, gt, weights=None):
+    """Absolute error, averaged with ``weights`` (broadcast to it) when
+    given."""
+    return _weighted_mean((pred - gt).abs(), weights)
+
+
+def _weighted_mean(e, weights):
+    if weights is None:
+        return e.mean()
+    return (e * weights).sum() / torch.clamp(
+        torch.broadcast_to(weights, e.shape).sum(), min=1e-8)
+
+
 def mean_angular_error(pred, gt, mask=None, degrees: bool = False):
     """Mean angle between normal maps [..., 3], over the foreground when
     ``mask`` is given.  The cosine is clamped to [-1 + 1e-7, 1 - 1e-7],

@@ -339,6 +339,16 @@ class NeuSSystem(BaseSystem):
                 "ray_included"]
         return {k: out[k] for k in keep}
 
+    def complete_chunk(self, state, part, res, render, ctx, opts):
+        """The chunk ``part``'s result ``res`` with its excluded rays
+        rendered again: the whole chunk at 2x, then 4x the buffer
+        (``render(part, mult)``)."""
+        for mult in (2, 4):
+            if bool(res["ray_included"].all()):
+                break
+            res = render(part, mult)
+        return res
+
     def view_rays(self, split, index: int):
         """View ``index``'s unit rays [H * W, 6] on the device, in the
         configured eval interleave, and the inverse permutation (None
@@ -363,8 +373,9 @@ class NeuSSystem(BaseSystem):
         """Serial chunk loop over one view, in the configured ray
         interleave.  A chunk whose rays overflow the fixed sample buffer
         is rendered again with a 2x, then 4x buffer, with the same
-        ``opts`` (so a multi-emitter chunk keeps its lights);
-        ``ray_included`` says which rays fit in the end.
+        ``opts`` (so a multi-emitter chunk keeps its lights;
+        ``complete_chunk``); ``ray_included`` says which rays fit in the
+        end.
         ``emitter_base`` and ``opts`` go to ``eval_context`` and
         ``render_chunk``; the chunks' ``stat_*`` counts are dropped.
 
@@ -394,11 +405,8 @@ class NeuSSystem(BaseSystem):
                     # edge-pad: duplicated real rays behave like their
                     # source (zero-direction rays would overflow the buffer)
                     part = torch.cat([part, part[-1:].expand(pad, -1)])
-                res = render(part)
-                for mult in (2, 4):
-                    if bool(res["ray_included"].all()):
-                        break
-                    res = render(part, mult)
+                res = self.complete_chunk(state, part, render(part), render,
+                                          ctx, opts)
                 dropped = int((~res["ray_included"]).sum())
                 if dropped:
                     print(f"WARNING: eval chunk at ray {s}: {dropped} rays "

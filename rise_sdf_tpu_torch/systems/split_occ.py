@@ -24,6 +24,12 @@ LPIPS (``phys_lpips``, ``albedo_lpips``, ``relight_lpips_{light}``, where
 JAX adds them; without weights the keys are absent).  Then, by default, ``export`` writes the mesh with its
 baked albedo, metallic and roughness (``NeuSSystem.export``).
 ``predict`` renders every test view under one environment file.
+
+With ``model.eval_mode: sphere_trace``, ``validate``, ``test`` and
+``predict`` render by sphere tracing (``surface_chunk``): a chunk's
+unresolved rays alone re-render volumetrically
+(``render_surface_residual``), where a volumetric chunk escalates whole.
+The calibration probe and every re-render stay volumetric.
 """
 
 from __future__ import annotations
@@ -71,6 +77,8 @@ class SplitOccSystem(NeuSSystem):
         # the fractions the last ``test`` rendered with (empty: the
         # model's own)
         self.eval_fractions = {}
+        # rays that surface chunks sent to the volumetric residual
+        self.residual_rays = 0
 
     def train_prefilter(self, step: int) -> bool:
         """Is the visibility prefilter on at training ``step``?"""
@@ -163,6 +171,14 @@ class SplitOccSystem(NeuSSystem):
             mips = build(emitter_base)
         return {"mips": mips, "bake": self._eval_bake[1]}
 
+    def surface_chunk(self, mult: int = 1, capacity=None) -> bool:
+        """Does an eval chunk render by sphere tracing?  With
+        ``eval_mode: sphere_trace``, unless it asks for a buffer (the
+        calibration probe's ``capacity``, an escalation's ``mult``, the
+        residual re-render): those stay volumetric."""
+        return (capacity is None and mult == 1
+                and self.model.eval_mode == "sphere_trace")
+
     def render_chunk(self, state, rays, mult: int = 1, mips=None,
                      bake=None, relighting: bool = False,
                      n_relights: int = 0, capacity: Optional[int] = None,
@@ -172,42 +188,91 @@ class SplitOccSystem(NeuSSystem):
         the model's (the calibration probe, the calibrated fractions); an
         escalation (``mult`` 2 or 4) takes ``mult`` times the full eval
         buffer and ``mult`` times the secondary fraction.  Banded chunks
-        skip the visibility compaction (the band is one).  With
-        ``n_relights`` the chunk renders ``mips`` = [learned light, relight
-        lights...] in one geometry pass and returns the learned light's
-        channels plus ``relight{j}/comp_rgb_phys_full``.  With
-        ``shards``, ``rays`` are one of that many shards of a chunk and
-        take their share of the chunk's sample buffer
-        (``sharding.per_rank_buffer``, as JAX's sharded chunk)."""
+        skip the visibility compaction (the band is one).  A surface
+        chunk (``surface_chunk``) sphere-traces instead
+        (``forward_surface``), with the secondary fraction and no sample
+        buffer.  With ``n_relights`` the chunk renders ``mips`` =
+        [learned light, relight lights...] in one geometry pass and
+        returns the learned light's channels plus
+        ``relight{j}/comp_rgb_phys_full``.  With ``shards``, ``rays`` are
+        one of that many shards of a chunk and take their share of the
+        chunk's sample buffer (``sharding.per_rank_buffer``, as JAX's
+        sharded chunk)."""
         model = self.model
         step = int(state["step"])
         opts = model.eval_options(step, rays.shape[0] * shards)
-        if mult > 1:
-            capacity = self.eval_capacity * mult
-            base = model.secondary_sample_capacity_frac \
-                if secondary_frac is None else secondary_frac
-            secondary_frac = min(base * mult, 1.0)
-        if capacity is not None:
-            opts["capacity"] = capacity
-        opts["capacity"] = sharding.per_rank_buffer(opts["capacity"], shards)
         kw = dict(occ_binary=state["occ_binary"], step=step, bake=bake,
-                  background_color=torch.ones(3, device=self.device),
-                  secondary_frac=secondary_frac,
-                  vis_frac=1.0 if opts["banded"] else vis_frac, **opts)
+                  background_color=torch.ones(3, device=self.device))
+        if self.surface_chunk(mult, capacity):
+            kw.update(stage=opts["stage"], secondary_frac=secondary_frac)
+            single, multi = model.forward_surface, \
+                model.forward_surface_multi
+        else:
+            if mult > 1:
+                capacity = self.eval_capacity * mult
+                base = model.secondary_sample_capacity_frac \
+                    if secondary_frac is None else secondary_frac
+                secondary_frac = min(base * mult, 1.0)
+            if capacity is not None:
+                opts["capacity"] = capacity
+            opts["capacity"] = sharding.per_rank_buffer(opts["capacity"],
+                                                        shards)
+            kw.update(secondary_frac=secondary_frac,
+                      vis_frac=1.0 if opts["banded"] else vis_frac, **opts)
+            single, multi = model, model.forward_multi
         if not n_relights:
-            out = model(rays, mips=mips, relighting=relighting, **kw)
+            out = single(rays, mips=mips, relighting=relighting, **kw)
             return {k: out[k] for k in _KEEP if k in out}
         if opts["stage"] == 0 or len(mips) != 1 + n_relights:
             raise ValueError("a multi-emitter chunk renders at stage 1 and "
                              "takes the learned light's and n_relights "
                              "mips")
-        outs = model.forward_multi(
-            rays, mips_list=mips,
-            relight_flags=(False,) + (True,) * n_relights, **kw)
+        outs = multi(rays, mips_list=mips,
+                     relight_flags=(False,) + (True,) * n_relights, **kw)
         res = {k: outs[0][k] for k in _KEEP if k in outs[0]}
         for j, o in enumerate(outs[1:]):
             res[f"relight{j}/comp_rgb_phys_full"] = o["comp_rgb_phys_full"]
         return res
+
+    def complete_chunk(self, state, part, res, render, ctx, opts):
+        """A surface chunk's unresolved rays, and only those, rendered
+        again volumetrically (``render_surface_residual``); any other
+        chunk takes the 2x / 4x escalation."""
+        if not self.surface_chunk(capacity=opts.get("capacity")):
+            return super().complete_chunk(state, part, res, render, ctx,
+                                          opts)
+        return self.render_surface_residual(state, part, res, ctx, opts)
+
+    def render_surface_residual(self, state, part, res, ctx, opts):
+        """The rays of the surface chunk ``part`` whose ``ray_included``
+        is False in ``res`` (grazing silhouettes, guard suspects)
+        re-rendered volumetrically with the chunk's stage, lights and
+        fractions, in sub-chunks of ``max(eval_chunk // 8, 16)`` rays
+        (edge-padded with the last one) into ``max(2 eval_capacity //
+        eval_chunk, 8)`` slots per ray, and merged row by row: the other
+        rows stay as they are, and ``ray_included`` comes from the
+        re-render.  The sub-chunks run unsharded: every rank holds the
+        whole gathered chunk and computes the same residual."""
+        inc = res["ray_included"]
+        if bool(inc.all()):
+            return res
+        idx = torch.nonzero(~inc).squeeze(1)
+        width = max(self.eval_chunk // 8, 16)
+        per_ray = max(self.eval_capacity * 2 // self.eval_chunk, 8)
+        out = {k: v.clone() for k, v in res.items()}
+        for s in range(0, idx.shape[0], width):
+            sel = idx[s:s + width]
+            sub = part[sel]
+            if sel.shape[0] < width:
+                sub = torch.cat([sub, sub[-1:].expand(
+                    width - sel.shape[0], -1)])
+            r = self.render_chunk(state, sub, capacity=per_ray * width,
+                                  **ctx, **opts)
+            for k, v in out.items():
+                if k in r:
+                    v[sel] = r[k][:sel.shape[0]]
+        self.residual_rays += int(idx.shape[0])
+        return out
 
     # ------------------------------------------------------------------ #
     def _gt(self, split, i):

@@ -14,6 +14,14 @@ def rgb_to_srgb(f: torch.Tensor) -> torch.Tensor:
         torch.pow(torch.clamp(f, min=0.0031308), 1.0 / 2.4) * 1.055 - 0.055)
 
 
+def srgb_to_rgb(f: torch.Tensor) -> torch.Tensor:
+    """sRGB -> linear transfer curve (the inverse of ``rgb_to_srgb``)."""
+    return torch.where(
+        f <= 0.04045,
+        f / 12.92,
+        torch.pow((torch.clamp(f, min=0.04045) + 0.055) / 1.055, 2.4))
+
+
 def linear_to_srgb_np(linear: np.ndarray) -> np.ndarray:
     """Linear -> sRGB on the host (the test protocol's white background
     and the exported material maps)."""

@@ -5,6 +5,13 @@ from __future__ import annotations
 import numpy as np
 
 
+def scale_anything(x, in_range, out_range):
+    """Map ``x`` linearly from ``in_range`` onto ``out_range``."""
+    lo, hi = in_range
+    olo, ohi = out_range
+    return (x - lo) / (hi - lo) * (ohi - olo) + olo
+
+
 def interleave_order(n: int, chunk: int, mode):
     """Deterministic eval-ray interleave permutation and its inverse.
 

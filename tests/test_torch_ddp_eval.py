@@ -15,9 +15,11 @@ data-parallel step.
   ``tests/test_sharded_eval.py``.
 * A chunk that overflows on one rank alone (forced on rank 1) is
   escalated to 2x on both ranks together, and the image stays the same.
-* The tiny split view at stage 1, under the learned light and in one
-  multi-emitter pass with a second light, sharded against one process
-  at 2e-3.
+* The tiny split view at stage 1, under the learned light, in one
+  multi-emitter pass with a second light, and in surface mode
+  (``eval_mode: sphere_trace``: the surface chunk sharded, its
+  volumetric residual on every rank), sharded against one process at
+  2e-3.
 * ``dryrun_multichip(2, "cpu", "gloo")``: one stage-1 step of
   ``tiny_split_config`` (mips, secondary pass, hybrid FD, curvature
   probe) over two ranks, its all-reduced gradients bit-equal to the
@@ -108,7 +110,7 @@ def test_escalation_is_taken_on_every_rank_together(run):
                                        atol=2e-3, err_msg=k)
 
 
-@pytest.mark.parametrize("view", ["split", "split_multi"])
+@pytest.mark.parametrize("view", ["split", "split_multi", "split_surface"])
 def test_sharded_split_view_matches_one_process(run, view):
     keys = SPLIT_KEYS + (("relight0/comp_rgb_phys_full",)
                          if view == "split_multi" else ())
@@ -117,6 +119,12 @@ def test_sharded_split_view_matches_one_process(run, view):
         for k in keys:
             np.testing.assert_allclose(r[view][k], run["split_one"][view][k],
                                        atol=2e-3, err_msg=k)
+        if view == "split_surface":
+            # every rank re-renders the same residual, unsharded
+            n = r[view]["ray_included"].size
+            assert 0 < r["split_surface_residual"] < n
+            assert r["split_surface_residual"] \
+                == run["split_one"]["split_surface_residual"]
 
 
 def test_dryrun_multichip_two_ranks():

@@ -157,17 +157,25 @@ def eval_rank(rank, world, ckpt, out_dir):
 
 
 def split_renders(save_dir):
-    """Tiny split view 0 at stage 1: the learned light, and the learned
-    light with a second one in one multi-emitter pass."""
+    """Tiny split view 0 at stage 1: the learned light, the learned
+    light with a second one in one multi-emitter pass, and the learned
+    light with ``eval_mode: sphere_trace`` (the fully occupied grid of
+    the init sends most rays to the volumetric residual)."""
     system = _system(presets.tiny_split_config(), save_dir)
     state = system.init_state(0)
     state["step"] = 20
     split = system.datamodule.val()
     base = system.model.emitter.base.detach()
+    cfg = presets.tiny_split_config()
+    cfg["model"]["eval_mode"] = "sphere_trace"
+    surface = _system(cfg, save_dir + "-surface")
+    surface.model.load_state_dict(system.model.state_dict())
     return {"split": system.render_image(state, split, 0),
             "split_multi": system.render_image(
                 state, split, 0, emitter_base=[None, torch.roll(
-                    base * 1.7 + 0.05, 1, -1)], n_relights=1)}
+                    base * 1.7 + 0.05, 1, -1)], n_relights=1),
+            "split_surface": surface.render_image(state, split, 0),
+            "split_surface_residual": surface.residual_rays}
 
 
 def lifecycle_rank(rank, world, out_dir, seed, steps):

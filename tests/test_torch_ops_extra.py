@@ -12,6 +12,12 @@ Hessian-vector product equal to JAX's.  The resampler takes JAX's
 draws.  The goldens of ``test_renderutils_misc.py`` and the checks of
 ``test_rendering_drivers.py`` and ``test_ops_extra.py`` run on the
 port too.
+
+The public helpers nothing calls in either package (``sample_cubemap_mips``,
+``binary_cross_entropy``, ``weighted_mse``, ``weighted_l1``,
+``srgb_to_rgb``, ``scale_anything``, ``cell_positions`` with the same
+jitter draws, ``update_grid``) are held to JAX's at 1e-6 (relative for
+the losses), one case each of one test.
 """
 
 import jax
@@ -306,3 +312,83 @@ def test_rendering_driver_checks_on_the_port():
     assert tr.shape == (8, 1) and ((tr >= -1e-5) & (tr <= 1 + 1e-5)).all()
     np.testing.assert_allclose(
         tr, 1.0 - trd.rendering(rs, field, 8)["opacity"].numpy(), atol=1e-5)
+
+
+# ----- the helpers nothing calls -------------------------------------- #
+
+def _helper_pair(name, rng):
+    """(JAX value, port value) of helper ``name`` on inputs from ``rng``."""
+    from rise_sdf_tpu.ops import cubemap as jcube
+    from rise_sdf_tpu.ops import grid as jgrid
+    from rise_sdf_tpu.systems import criterions as jcrit
+    from rise_sdf_tpu.utils import color as jcolor
+    from rise_sdf_tpu.utils import misc as jmisc
+    from rise_sdf_tpu_torch.ops import cubemap as tcube
+    from rise_sdf_tpu_torch.ops import grid as tgrid
+    from rise_sdf_tpu_torch.systems import criterions as tcrit
+    from rise_sdf_tpu_torch.utils import color as tcolor
+    from rise_sdf_tpu_torch.utils import misc as tmisc
+
+    def f32(*shape, lo=0.0, hi=1.0):
+        return rng.uniform(lo, hi, shape).astype(np.float32)
+
+    if name == "sample_cubemap_mips":
+        mips = [f32(6, r, r, 3) for r in (16, 8, 4, 2)]
+        dirs = f32(500, 3, lo=-1.0)
+        level = f32(500, lo=-0.5, hi=3.5)  # both clamps bite
+        return (jcube.sample_cubemap_mips([jnp.asarray(m) for m in mips],
+                                          jnp.asarray(dirs),
+                                          jnp.asarray(level)),
+                tcube.sample_cubemap_mips([_t(m) for m in mips], _t(dirs),
+                                          _t(level)))
+    if name == "binary_cross_entropy":
+        x, y = f32(300, lo=0.01, hi=0.99), f32(300)
+        return (jcrit.binary_cross_entropy(x, y),
+                tcrit.binary_cross_entropy(_t(x), _t(y)))
+    if name in ("weighted_mse", "weighted_l1"):
+        a, b, w = f32(64, 3), f32(64, 3), f32(64, 1)
+        return ([getattr(jcrit, name)(a, b, w), getattr(jcrit, name)(a, b)],
+                [getattr(tcrit, name)(_t(a), _t(b), _t(w)),
+                 getattr(tcrit, name)(_t(a), _t(b))])
+    if name == "srgb_to_rgb":
+        x = f32(1000, lo=-0.1, hi=1.2)
+        return jcolor.srgb_to_rgb(x), tcolor.srgb_to_rgb(_t(x))
+    if name == "scale_anything":
+        x = f32(100, lo=-2.0, hi=3.0)
+        return (jmisc.scale_anything(x, (-2.0, 3.0), (0.5, -1.5)),
+                tmisc.scale_anything(_t(x), (-2.0, 3.0), (0.5, -1.5)))
+    if name == "cell_positions":
+        lo, hi = np.full(3, -1.5, np.float32), np.full(3, 1.5, np.float32)
+        key = jax.random.PRNGKey(3)
+        u = np.asarray(jax.random.uniform(key, (8 ** 3, 3)))
+        return ([jgrid.cell_positions(8, lo, hi, key),
+                 jgrid.cell_positions(8, lo, hi)],
+                [tgrid.cell_positions(8, _t(lo), _t(hi), _t(u)),
+                 tgrid.cell_positions(8, _t(lo), _t(hi))])
+    if name == "update_grid":
+        occs, new = f32(512) * 0.02, f32(512) * 0.015
+        want = jgrid.update_grid(jgrid.OccupancyGridState(
+            occs=jnp.asarray(occs), binary=jnp.ones(512, bool)), new)
+        got = tgrid.update_grid((_t(occs), torch.ones(512, dtype=torch.bool)),
+                                _t(new))
+        assert 0 < int(got[1].sum()) < 512
+        return [want.occs, want.binary], list(got)
+    raise KeyError(name)
+
+
+@pytest.mark.parametrize("name", [
+    "sample_cubemap_mips", "binary_cross_entropy", "weighted_mse",
+    "weighted_l1", "srgb_to_rgb", "scale_anything", "cell_positions",
+    "update_grid"])
+def test_uncalled_helpers_match_jax(name):
+    want, got = _helper_pair(name, np.random.default_rng(11))
+    if not isinstance(want, list):
+        want, got = [want], [got]
+    for w, g in zip(want, got):
+        w, g = np.asarray(w), g.numpy()
+        assert g.shape == w.shape and g.dtype == w.dtype, name
+        if w.dtype == bool:
+            np.testing.assert_array_equal(g, w, err_msg=name)
+        else:
+            np.testing.assert_allclose(g, w, rtol=1e-6, atol=1e-6,
+                                       err_msg=name)
