@@ -8,9 +8,9 @@
 Phases, each of which fails the run (non-zero exit) when it fails:
 
 1. card: name and power limit from ``nvidia-smi``, torch and CUDA versions;
-2. build the kernels K1 (``rise_sdf_tpu_torch/csrc/scatter_add.cu``) and
-   G1 (``csrc/gather_rows.cu``) with nvcc, one process per source, both
-   at once;
+2. build the kernels K1 (``rise_sdf_tpu_torch/csrc/scatter_add.cu``),
+   G1 (``csrc/gather_rows.cu``) and K2 (``csrc/scatter_add_sorted.cu``)
+   with nvcc, one process per source, all at once;
 3. K1 against a float64 ``index_add_`` reference at the JAX test shapes,
    at S1's shape (12,582,912 rows into 2^19 x 2) and at the main-path
    shape (16 levels x 2^19 x 2, 8,388,608 rows per level, walked with the
@@ -128,11 +128,12 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    memory and launches per rank per step are printed.  With two or more
    GPUs, K1 and G1 are also held to their plain versions on ``cuda:1``;
 12. a scene from disk: (a) the concave scene (``render_image_concave``)
-   at 800x800 under the ``bright`` environment, written to a temporary
-   directory in the TensoIR layout (4 train views and 1 test view, each
-   with ``metadata.json``, ``rgba.png``, ``rgba_warm.png``,
-   ``rgba_bright.png``, ``albedo.exr``, ``roughness.exr`` and
-   ``normal.exr`` with the mask as alpha; ``warm.hdr`` and
+   at 800x800 under the ``bright`` environment, written (by a worker
+   process started after phase 1, as is 13a's capture, while the card
+   runs phases 2-11) to a temporary directory in the TensoIR layout (4
+   train views and 1 test view, each with ``metadata.json``,
+   ``rgba.png``, ``rgba_warm.png``, ``rgba_bright.png``, ``albedo.exr``,
+   ``roughness.exr`` and ``normal.exr`` with the mask as alpha; ``warm.hdr`` and
    ``bright.hdr`` as run-length RGBE at 2:1 lat-long) and in the Blender
    layout, by this script's own PNG writer (its rows cycle the five
    filters) and RGBE writer; (b) loaded through ``datasets.make
@@ -271,6 +272,41 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    and the two modes take 389 s.)  The counts are zeroed
    just before (a) and (c) and read just after; (b) reads the bench's
    own count differences.
+17. bit-reproducible training and the YAML configs (``CUBLAS_WORKSPACE_
+   CONFIG`` is ``:4096:8`` for the whole run, as torch's deterministic
+   mode asks): (a) K2 (``scatter_add_sorted``) on the training, probe
+   and background streams recorded by phases 7, 8 and 13 (their
+   cotangents, float32, 2 wide) and on the two gather backwards of the
+   training scan (4096 rays in a 1,048,576-slot buffer, float64, 1 wide):
+   bit-equal across two launches, per entry within 1e-6 of the sum of the
+   magnitudes of its plain version, and timed (median of 10) beside its
+   byte bound, its own sort, K1 at the stream's period and
+   ``index_add_``; (b) under ``torch.use_deterministic_algorithms``:
+   first two flagship steps at stage 0 under ``warn_only``; then
+   ``neus_sphere_full`` trains
+   ``NEUS_DET_STEPS`` steps twice from one seed and once resumed from a
+   checkpoint at half way, and phase 8's flagship system
+   ``SPLIT_DET_STEPS`` stage-1 steps from step 13,000 twice, each also
+   twice in the default mode; the deterministic runs' states (params,
+   Adam's moments and steps, the schedule, the occupancy grid) must be
+   bit-equal, the default runs' largest difference is printed, with
+   steps/s in both modes; every run zeroes the counts just before it and
+   reads them just after: K2 and G1 must launch and K1 not under the
+   switch, K1 and G1 and not K2 without it; the first deterministic run
+   of each model runs under ``warn_only`` (the same algorithms), and
+   neither it nor the stage-0 steps may draw a warning that names an op
+   without a deterministic implementation; (c) ``python -m
+   rise_sdf_tpu_torch.launch --config configs/split-smoke.yaml --train``
+   (30 steps across the stage flip, test, export), and at full width for
+   ``SCENE_STEPS`` steps and then test and export, ``--config
+   configs/split-mixed-occ-tensoir.yaml`` on phase 12's scene in the
+   TensoIR layout and ``--config configs/neus-blender.yaml`` on it in
+   the Blender layout, each run in this process with the counts zeroed
+   before and read after (K1 and G1 must launch, K2 not),
+   ``config/parsed.yaml`` and ``raw.yaml`` written, and the two scene
+   runs' ``parsed.yaml`` equal to the presets ``split_mixed_occ_tensoir``
+   and ``neus_blender`` with the same dotlist (but for the two entries
+   the yaml derives from ``trainer.max_steps``).
 
 ``--save-streams FILE`` saves both recorded streams for the same-call
 A/B against another tree, ``python -m rise_sdf_tpu_torch.kernel_ab``
@@ -283,12 +319,15 @@ launches per rank in phase 11, in the three parts of phase 12, in
 phase 13's training and renders, with their times on its background
 stream, in phase 14's two training windows and test run, and in phase
 15's NeuS training, its validation and the ``volume-pbr`` run, and in
-phase 16's three parts) and
+phase 16's three parts; K2's entry carries its times on each stream of
+17a and its launches in each run of 17b) and
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the package
 beside it, the script exits non-zero and prints no result.
 """
 
 import argparse
+import atexit
+import gc
 import json
 import os
 import shutil
@@ -301,8 +340,12 @@ import numpy as np
 
 SRC_K1 = "rise_sdf_tpu_torch/csrc/scatter_add.cu"
 SRC_G1 = "rise_sdf_tpu_torch/csrc/gather_rows.cu"
+SRC_K2 = "rise_sdf_tpu_torch/csrc/scatter_add_sorted.cu"
 REPLACES_K1 = "rise_sdf_tpu/ops/scatter_pallas.py:49"
 REPLACES_S1 = "scripts/scatter_kernel_bench.py:33"
+# K2 replaces no Pallas kernel: the counterpart of the XLA ops of the
+# sorted table gradient
+REPLACES_K2 = "rise_sdf_tpu/ops/hashgrid.py:448 (_encode_sorted_vjp)"
 REPLACES_G1 = ("scripts/pallas_gather_bench.py:79 (S2), "
                "scripts/pallas_gather_bench.py:128 (S3), "
                "scripts/r5_gather_width_bench.py:52 (S4)")
@@ -652,12 +695,12 @@ def render_phase(torch, gather, scatter):
     lookup = hashgrid.table_grad_lookup
     seen = {"calls": 0}
 
-    def recording_lookup(table, rows):
+    def recording_lookup(table, rows, *rest):
         if rows.shape[0] == band_slots:
             if seen["calls"] == 1 + RENDER_CHUNK:
                 seen.update(table=table.detach(), rows=rows.clone())
             seen["calls"] += 1
-        return lookup(table, rows)
+        return lookup(table, rows, *rest)
 
     hashgrid.table_grad_lookup = recording_lookup
     gather.gather_rows.launches = 0
@@ -729,8 +772,8 @@ def slice_phase(torch, scatter, steps, cfg, device="cuda"):
     lookup = hashgrid.table_grad_lookup
     seen = {}
 
-    def recording_lookup(table, rows):
-        vals = lookup(table, rows)
+    def recording_lookup(table, rows, *rest):
+        vals = lookup(table, rows, *rest)
         if vals.requires_grad:
             vals.retain_grad()
             seen.update(rows=rows, vals=vals)
@@ -859,13 +902,14 @@ def train_stream_phase(torch, scatter, stream):
     return k1, g1
 
 
-def flagship_phase(torch, scatter, gather, steps):
+def flagship_phase(torch, scatter, gather, steps, host_streams):
     """The flagship's training at full width in its two windows (see the
     module docstring, phase 8), then validation of one view; the table
     gradient of stage-1 step 13009 against the plain scatter of every
-    encode's recorded cotangent; K1 and G1 on that step's probe stream.
-    Returns K1's and G1's records of the probe stream, the profile and
-    their launches in the phase."""
+    encode's recorded cotangent; K1 and G1 on that step's probe stream,
+    which goes to ``host_streams["probe"]`` for phase 17a.  Returns K1's and
+    G1's records of the probe stream, the profile and their launches in
+    the phase."""
     from rise_sdf_tpu_torch import datasets, measure, systems
     from rise_sdf_tpu_torch.ops import hashgrid
     from rise_sdf_tpu_torch.presets import split_mixed_occ_train_full
@@ -885,8 +929,8 @@ def flagship_phase(torch, scatter, gather, steps):
     lookup = hashgrid.table_grad_lookup
     seen, per_step, stream = {"on": False, "enc": []}, [], {}
 
-    def recording_lookup(tb, rows):
-        vals = lookup(tb, rows)
+    def recording_lookup(tb, rows, *rest):
+        vals = lookup(tb, rows, *rest)
         if seen["on"] and vals.requires_grad:
             vals.retain_grad()
             seen["enc"].append((rows, vals))
@@ -976,6 +1020,8 @@ def flagship_phase(torch, scatter, gather, steps):
         fail(f"flagship validation dropped {res['dropped_rays']} rays")
     if "rows" not in stream:
         fail(f"no probe stream recorded at step {recorded}")
+    host_streams["probe"] = (stream["rows"], stream["vals"],
+                             stream["table"].shape[0])
     torch.cuda.empty_cache()
     rows, vals = stream["rows"].cuda(), stream["vals"].cuda()
     idx = rows.reshape(-1)
@@ -1462,6 +1508,42 @@ def write_hdr_rle(path, rgb):
                 f.write(_rle_plane(rgbe[y, :, p]))
 
 
+# how long phases 12 and 13 wait at most for their scene's writer
+WRITER_TIMEOUT_S = 600
+
+
+def _timed(fn, *args):
+    t0 = time.perf_counter()
+    return fn(*args), time.perf_counter() - t0
+
+
+def start_writers():
+    """Phases 12a and 13a's scenes (numpy renders and PNG encodes, about
+    75 s on the host), written by two spawned worker processes while the
+    card runs the phases before them.  Returns the scene's and the
+    capture's directories (the capture under ``png/``) and the two
+    pending results, each ``(what was written, seconds)``.  The workers
+    are stopped and the directories removed at exit."""
+    import multiprocessing
+
+    roots = tuple(tempfile.mkdtemp(prefix=f"chip_smoke_{name}_")
+                  for name in ("scene", "capture"))
+    for root in roots:
+        atexit.register(shutil.rmtree, root, True)
+    os.makedirs(os.path.join(roots[1], "png"))
+    pool = multiprocessing.get_context("spawn").Pool(2)
+    # at exit (last registered, first run): stop, then wait for, both
+    atexit.register(pool.join)
+    atexit.register(pool.terminate)
+    jobs = (pool.apply_async(_timed, (write_scene, roots[0], SCENE_SIZE,
+                                      SCENE_TRAIN_VIEWS)),
+            pool.apply_async(_timed, (write_capture,
+                                      os.path.join(roots[1], "png"),
+                                      CAPTURE_W, CAPTURE_H, CAPTURE_VIEWS)))
+    pool.close()
+    return roots, jobs
+
+
 def write_scene(root, size, n_train):
     """The concave scene rendered by ``render_image_concave`` at
     ``size``^2 under the ``bright`` environment, written in the TensoIR
@@ -1653,116 +1735,114 @@ def _train_window(torch, scatter, gather, system, state, steps, seed,
     return state, rate, peak, deltas, losses
 
 
-def scene_phase(torch, scatter, gather):
-    """A scene from disk (module docstring, phase 12).  Returns K1's and
-    G1's launches in its three parts."""
-    import tempfile
-
+def scene_phase(torch, scatter, gather, root, job):
+    """A scene from disk (module docstring, phase 12), written under
+    ``root`` by ``job`` (``start_writers``; phase 17c reads it again).
+    Returns K1's and G1's launches in its three parts."""
     from rise_sdf_tpu_torch import datasets, launch, measure, presets, \
         systems
 
     out = os.path.join("exp", "chip_smoke_scene")
     shutil.rmtree(out, ignore_errors=True)
     launches = {}
-    with tempfile.TemporaryDirectory() as root:
-        t0 = time.perf_counter()
-        written = write_scene(root, SCENE_SIZE, SCENE_TRAIN_VIEWS)
-        log(f"  a. wrote the concave scene at {SCENE_SIZE}x{SCENE_SIZE} "
-            f"({SCENE_TRAIN_VIEWS} "
-            f"train views, 1 test view, {', '.join(SCENE_LIGHTS)}) in the "
-            f"TensoIR and Blender layouts in "
-            f"{time.perf_counter() - t0:.1f} s")
-        check_scene(root, written, SCENE_LIGHTS)
+    t0 = time.perf_counter()
+    written, took = job.get(WRITER_TIMEOUT_S)
+    log(f"  a. wrote the concave scene at {SCENE_SIZE}x{SCENE_SIZE} "
+        f"({SCENE_TRAIN_VIEWS} "
+        f"train views, 1 test view, {', '.join(SCENE_LIGHTS)}) in the "
+        f"TensoIR and Blender layouts in {took:.1f} s on a worker "
+        f"process (waited {time.perf_counter() - t0:.1f} s)")
+    check_scene(root, written, SCENE_LIGHTS)
 
-        cfg = launch.resolve(launch.apply_overrides(
-            presets.split_mixed_occ_tensoir(),
-            ["dataset.scene=concave",
-             f"dataset.root_dir={os.path.join(root, 'tensoir')}",
-             f"dataset.hdr_filepath={os.path.join(root, 'envs')}",
-             f"dataset.relight_list=[{','.join(SCENE_LIGHTS)}]"]))
-        seed = int(cfg["seed"])
-        t0 = time.perf_counter()
-        system = systems.make(cfg["system"]["name"], cfg,
-                              datasets.make(cfg["dataset"]["name"],
-                                            cfg["dataset"]),
-                              save_dir=os.path.join(out, "split", "save"),
-                              ckpt_dir=os.path.join(out, "split", "ckpt"),
-                              device="cuda")
-        state = system.init_state(seed)
-        state["step"] = measure.SPLIT_STAGE1_STEP
-        log(f"  c. {cfg['name']}: system built in "
-            f"{time.perf_counter() - t0:.1f} s")
-        state, rate, peak, deltas, losses = _train_window(
-            torch, scatter, gather, system, state, SCENE_STEPS, seed)
-        k1, g1 = (sum(d) for d in zip(*deltas))
-        launches["train_tensoir"] = (k1, g1)
-        log(f"    fit {measure.SPLIT_STAGE1_STEP} -> {int(state['step'])}: "
-            f"{rate:.3f} steps/s over the last {SCENE_STEPS - 1} steps; "
-            f"peak {peak:.2f} GiB; K1/G1 launches {k1}/{g1} (per step "
-            f"{min(d[0] for d in deltas)}-{max(d[0] for d in deltas)} / "
-            f"{min(d[1] for d in deltas)}-{max(d[1] for d in deltas)}); "
-            f"skipped updates {system.skipped_updates}; last loss "
-            f"{losses[-1]:.5f}")
-        if len(losses) != SCENE_STEPS or not np.all(np.isfinite(losses)) \
-                or system.skipped_updates:
-            fail(f"flagship on the loaded scene: losses {losses}, skipped "
-                 f"{system.skipped_updates}")
-        if min(min(d) for d in deltas) < 1:
-            fail(f"a flagship step on the loaded scene without a K1 or G1 "
-                 f"launch: {deltas}")
-        torch.cuda.synchronize()
-        scatter.scatter_add.launches = 0
-        gather.gather_rows.launches = 0
-        t0 = time.perf_counter()
-        res = system.test(state, export=False)
-        torch.cuda.synchronize()
-        test_s = time.perf_counter() - t0
-        k1, g1 = scatter.scatter_add.launches, gather.gather_rows.launches
-        launches["test_tensoir"] = (k1, g1)
-        hdrs = ", ".join(f"{light}.hdr" for light in SCENE_LIGHTS)
-        log(f"    test on 1 view relit by {hdrs} in "
-            f"{test_s:.1f} s: {json.dumps(res)}; K1/G1 launches {k1}/{g1}; "
-            f"dropped rays {res['dropped_rays']} (a fresh init at stage 1)")
-        want = {f"relight_{m}_{light}" for m in ("psnr", "ssim")
-                for light in SCENE_LIGHTS}
-        if not want <= set(res) or not all(np.isfinite(v)
-                                           for v in res.values()):
-            fail(f"test on the loaded scene: {res}")
-        if g1 == 0 or k1 != 0:
-            fail(f"test on the loaded scene launched K1 {k1}, G1 {g1} times")
-        del system, state
-        torch.cuda.empty_cache()
+    cfg = launch.resolve(launch.apply_overrides(
+        presets.split_mixed_occ_tensoir(),
+        ["dataset.scene=concave",
+         f"dataset.root_dir={os.path.join(root, 'tensoir')}",
+         f"dataset.hdr_filepath={os.path.join(root, 'envs')}",
+         f"dataset.relight_list=[{','.join(SCENE_LIGHTS)}]"]))
+    seed = int(cfg["seed"])
+    t0 = time.perf_counter()
+    system = systems.make(cfg["system"]["name"], cfg,
+                          datasets.make(cfg["dataset"]["name"],
+                                        cfg["dataset"]),
+                          save_dir=os.path.join(out, "split", "save"),
+                          ckpt_dir=os.path.join(out, "split", "ckpt"),
+                          device="cuda")
+    state = system.init_state(seed)
+    state["step"] = measure.SPLIT_STAGE1_STEP
+    log(f"  c. {cfg['name']}: system built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    state, rate, peak, deltas, losses = _train_window(
+        torch, scatter, gather, system, state, SCENE_STEPS, seed)
+    k1, g1 = (sum(d) for d in zip(*deltas))
+    launches["train_tensoir"] = (k1, g1)
+    log(f"    fit {measure.SPLIT_STAGE1_STEP} -> {int(state['step'])}: "
+        f"{rate:.3f} steps/s over the last {SCENE_STEPS - 1} steps; "
+        f"peak {peak:.2f} GiB; K1/G1 launches {k1}/{g1} (per step "
+        f"{min(d[0] for d in deltas)}-{max(d[0] for d in deltas)} / "
+        f"{min(d[1] for d in deltas)}-{max(d[1] for d in deltas)}); "
+        f"skipped updates {system.skipped_updates}; last loss "
+        f"{losses[-1]:.5f}")
+    if len(losses) != SCENE_STEPS or not np.all(np.isfinite(losses)) \
+            or system.skipped_updates:
+        fail(f"flagship on the loaded scene: losses {losses}, skipped "
+             f"{system.skipped_updates}")
+    if min(min(d) for d in deltas) < 1:
+        fail(f"a flagship step on the loaded scene without a K1 or G1 "
+             f"launch: {deltas}")
+    torch.cuda.synchronize()
+    scatter.scatter_add.launches = 0
+    gather.gather_rows.launches = 0
+    t0 = time.perf_counter()
+    res = system.test(state, export=False)
+    torch.cuda.synchronize()
+    test_s = time.perf_counter() - t0
+    k1, g1 = scatter.scatter_add.launches, gather.gather_rows.launches
+    launches["test_tensoir"] = (k1, g1)
+    hdrs = ", ".join(f"{light}.hdr" for light in SCENE_LIGHTS)
+    log(f"    test on 1 view relit by {hdrs} in "
+        f"{test_s:.1f} s: {json.dumps(res)}; K1/G1 launches {k1}/{g1}; "
+        f"dropped rays {res['dropped_rays']} (a fresh init at stage 1)")
+    want = {f"relight_{m}_{light}" for m in ("psnr", "ssim")
+            for light in SCENE_LIGHTS}
+    if not want <= set(res) or not all(np.isfinite(v)
+                                       for v in res.values()):
+        fail(f"test on the loaded scene: {res}")
+    if g1 == 0 or k1 != 0:
+        fail(f"test on the loaded scene launched K1 {k1}, G1 {g1} times")
+    del system, state
+    torch.cuda.empty_cache()
 
-        cfg = launch.resolve(launch.apply_overrides(
-            presets.neus_blender(),
-            ["dataset.scene=concave",
-             f"dataset.root_dir={os.path.join(root, 'blender')}"]))
-        t0 = time.perf_counter()
-        system = systems.make(cfg["system"]["name"], cfg,
-                              datasets.make(cfg["dataset"]["name"],
-                                            cfg["dataset"]),
-                              save_dir=os.path.join(out, "neus", "save"),
-                              ckpt_dir=os.path.join(out, "neus", "ckpt"),
-                              device="cuda")
-        state = system.init_state(seed)
-        log(f"  d. {cfg['name']}: system built in "
-            f"{time.perf_counter() - t0:.1f} s")
-        state, rate, peak, deltas, losses = _train_window(
-            torch, scatter, gather, system, state, SCENE_STEPS, seed)
-        k1, g1 = (sum(d) for d in zip(*deltas))
-        launches["train_blender"] = (k1, g1)
-        log(f"    fit 0 -> {int(state['step'])}: {rate:.3f} steps/s over "
-            f"the last {SCENE_STEPS - 1} steps; peak {peak:.2f} GiB; K1/G1 "
-            f"launches {k1}/{g1}; skipped updates {system.skipped_updates}; "
-            f"last loss {losses[-1]:.5f}")
-        if len(losses) != SCENE_STEPS or not np.all(np.isfinite(losses)) \
-                or system.skipped_updates:
-            fail(f"NeuS on the loaded scene: losses {losses}, skipped "
-                 f"{system.skipped_updates}")
-        if min(min(d) for d in deltas) < 1:
-            fail(f"a NeuS step on the loaded scene without a K1 or G1 "
-                 f"launch: {deltas}")
-        del system, state
+    cfg = launch.resolve(launch.apply_overrides(
+        presets.neus_blender(),
+        ["dataset.scene=concave",
+         f"dataset.root_dir={os.path.join(root, 'blender')}"]))
+    t0 = time.perf_counter()
+    system = systems.make(cfg["system"]["name"], cfg,
+                          datasets.make(cfg["dataset"]["name"],
+                                        cfg["dataset"]),
+                          save_dir=os.path.join(out, "neus", "save"),
+                          ckpt_dir=os.path.join(out, "neus", "ckpt"),
+                          device="cuda")
+    state = system.init_state(seed)
+    log(f"  d. {cfg['name']}: system built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    state, rate, peak, deltas, losses = _train_window(
+        torch, scatter, gather, system, state, SCENE_STEPS, seed)
+    k1, g1 = (sum(d) for d in zip(*deltas))
+    launches["train_blender"] = (k1, g1)
+    log(f"    fit 0 -> {int(state['step'])}: {rate:.3f} steps/s over "
+        f"the last {SCENE_STEPS - 1} steps; peak {peak:.2f} GiB; K1/G1 "
+        f"launches {k1}/{g1}; skipped updates {system.skipped_updates}; "
+        f"last loss {losses[-1]:.5f}")
+    if len(losses) != SCENE_STEPS or not np.all(np.isfinite(losses)) \
+            or system.skipped_updates:
+        fail(f"NeuS on the loaded scene: losses {losses}, skipped "
+             f"{system.skipped_updates}")
+    if min(min(d) for d in deltas) < 1:
+        fail(f"a NeuS step on the loaded scene without a K1 or G1 "
+             f"launch: {deltas}")
+    del system, state
     torch.cuda.empty_cache()
     shutil.rmtree(out, ignore_errors=True)
     return launches
@@ -1967,9 +2047,10 @@ def _distortion_f64(out, n_rays):
     return total / max(int(out["ray_included"].sum()), 1)
 
 
-def capture_phase(torch, scatter, gather, root):
-    """A real capture (module docstring, phase 13), written under the
-    empty directory ``root`` and left there.  Returns K1's and G1's
+def capture_phase(torch, scatter, gather, root, host_streams, job):
+    """A real capture (module docstring, phase 13), written under
+    ``root`` by ``job`` (``start_writers``); the background stream goes
+    to ``host_streams["background"]`` for phase 17a.  Returns K1's and G1's
     records (launches per part and the background stream's checks and
     times) and what was written (``write_capture``)."""
     from rise_sdf_tpu_torch import datasets, launch, measure, presets, \
@@ -1980,11 +2061,12 @@ def capture_phase(torch, scatter, gather, root):
     shutil.rmtree(out_dir, ignore_errors=True)
     k1, g1 = {}, {}
     t0 = time.perf_counter()
-    written = write_capture(root, CAPTURE_W, CAPTURE_H, CAPTURE_VIEWS)
+    written, took = job.get(WRITER_TIMEOUT_S)
     log(f"  a. wrote the concave scene on its floor at {CAPTURE_W}x"
         f"{CAPTURE_H}, {CAPTURE_VIEWS} views on a ring, "
         f"{len(written['points'])} points, in COLMAP's layout in "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"{took:.1f} s on a worker process (waited "
+        f"{time.perf_counter() - t0:.1f} s)")
     cfg = launch.resolve(launch.apply_overrides(
         presets.neus_colmap(),
         [f"dataset.root_dir={root}",
@@ -2008,8 +2090,8 @@ def capture_phase(torch, scatter, gather, root):
     lookup = hashgrid.table_grad_lookup
     seen, stream = {}, {}
 
-    def recording_lookup(table, rows):
-        vals = lookup(table, rows)
+    def recording_lookup(table, rows, *rest):
+        vals = lookup(table, rows, *rest)
         if vals.requires_grad and table.data_ptr() == \
                 bg_table.data_ptr():
             vals.retain_grad()
@@ -2072,6 +2154,8 @@ def capture_phase(torch, scatter, gather, root):
         fail("no background encode was recorded")
 
     # c. K1 and G1 on the background's encode stream
+    host_streams["background"] = (stream["rows"], stream["vals"],
+                                  stream["table"].shape[0])
     rows, vals, table = (stream.pop(k).cuda()
                          for k in ("rows", "vals", "table"))
     what = f"background stream (step 1, rows {list(rows.shape)})"
@@ -3331,6 +3415,392 @@ def surface_phase(torch, gather, scatter, system, state, sphere):
     return rec
 
 
+# phase 17: bit-reproducible training and the YAML configs.  (a) K2 on
+# the recorded streams and two gather-backward shapes of the training
+# scan; (b) the deterministic switch on NEUS_DET_STEPS NeuS steps (twice,
+# and resumed at half way) and SPLIT_DET_STEPS stage-1 flagship steps
+# (twice), against the default mode's runs; (c) ``launch --config``.
+NEUS_DET_STEPS, SPLIT_DET_STEPS = 16, 8
+# 17a's gather-backward shapes: the training scan's 4096 rays in a
+# 1,048,576-slot buffer (``ops/volrend.py``, ``render_weight_from_alpha``)
+SCAN_RAYS, SCAN_SLOTS = 4096, 1048576
+
+
+def check_time_sorted(torch, scatter, sorted_ops, idx, vals, t, what,
+                      period=1):
+    """K2 twice on ``idx``, ``vals``: bit-equal, and per entry within
+    1e-6 of the sum of the magnitudes landing there of its plain version
+    (float64 sums rounded once; the plain one adds with atomics, so the
+    two may round a float64 sum a last bit apart); then median-of-10
+    times of K2, its plain version, ``index_add_`` and, for float32 rows,
+    K1 at the caller's ``period``."""
+    from rise_sdf_tpu_torch.measure import median_ms
+
+    a = sorted_ops.scatter_add_sorted(idx, vals, t)
+    b = sorted_ops.scatter_add_sorted(idx, vals, t)
+    plain = sorted_ops.scatter_add_sorted_plain(idx, vals, t)
+    mag = torch.zeros(plain.shape, dtype=torch.float64,
+                      device=vals.device).index_add_(0, idx.long(),
+                                                     vals.double().abs())
+    torch.cuda.synchronize()
+    err = (a.double() - plain.double()).abs()
+    bad = int((err > 1e-6 * mag).sum())
+    same = bool(torch.equal(a, b))
+    rec = {"max_abs_err": float(err.max()), "bit_equal": same,
+           "rows": int(idx.shape[0]), "width": int(vals.shape[1]),
+           "dtype": str(vals.dtype).replace("torch.", ""),
+           "table_rows": int(t)}
+    del a, b, plain, mag, err
+    rec["ms"] = median_ms(lambda: sorted_ops.scatter_add_sorted(idx, vals, t))
+    rec["plain_ms"] = median_ms(
+        lambda: sorted_ops.scatter_add_sorted_plain(idx, vals, t))
+    rec["library_ms"] = median_ms(lambda: torch.zeros(
+        (t, vals.shape[1]), dtype=vals.dtype, device="cuda").index_add_(
+        0, idx, vals))
+    rec["k1_ms"] = median_ms(lambda: scatter.scatter_add(
+        idx, vals, t, period)) if vals.dtype == torch.float32 else None
+    rec["sort_ms"] = median_ms(lambda: torch.sort(idx, stable=True))
+    rec["bound_ms"] = max(
+        (idx.shape[0] * 4 + vals.numel() * vals.element_size()
+         + t * vals.shape[1] * vals.element_size()) / HBM_BYTES_PER_S,
+        vals.numel() / F32_OPS_PER_S) * 1e3
+    rec["bound_by"] = "bytes"
+    k1 = f", K1 {rec['k1_ms']:.3f} ms" if rec["k1_ms"] is not None else ""
+    log(f"  a. {what}: K2 {rec['ms']:.3f} ms (its sort alone "
+        f"{rec['sort_ms']:.3f}), plain {rec['plain_ms']:.3f} ms, "
+        f"index_add_ {rec['library_ms']:.3f} ms{k1}, bound "
+        f"{rec['bound_ms']:.4f} ms (bytes; median of 10); bit-equal across "
+        f"launches {same}; max |K2 - plain| {rec['max_abs_err']:.3e}, "
+        f"entries over 1e-6 of the magnitudes {bad}")
+    if not same or bad:
+        fail(f"17a: K2 on the {what}: bit-equal {same}, {bad} entries off "
+             f"its plain version")
+    return rec
+
+
+def sorted_stream_phase(torch, scatter, sorted_ops, host_streams):
+    """17a: K2 on the training, probe and background streams (their
+    cotangents, float32 F = 2, at the encodes' periods), which phases 7,
+    8 and 13 leave in ``host_streams`` as ``name -> (rows, vals, table
+    rows)`` on the host, and on the training scan's two gather backwards
+    (float64 F = 1)."""
+    recs = {}
+    for name, period in (("train", 128), ("probe", 96),
+                         ("background", 128)):
+        if name not in host_streams:
+            fail(f"17a: no {name} stream was recorded")
+        rows, vals, t = host_streams.pop(name)
+        idx, vals = rows.reshape(-1).cuda(), vals.cuda()
+        recs[name] = check_time_sorted(
+            torch, scatter, sorted_ops, idx, vals, t,
+            f"{name} stream ({idx.shape[0]} rows, P = {period})", period)
+        del idx, vals
+        torch.cuda.empty_cache()
+    # the scan's per-ray starts (4096 rows into the buffer) and each
+    # slot's ray (1,048,576 rows into the rays), the buffer ray-major
+    rng = np.random.default_rng(17)
+    counts = rng.integers(0, 480, SCAN_RAYS)  # ~94 % of the slots live
+    used = int(counts.sum())
+    if used > SCAN_SLOTS:
+        fail(f"17a: {used} samples overflow the scan's buffer")
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    ray_of = np.full(SCAN_SLOTS, SCAN_RAYS)  # dead slots: the spare row
+    ray_of[:used] = np.repeat(np.arange(SCAN_RAYS), counts)
+    for name, idx, t in (("scan_starts", starts, SCAN_SLOTS),
+                         ("scan_slots", ray_of, SCAN_RAYS + 1)):
+        idx = torch.from_numpy(idx.astype(np.int32)).cuda()
+        vals = torch.from_numpy(rng.standard_normal(
+            (idx.shape[0], 1))).cuda()
+        recs[name] = check_time_sorted(
+            torch, scatter, sorted_ops, idx, vals, t,
+            f"{name} gather backward ({idx.shape[0]} float64 rows into "
+            f"{t})")
+    return recs
+
+
+class _Mode:
+    """``torch.use_deterministic_algorithms(on)`` inside the block, the
+    switch as it was after it."""
+
+    def __init__(self, torch, on, warn_only=False):
+        self.torch, self.on, self.warn_only = torch, on, warn_only
+
+    def __enter__(self):
+        t = self.torch
+        self.was = (t.are_deterministic_algorithms_enabled(),
+                    t.is_deterministic_algorithms_warn_only_enabled())
+        t.use_deterministic_algorithms(self.on, warn_only=self.warn_only)
+
+    def __exit__(self, *exc):
+        self.torch.use_deterministic_algorithms(self.was[0],
+                                                warn_only=self.was[1])
+
+
+def _snapshot(torch, system, state):
+    """The training state on the host: params and buffers, Adam's
+    ``exp_avg``, ``exp_avg_sq`` and ``step``, the schedule's count,
+    ``occs``, ``occ_binary`` and ``step``."""
+    names = {id(p): n for n, p in system.model.state_dict(
+        keep_vars=True).items()}
+    snap = {f"param:{n}": p.detach().cpu().clone()
+            for n, p in system.model.state_dict().items()}
+    for p, st in system.optimizer.state.items():
+        for k in ("exp_avg", "exp_avg_sq", "step"):
+            snap[f"{k}:{names[id(p)]}"] = torch.as_tensor(st[k]).cpu().clone()
+    snap["last_epoch"] = torch.tensor(system.scheduler.last_epoch)
+    for k in ("occs", "occ_binary"):
+        snap[k] = state[k].cpu().clone()
+    snap["step"] = torch.tensor(int(state["step"]))
+    return snap
+
+
+def _differ(torch, a, b):
+    """The entries of two snapshots that are not bit-equal, and the one
+    of them with the largest difference relative to its largest value:
+    ``(names, (name, max abs difference, relative))``."""
+    bad = sorted(k for k in a if not torch.equal(a[k], b[k]))
+    worst = ("", 0.0, 0.0)
+    for k in bad:
+        x, y = a[k].double(), b[k].double()
+        diff = float((x - y).abs().max())
+        rel = diff / max(float(x.abs().max()), 1e-300)
+        if rel > worst[2]:
+            worst = (k, diff, rel)
+    return bad, worst
+
+
+def _det_run(torch, scatter, gather, sorted_ops, system, state, steps,
+             seed, det, probe=None):
+    """``steps`` steps of ``fit`` from ``state`` in one mode, the counts
+    zeroed just before and read just after.  Returns the state, steps/s
+    over all but the first step and the K1, G1 and K2 launches and the
+    run's seconds (``fit`` whole, its final checkpoint included).  A
+    deterministic run given a ``probe`` list runs under ``warn_only``
+    (the same algorithms) and adds to it the ops torch warns of
+    (``_deterministic_warnings``)."""
+    import warnings
+
+    from rise_sdf_tpu_torch import measure
+
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught, \
+            _Mode(torch, det, warn_only=probe is not None):
+        warnings.simplefilter("always")
+        torch.cuda.synchronize()
+        scatter.scatter_add.launches = 0
+        gather.gather_rows.launches = 0
+        sorted_ops.scatter_add_sorted.launches = 0
+        state, metrics, rate, _ = measure.train(
+            system, steps, seed, state, profile_from=10 ** 9)
+        counts = (scatter.scatter_add.launches, gather.gather_rows.launches,
+                  sorted_ops.scatter_add_sorted.launches,
+                  time.perf_counter() - t0)
+    if probe is not None:
+        probe += _deterministic_warnings(caught)
+    if len(metrics) != steps or not all(np.isfinite(m["loss"])
+                                        for m in metrics):
+        fail(f"17b: a run without {steps} finite losses")
+    if system.skipped_updates:
+        fail(f"17b: {system.skipped_updates} skipped updates")
+    k1, g1, k2, _ = counts
+    if g1 < steps or (k2 < steps if det else k1 < steps) \
+            or (k1 if det else k2):
+        fail(f"17b: {'deterministic' if det else 'default'} run launched "
+             f"K1 {k1}, G1 {g1}, K2 {k2} times in {steps} steps")
+    return state, rate, counts
+
+
+def _deterministic_warnings(caught):
+    """The first lines of the caught warnings that name an op torch has
+    no deterministic implementation for."""
+    return [str(w.message).split("\n")[0] for w in caught
+            if "deterministic" in str(w.message)]
+
+
+def _warn_probe(torch, system, seed, step):
+    """Two steps from ``step`` under ``warn_only``: the messages of the
+    ops torch has no deterministic implementation for."""
+    import warnings
+
+    from rise_sdf_tpu_torch import measure
+
+    state = system.init_state(seed)
+    state["step"] = step
+    with warnings.catch_warnings(record=True) as caught, \
+            _Mode(torch, True, warn_only=True):
+        warnings.simplefilter("always")
+        measure.train(system, 2, seed, state, profile_from=10 ** 9)
+    return _deterministic_warnings(caught)
+
+
+def determinism_phase(torch, scatter, gather, sorted_ops, flagship, root):
+    """17b (module docstring).  ``flagship`` is phase 8's system; NeuS
+    gets a fresh ``neus_sphere_full``.  Returns its record."""
+    from rise_sdf_tpu_torch import datasets, measure, presets, systems
+
+    rec = {}
+    cfg = presets.neus_sphere_full()
+    seed = int(cfg["seed"])
+    t0 = time.perf_counter()
+    neus = systems.make(cfg["system"]["name"], cfg,
+                        datasets.make(cfg["dataset"]["name"], cfg["dataset"]),
+                        save_dir=os.path.join(root, "neus"), device="cuda")
+    log(f"  b. neus_sphere_full built in {time.perf_counter() - t0:.1f} s")
+    # the first deterministic run of each model is the warn_only probe
+    # of its stage; the flagship's stage 0 gets two steps of its own
+    t0 = time.perf_counter()
+    probe = _warn_probe(torch, flagship, seed, 0)
+    log(f"    under warn_only, two flagship steps at stage 0 in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for name, system, steps, start in (
+            ("neus", neus, NEUS_DET_STEPS, 0),
+            ("flagship", flagship, SPLIT_DET_STEPS,
+             measure.SPLIT_STAGE1_STEP)):
+        runs, part = {}, {}
+        for mode, det in (("default", False), ("det", True)):
+            for i in range(2):
+                state = system.init_state(seed)
+                state["step"] = start
+                state, rate, counts = _det_run(
+                    torch, scatter, gather, sorted_ops, system, state,
+                    steps, seed, det,
+                    probe if det and i == 0 else None)
+                runs[(mode, i)] = _snapshot(torch, system, state)
+                part[f"{mode}{i}"] = {"steps_per_s": rate,
+                                      "k1": counts[0], "g1": counts[1],
+                                      "k2": counts[2], "s": counts[3]}
+        if name == "neus":  # resumed at half way, deterministic
+            half = steps // 2
+            state = system.init_state(seed)
+            state, _, _ = _det_run(torch, scatter, gather, sorted_ops,
+                                   system, state, half, seed, True)
+            path = system.save_checkpoint(state, os.path.join(
+                root, "neus_half.ckpt.npz"))
+            state = system.load_checkpoint(path)
+            state, rate, counts = _det_run(torch, scatter, gather,
+                                           sorted_ops, system, state,
+                                           steps - half, seed, True)
+            runs[("det", "resumed")] = _snapshot(torch, system, state)
+            part["det_resumed"] = {"steps_per_s": rate, "k1": counts[0],
+                                   "g1": counts[1], "k2": counts[2],
+                                   "s": counts[3]}
+        det_bad, _ = _differ(torch, runs[("det", 0)], runs[("det", 1)])
+        res_bad = _differ(torch, runs[("det", 0)],
+                          runs[("det", "resumed")])[0] \
+            if ("det", "resumed") in runs else []
+        def_bad, (worst, def_big, def_rel) = _differ(
+            torch, runs[("default", 0)], runs[("default", 1)])
+        part.update(entries=len(runs[("det", 0)]),
+                    det_differing=len(det_bad),
+                    resumed_differing=len(res_bad),
+                    default_differing=len(def_bad),
+                    default_worst=worst, default_max_abs_diff=def_big,
+                    default_max_rel_diff=def_rel)
+        rate = {m: part[f"{m}0"]["steps_per_s"] for m in ("default", "det")}
+        log(f"    {name}, {steps} steps from step {start}, twice in each "
+            f"mode{' and resumed at step ' + str(start + steps // 2) if name == 'neus' else ''}: "
+            f"deterministic runs differ in {len(det_bad)} of "
+            f"{part['entries']} state entries (params, Adam moments and "
+            f"steps, schedule, occupancy grid, step)"
+            f"{', the resumed run in ' + str(len(res_bad)) if name == 'neus' else ''}; "
+            f"default runs in {len(def_bad)}, most in {worst} "
+            f"({def_big:.3e}, {def_rel:.3e} of its largest value); steps/s "
+            f"default {rate['default']:.3f}, "
+            f"deterministic {rate['det']:.3f}; per run K1/G1/K2 launches "
+            f"and seconds "
+            + ", ".join(f"{k} {v['k1']}/{v['g1']}/{v['k2']} {v['s']:.1f} s"
+                        for k, v in part.items() if isinstance(v, dict)))
+        if det_bad or res_bad:
+            fail(f"17b: {name} deterministic runs differ in "
+                 f"{(det_bad + res_bad)[:8]}")
+        rec[name] = part
+    named = sorted(set(probe))
+    log(f"    under warn_only, the NeuS run, the flagship's stage-0 steps "
+        f"and its stage-1 run name {len(named)} ops without a "
+        f"deterministic implementation{': ' if named else ''}"
+        f"{'; '.join(named)}")
+    if named:
+        fail(f"17b: ops without a deterministic implementation: {named}")
+    del neus
+    shutil.rmtree(flagship.ckpt_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return rec
+
+
+def config_phase(torch, scatter, gather, sorted_ops, scene_root, root):
+    """17c: ``launch --config`` on ``configs/split-smoke.yaml`` (train 30
+    steps across the stage flip, then test), and at full width for
+    ``SCENE_STEPS`` steps on phase 12's scene on
+    ``configs/split-mixed-occ-tensoir.yaml`` (its TensoIR layout) and
+    ``configs/neus-blender.yaml`` (its Blender layout), each then tested
+    and exported.  Returns each run's K1, G1 and K2 launches and
+    seconds."""
+    from rise_sdf_tpu_torch import launch, presets
+    from rise_sdf_tpu_torch.utils import yamlio
+
+    rec = {}
+
+    def scene(layout):
+        return ["dataset.scene=concave",
+                f"dataset.root_dir={os.path.join(scene_root, layout)}",
+                f"trainer.max_steps={SCENE_STEPS}"]
+
+    for name, yaml_file, extra, preset in (
+            ("split_smoke", "configs/split-smoke.yaml", [], None),
+            ("tensoir", "configs/split-mixed-occ-tensoir.yaml",
+             scene("tensoir"), presets.split_mixed_occ_tensoir),
+            ("blender", "configs/neus-blender.yaml", scene("blender"),
+             presets.neus_blender)):
+        exp = os.path.join(root, name)
+        torch.cuda.synchronize()
+        scatter.scatter_add.launches = 0
+        gather.gather_rows.launches = 0
+        sorted_ops.scatter_add_sorted.launches = 0
+        t0 = time.perf_counter()
+        launch.main(["--config", yaml_file, "--train", "--exp_dir", exp,
+                     *extra])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = {"k1": scatter.scatter_add.launches,
+                  "g1": gather.gather_rows.launches,
+                  "k2": sorted_ops.scatter_add_sorted.launches,
+                  "seconds": secs}
+        trials = [os.path.join(dp, "config") for dp, dirs, _ in os.walk(exp)
+                  if "config" in dirs]
+        if len(trials) != 1 or sorted(os.listdir(trials[0])) != [
+                "parsed.yaml", "raw.yaml"]:
+            fail(f"17c: {name}: no config/parsed.yaml and raw.yaml: {trials}")
+        parsed = yamlio.load_file(os.path.join(trials[0], "parsed.yaml"))
+        parsed.pop("cmd_args"), parsed.pop("trial_dir")
+        ckpts = [f for dp, _, fs in os.walk(exp) for f in fs
+                 if f.endswith(".ckpt.npz")]
+        log(f"  c. launch --config {yaml_file} {' '.join(extra)} --train: "
+            f"{secs:.1f} s (train, test, export); K1/G1/K2 launches "
+            f"{counts['k1']}/{counts['g1']}/{counts['k2']}; checkpoints "
+            f"{ckpts}")
+        if counts["k1"] < 1 or counts["g1"] < 1 or counts["k2"]:
+            fail(f"17c: {name} launched {counts}")
+        if preset is not None:
+            # the preset with the same dotlist, but for the two entries
+            # the yaml derives from trainer.max_steps
+            want = launch.resolve(launch.apply_overrides(preset(), extra))
+            warm = want["system"]["warmup_steps"]
+            want["checkpoint"]["every_n_train_steps"] = SCENE_STEPS
+            want["system"]["scheduler"]["schedulers"][1]["args"]["gamma"] = \
+                0.1 ** (1.0 / (SCENE_STEPS - warm))
+            same = parsed == want
+            log(f"    parsed.yaml equals the preset {preset.__name__} "
+                f"with the same dotlist (checkpoint.every_n_train_steps and "
+                f"the ExponentialLR gamma recomputed from trainer.max_steps, "
+                f"as the yaml's interpolations do): {same}")
+            if not same:
+                fail(f"17c: {name}'s parsed.yaml differs from the preset")
+        rec[name] = counts
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rec
+
+
 def check_recorded_step(torch, scatter, table, encodes, stream):
     """The step's table gradient (the sum of its encodes' K1 launches)
     against the float64 plain scatter of every encode's rows and
@@ -3380,6 +3850,9 @@ def main():
                          "python -m rise_sdf_tpu_torch.kernel_ab")
     args = ap.parse_args()
 
+    # cuBLAS's workspace setting that torch's deterministic mode asks
+    # for (phase 17b), before torch first calls cuBLAS
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
     if not torch.cuda.is_available():
@@ -3390,14 +3863,19 @@ def main():
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
     from rise_sdf_tpu_torch.ops import cuda_build, gather, scatter
+    from rise_sdf_tpu_torch.ops import scatter_sorted as sorted_ops
 
-    log("build K1 and G1:")
+    (scene_root, capture_root), (scene_job, capture_job) = start_writers()
+
+    log("build K1, G1 and K2:")
     t0 = time.perf_counter()
-    cuda_build.build_libraries(["scatter_add", "gather_rows"])
+    cuda_build.build_libraries(["scatter_add", "gather_rows",
+                                "scatter_add_sorted"])
     scatter._lib()
     gather._lib()
+    sorted_ops._lib()
     log(f"  built and loaded in {time.perf_counter() - t0:.1f} s")
-    for name in ("scatter_add", "gather_rows"):
+    for name in ("scatter_add", "gather_rows", "scatter_add_sorted"):
         for line in cuda_build.build_logs.get(name, "").splitlines():
             log(f"  nvcc {name}: {line}")
     log("K1 vs float64 index_add_:")
@@ -3421,13 +3899,16 @@ def main():
      train) = slice_phase(torch, scatter, args.steps, neus_sphere_full())
     if args.save_streams:
         torch.save({**streams, **train}, args.save_streams)
+    # the recorded streams, kept on the host for phase 17a
+    host_streams = {"train": (train["train_rows"], train["train_vals"],
+                              train["train_table"].shape[0])}
     del streams, train
     log(f"flagship training: split-occ split_mixed_occ_train_full, "
         f"{args.split_steps} steps at stage 0 and at stage 1 + 1 view:")
     (k1["probe_stream"], g1["probe_stream"], split_step,
      (k1["flagship_launches"], g1["flagship_launches"]),
      (system, state)) = flagship_phase(torch, scatter, gather,
-                                       args.split_steps)
+                                       args.split_steps, host_streams)
     log(f"test protocol: split_mixed_occ_test_full at step "
         f"{int(state['step'])}, {args.test_views} views x (learned, warm, "
         f"bright) + view 0 in single-light mode:")
@@ -3457,7 +3938,8 @@ def main():
         f"{SCENE_STEPS} steps + test on 1 view; neus_blender, {SCENE_STEPS} "
         f"steps:")
     t0 = time.perf_counter()
-    scene = scene_phase(torch, scatter, gather)
+    # phase 12's scene is read again by phase 17c
+    scene = scene_phase(torch, scatter, gather, scene_root, scene_job)
     log(f"  phase {time.perf_counter() - t0:.1f} s")
     for i, rec in enumerate((k1, g1)):
         rec["scene"] = {part: n[i] for part, n in scene.items()}
@@ -3466,23 +3948,22 @@ def main():
         f"at img_downscale {CAPTURE_DOWNSCALE}, {CAPTURE_STEPS} steps, one "
         f"step with the distortion loss, the test view and one predict "
         f"frame:")
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        png_root = os.path.join(tmp, "png")
-        os.makedirs(png_root)
-        k1["capture"], g1["capture"], written = capture_phase(
-            torch, scatter, gather, png_root)
-        log(f"  phase {time.perf_counter() - t0:.1f} s")
-        log(f"what a capture or config names: the JPEG fixtures; the "
-            f"capture as JPEG, neus_colmap {JPEG_STEPS} steps; "
-            f"neus_sphere_full with AdamW, a chained schedule and variance "
-            f"modulation, {MOD_STEPS} steps; LPIPS:")
-        t0 = time.perf_counter()
-        p14 = {"fixtures": jpeg_fixture_phase(),
-               "jpeg_capture": jpeg_capture_phase(
-                   torch, scatter, gather, os.path.join(tmp, "jpeg"),
-                   written)}
-        del written
+    t0 = time.perf_counter()
+    k1["capture"], g1["capture"], written = capture_phase(
+        torch, scatter, gather, os.path.join(capture_root, "png"),
+        host_streams, capture_job)
+    log(f"  phase {time.perf_counter() - t0:.1f} s")
+    log(f"what a capture or config names: the JPEG fixtures; the "
+        f"capture as JPEG, neus_colmap {JPEG_STEPS} steps; "
+        f"neus_sphere_full with AdamW, a chained schedule and variance "
+        f"modulation, {MOD_STEPS} steps; LPIPS:")
+    t0 = time.perf_counter()
+    p14 = {"fixtures": jpeg_fixture_phase(),
+           "jpeg_capture": jpeg_capture_phase(
+               torch, scatter, gather, os.path.join(capture_root, "jpeg"),
+               written)}
+    del written
+    shutil.rmtree(capture_root, ignore_errors=True)
     p14["config_surface"] = config_surface_phase(torch, scatter, gather)
     p14["lpips"] = lpips_phase(torch, scatter, gather, system, state,
                                lpips_pair)
@@ -3509,10 +3990,42 @@ def main():
         f"step {int(state['step'])} (variance {bench.VARIANCE}, solid "
         f"occupancy), {SURFACE_VIEWS} view in both modes:")
     p16 = surface_phase(torch, gather, scatter, system, state, sphere)
-    del system, state, lpips_pair, surface, sphere
+    del state, lpips_pair, surface, sphere
     torch.cuda.empty_cache()
     log(f"  phase {p16['seconds']:.1f} s")
     log(f"  phase 16: {json.dumps(p16)}")
+    log(f"bit-reproducible training and the YAML configs: K2 on the "
+        f"recorded streams; under torch.use_deterministic_algorithms, "
+        f"neus_sphere_full {NEUS_DET_STEPS} steps twice and resumed, the "
+        f"flagship {SPLIT_DET_STEPS} stage-1 steps twice, each against the "
+        f"default mode; launch --config on split-smoke.yaml, "
+        f"split-mixed-occ-tensoir.yaml and neus-blender.yaml:")
+    t0 = time.perf_counter()
+    p17_root = tempfile.mkdtemp(prefix="chip_smoke_p17_")
+    atexit.register(shutil.rmtree, p17_root, True)
+    p17 = {"streams": sorted_stream_phase(torch, scatter, sorted_ops,
+                                          host_streams),
+           "determinism": determinism_phase(torch, scatter, gather,
+                                            sorted_ops, system, p17_root)}
+    del system
+    torch.cuda.empty_cache()
+    p17["config"] = config_phase(torch, scatter, gather, sorted_ops,
+                                 scene_root, p17_root)
+    p17["seconds"] = time.perf_counter() - t0
+    log(f"  phase {p17['seconds']:.1f} s")
+    log(f"  phase 17: {json.dumps(p17)}")
+    k2 = dict(p17["streams"]["train"])
+    k2["launches"] = p17["determinism"]["neus"]["det0"]["k2"]
+    k2["streams"] = p17["streams"]
+    k2["launches_per_run"] = {
+        name: {run: v["k2"] for run, v in part.items()
+               if isinstance(v, dict)}
+        for name, part in p17["determinism"].items()}
+    k1["phase17"] = {name: {run: v["k1"] for run, v in part.items()
+                            if isinstance(v, dict)}
+                     for name, part in p17["determinism"].items()}
+    k1["phase17"]["config"] = {k: v["k1"] for k, v in p17["config"].items()}
+    g1["phase17"] = {k: v["g1"] for k, v in p17["config"].items()}
     test16 = p16["test"]
     k1["phase16"] = {"small": p16["small"][1],
                      "sphere_row": p16["bench"]["k1_launches"],
@@ -3548,7 +4061,7 @@ def main():
              "flagship_per_step", "flagship_launches", "test_launches",
              "test_protocol", "resume_launches", "resume_launches_per_step",
              "export_launches", "ddp", "scene", "capture", "phase14",
-             "phase15", "phase16")
+             "phase15", "phase16", "phase17")
     log(json.dumps({"kernels": [
         {"name": "scatter_add (K1)", "route": "cuda", "source": SRC_K1,
          "replaces": REPLACES_K1, **{k: k1[k] for k in keys},
@@ -3559,6 +4072,11 @@ def main():
         {"name": "scatter_add at S1's shape (K1)", "route": "cuda",
          "source": SRC_K1, "replaces": REPLACES_S1,
          **{k: s1[k] for k in keys}},
+        {"name": "scatter_add_sorted (K2)", "route": "cuda",
+         "source": SRC_K2, "replaces": REPLACES_K2,
+         **{k: k2[k] for k in keys},
+         **{k: k2[k] for k in ("streams", "launches_per_run", "sort_ms",
+                                "k1_ms")}},
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -398,9 +398,14 @@ class SyntheticSplit:
 class SyntheticDataModule:
     def __init__(self, config):
         self.config = config
+        self._splits = {}
 
     def split(self, name):
-        return SyntheticSplit(self.config, name)
+        """The split ``name``, rendered on first use (every ``fit`` and
+        validation reads it again)."""
+        if name not in self._splits:
+            self._splits[name] = SyntheticSplit(self.config, name)
+        return self._splits[name]
 
     def train(self):
         return self.split("train")

@@ -1,13 +1,19 @@
 """Command-line launcher (counterpart of the JAX package's ``launch.py``).
 
-    python -m rise_sdf_tpu_torch.launch --preset NAME
+    python -m rise_sdf_tpu_torch.launch (--config FILE | --preset NAME)
         (--train | --validate | --test | --predict)
         [--resume CKPT [--resume_weights_only]] [--exp_dir ./exp]
         [--gpu 0] [--device cuda|cpu] [a.b.c=value ...]
 
-``--preset`` names a function of ``rise_sdf_tpu_torch/presets.py`` (the
-port reads no YAML), where the JAX launcher takes ``--config``.  Dotlist
-overrides ``a.b.c=value`` replace entries of that config; a value parses
+``--config`` reads a YAML config as the JAX launcher does
+(``config.load_config``): dotlist overrides ``a.b.c=value`` are YAML
+scalars, merged in whether or not the file has the key, then every
+``${...}`` is resolved; a value left ``???`` raises.  The run writes the
+resolved config to ``config/parsed.yaml`` and a copy of the file to
+``config/raw.yaml``.
+
+``--preset`` names a function of ``rise_sdf_tpu_torch/presets.py``.
+Dotlist overrides ``a.b.c=value`` replace entries of that config; a value parses
 as an int, a float, a bool, null or a list of those, else it stays a
 string, and a key the config does not have raises (the few optional
 keys in ``OPTIONAL_KEYS`` excepted).  After the overrides, ``resolve``
@@ -23,7 +29,7 @@ validation every ``trainer.val_check_interval`` steps and the saves of
 the mesh.  ``--resume`` restores the whole training state,
 ``--resume_weights_only`` the params, the occupancy grid and the step.
 The run goes to ``exp_dir/[name]/[tag]@[timestamp]/{config,ckpt,save}``
-with the parsed config in ``config/parsed.json``.  The device is CUDA
+with a preset's parsed config in ``config/parsed.json``.  The device is CUDA
 (``--gpu`` its index) and without CUDA the launcher raises, unless
 ``--device cpu`` asks for the CPU.
 
@@ -44,6 +50,7 @@ import datetime
 import json
 import os
 import re
+import shutil
 import socket
 import sys
 from typing import Any, Dict, List
@@ -144,7 +151,9 @@ def _preset(name: str) -> Dict:
 
 def _parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--preset", required=True,
+    source = parser.add_mutually_exclusive_group(required=True)
+    source.add_argument("--config", help="a YAML config file")
+    source.add_argument("--preset",
                         help="a config function of rise_sdf_tpu_torch.presets")
     parser.add_argument("--gpu", default="0",
                         help="CUDA device index, or a comma-separated list "
@@ -204,6 +213,18 @@ def _run_rank(args, extras):
         dist.destroy_process_group()
 
 
+def load(args, extras) -> Dict:
+    """The run's config: the YAML file of ``--config`` with the dotlist
+    merged in and resolved, or the ``--preset`` with its overrides; a
+    value still ``???`` raises."""
+    if args.config:
+        from .config import config_to_primitive, load_config
+
+        return resolve(config_to_primitive(
+            load_config(args.config, cli_args=extras)))
+    return resolve(apply_overrides(_preset(args.preset), extras))
+
+
 def run(args, extras):
     """One process's run: the whole run, or one rank's share of it."""
     import torch
@@ -212,7 +233,7 @@ def run(args, extras):
     from . import datasets, systems
     from .parallel import sharding
 
-    config = resolve(apply_overrides(_preset(args.preset), extras))
+    config = load(args, extras)
     sharding.table_shard_count(int(config["system"].get("table_shards", 1)))
     config["cmd_args"] = vars(args)
     device = args.device
@@ -238,8 +259,14 @@ def run(args, extras):
     if sharding.is_main_process():
         for d in (save_dir, ckpt_dir, config_dir):
             os.makedirs(d, exist_ok=True)
-        with open(os.path.join(config_dir, "parsed.json"), "w") as f:
-            json.dump(config, f, indent=1)
+        if args.config:  # as the JAX launcher: parsed and raw YAML
+            from .config import dump_config
+
+            dump_config(config, os.path.join(config_dir, "parsed.yaml"))
+            shutil.copy(args.config, os.path.join(config_dir, "raw.yaml"))
+        else:
+            with open(os.path.join(config_dir, "parsed.json"), "w") as f:
+                json.dump(config, f, indent=1)
 
     seed = int(config.get("seed", 42))
     np.random.seed(seed)

@@ -82,12 +82,16 @@ class VolumeSDF(nn.Module):
         """World [-r, r]^3 -> unit cube [0, 1]^3 (AABB contraction)."""
         return (x + self.radius) / (2.0 * self.radius)
 
-    def raw(self, x_world, step=None, levels=None):
-        """-> [N, feature_dim]; channel 0 is the SDF."""
+    def raw(self, x_world, step=None, levels=None, grad_impl="plain"):
+        """-> [N, feature_dim]; channel 0 is the SDF.  ``grad_impl``: the
+        hash table's gradient, ``'plain'`` (K1) or ``'sorted'`` (K2,
+        deterministic), as JAX's ``raw``; the curvature probe and the
+        analytic gradient call it with the default, as JAX's do."""
         # clamp into the unit cube: dead sample slots may lie outside the
         # AABB, where trilinear extrapolation weights blow up
         u = torch.clamp(self.contract(x_world), 0.0, 1.0)
-        return self._head(self.encoding(u, step, levels=levels))
+        return self._head(self.encoding(u, step, levels=levels,
+                                        grad_impl=grad_impl))
 
     def _head(self, enc):
         """The MLP, with ``sdf_activation(sdf + sdf_bias)`` on channel 0
@@ -99,8 +103,8 @@ class VolumeSDF(nn.Module):
                                                   + self.sdf_bias)
         return torch.cat([sdf, out[..., 1:]], -1)
 
-    def sdf(self, x_world, step=None, levels=None):
-        return self.raw(x_world, step, levels)[..., 0]
+    def sdf(self, x_world, step=None, levels=None, grad_impl="plain"):
+        return self.raw(x_world, step, levels, grad_impl)[..., 0]
 
     @torch.no_grad()
     def forward_level(self, x_world, step=None):

@@ -24,10 +24,12 @@ With a bake (``ops/sdf_bake.py``, ``eval_sdf_bake`` "probe" or "full")
 the probe, and with "full" also the secondary transmittance, read the
 corner-packed SDF table instead of the hash grid and the SDF MLP.
 
-Every compaction keeps the JAX package's semantics: a cumsum gives each
-kept entry its slot, the scatter sends the rest to one spare slot past
-the buffer (``.at[dest].set(..., mode="drop")``), and a ray whose
-entries overflow is reported in ``ray_included``.
+Every compaction keeps the JAX package's semantics (a cumsum gives each
+kept entry its slot, the rest go to one spare slot past the buffer,
+``.at[dest].set(..., mode="drop")``, and a ray whose entries overflow
+is reported in ``ray_included``), as a gather: each slot finds its
+entry by ``searchsorted`` of the cumsum, which fills the same slots
+with the same bits and has no shared slot to write.
 
 With ``eval_mode: sphere_trace`` an eval renders through
 ``forward_surface`` (and ``forward_surface_multi``) instead: a
@@ -53,6 +55,7 @@ from . import make, register
 from .neus import _normalize, neus_alpha, occ_eval_alpha
 from .variance import Variance
 from ..ops import march, sdf_bake, volrend
+from ..ops.scatter_sorted import index_select
 from ..ops.sphere_trace import sphere_trace
 from ..utils.color import rgb_to_srgb
 
@@ -64,12 +67,14 @@ def _compact(keep: torch.Tensor, cap: int):
     the index of the entry in slot ``j`` (0 in empty slots, as the JAX
     scatter into zeros leaves them), ``valid`` marks filled slots."""
     pos_in_buf = torch.cumsum(keep, 0) - 1
-    dest = torch.where(keep & (pos_in_buf < cap), pos_in_buf, cap)
-    src = torch.zeros(cap + 1, dtype=torch.int64, device=keep.device)
-    src.scatter_(0, dest, torch.arange(keep.shape[0], device=keep.device))
     n_in = torch.clamp(pos_in_buf[-1] + 1, max=cap)
     valid = torch.arange(cap, device=keep.device) < n_in
-    return src[:cap], valid, pos_in_buf
+    # slot j's entry is the (j+1)-th kept one: a gather (torch's
+    # deterministic scatter would write the dropped entries' shared slot
+    # one by one)
+    src = torch.searchsorted(pos_in_buf + 1, torch.arange(
+        1, cap + 1, device=keep.device))
+    return torch.where(valid, src, 0), valid, pos_in_buf
 
 
 @register("split-mixed-occ")
@@ -248,14 +253,15 @@ class SplitMixedOccModel(nn.Module):
                                    bake).reshape(n, s)
             included = torch.ones((n,), dtype=torch.bool, device=pos.device)
         else:
-            src, buf_valid, _ = _compact(live.reshape(-1), cap)
-            a_c = self._alpha_at(pos.reshape(-1, 3).index_select(0, src),
-                                 t_dirs.reshape(-1, 3).index_select(0, src),
-                                 dists.reshape(-1).index_select(0, src),
+            src, _, pos_in_buf = _compact(live.reshape(-1), cap)
+            a_c = self._alpha_at(index_select(pos.reshape(-1, 3), src),
+                                 index_select(t_dirs.reshape(-1, 3), src),
+                                 index_select(dists.reshape(-1), src),
                                  step, 1.0, levels, bake)
-            a_c = torch.where(buf_valid, a_c, 0.0)
-            alpha = a_c.new_zeros(n * s + 1).scatter_(
-                0, torch.where(buf_valid, src, n * s), a_c)[:n * s]
+            # each kept sample gathers its slot
+            kept = live.reshape(-1) & (pos_in_buf < cap)
+            alpha = torch.where(kept, index_select(
+                a_c, torch.clamp(pos_in_buf, 0, cap - 1)), 0.0)
             alpha = alpha.reshape(n, s)
             included = torch.cumsum(live.sum(dim=1), 0) <= cap
         alpha = torch.where(live, alpha, 0.0)
@@ -440,8 +446,8 @@ class SplitMixedOccModel(nn.Module):
         t_mid = 0.5 * (rs.t_starts + rs.t_ends)
         dists = rs.t_ends - rs.t_starts
         ridx = torch.clamp(rs.ray_indices, 0, n_rays - 1)
-        t_dirs = rays_d.index_select(0, ridx)
-        positions = rays_o.index_select(0, ridx) + t_dirs * t_mid[:, None]
+        t_dirs = index_select(rays_d, ridx)
+        positions = index_select(rays_o, ridx) + t_dirs * t_mid[:, None]
 
         want_laplace = self.fd_grad and train
         if want_laplace and laplace_dirs is None:
@@ -479,12 +485,12 @@ class SplitMixedOccModel(nn.Module):
                 0, rs.ray_indices, vis.long())[:n_rays]
             included = included & (torch.cumsum(vis_cnt, 0) <= cap2)
             mc.update(
-                s_feature=feature.index_select(0, src),
-                s_dirs=t_dirs.index_select(0, src),
-                s_normal=normal.index_select(0, src),
-                s_pos=positions.index_select(0, src),
-                s_tmid=t_mid.index_select(0, src),
-                s_weights=torch.where(bv, weights.index_select(0, src), 0.0),
+                s_feature=index_select(feature, src),
+                s_dirs=index_select(t_dirs, src),
+                s_normal=index_select(normal, src),
+                s_pos=index_select(positions, src),
+                s_tmid=index_select(t_mid, src),
+                s_weights=torch.where(bv, index_select(weights, src), 0.0),
                 s_ridx=torch.where(bv, rs.ray_indices.index_select(0, src),
                                    n_rays))
         else:

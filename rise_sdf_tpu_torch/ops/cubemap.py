@@ -19,11 +19,14 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
+from .scatter_sorted import index_select
+
 
 def _rows(flat: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """``flat[idx]`` for a ``[M, C]`` table and any-shaped ``idx``."""
-    return flat.index_select(0, idx.reshape(-1)).view(*idx.shape,
-                                                      flat.shape[1])
+    """``flat[idx]`` for a ``[M, C]`` table and any-shaped ``idx`` (its
+    backward K2 under the deterministic switch)."""
+    return index_select(flat, idx.reshape(-1)).view(*idx.shape,
+                                                    flat.shape[1])
 
 
 def cube_to_dir(face: int, u, v):

@@ -11,6 +11,14 @@ tensor into the flattened ``[L*T, F]`` table (level l offset by
 gathers it through ``TableGradLookup``, so the backward is one K1
 launch for all levels and never materialises a per-level slice
 gradient.
+
+Every encode takes ``grad_impl``, as the JAX encoding's ``apply``:
+``'plain'`` (the default, K1) or ``'sorted'``, the deterministic table
+gradient (K2, ``ops/scatter_sorted.py``; the counterpart of
+``_encode_sorted_vjp``).  Under ``torch.use_deterministic_algorithms
+(True)`` every encode takes ``'sorted'``.  The position gradient is the
+same either way, and unlike JAX's custom VJP the sorted one can be
+differentiated again: it is first-order in the table only.
 """
 
 from __future__ import annotations
@@ -143,15 +151,18 @@ class HashGridEncoding(nn.Module):
             return flat.flatten(-3)
         return self._rows_by_band(rows, lo, hi)
 
-    def _lookup(self, flat: torch.Tensor, lo: int) -> torch.Tensor:
+    def _lookup(self, flat: torch.Tensor, lo: int,
+                grad_impl: str = "plain") -> torch.Tensor:
         """[N, Lo, K] rows of levels lo, lo + 1, ... -> [N, Lo, K, F]
         values: one gather from the flattened ``[L*T, F]`` table (G1 on
-        the card), whose table gradient is one K1 launch."""
+        the card), whose table gradient is one K1 launch (K2 with
+        ``grad_impl='sorted'``)."""
         L, F, T = self.n_levels, self.n_features_per_level, self.table_size
         offs = torch.arange(lo, lo + flat.shape[1], device=flat.device,
                             dtype=torch.int64) * T
         rows = (flat + offs[None, :, None]).to(torch.int32)
-        return table_grad_lookup(self.table.view(L * T, F), rows)
+        return table_grad_lookup(self.table.view(L * T, F), rows,
+                                 grad_impl)
 
     def _level_out(self, feats: torch.Tensor, lo: int, hi: int, step):
         """[..., N, Lo, F] features of levels [lo, hi) -> [..., N, L*F]:
@@ -169,19 +180,22 @@ class HashGridEncoding(nn.Module):
             feats = out
         return feats.flatten(-2)
 
-    def forward(self, x: torch.Tensor, step=None, levels=None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, step=None, levels=None,
+                grad_impl: str = "plain") -> torch.Tensor:
         """Encode ``x`` [N, 3] in [0,1]^3 -> [N, L*F] features
         (level-major).  ``levels`` (count or (lo, hi)) skips the gathers
-        of levels outside the range; their feature slots are zeros."""
+        of levels outside the range; their feature slots are zeros.
+        ``grad_impl``: the table gradient, ``'plain'`` or ``'sorted'``."""
         lo, hi = self._level_range(levels, self.n_levels)
         if hi <= lo:
             return x.new_zeros((x.shape[0], self.n_output_dims))
         i0, w = self._cell(x, lo, hi)
-        vals = self._lookup(self._corner_rows(i0, lo, hi), lo)
+        vals = self._lookup(self._corner_rows(i0, lo, hi), lo, grad_impl)
         feats = (_outer8(*_axis_pairs(w))[..., None] * vals).sum(2)
         return self._level_out(feats, lo, hi, step)
 
-    def encode_with_grad(self, x: torch.Tensor, step=None, levels=None):
+    def encode_with_grad(self, x: torch.Tensor, step=None, levels=None,
+                         grad_impl: str = "plain"):
         """Features and their x-space Jacobian for levels in range
         (``encode_with_grad`` of the JAX encoding): ``(feats, (jx, jy,
         jz))``, each [N, L*F].  The columns reuse the features' gathered
@@ -191,7 +205,7 @@ class HashGridEncoding(nn.Module):
             z = x.new_zeros((x.shape[0], self.n_output_dims))
             return z, (z, z, z)
         i0, w = self._cell(x, lo, hi)
-        vals = self._lookup(self._corner_rows(i0, lo, hi), lo)
+        vals = self._lookup(self._corner_rows(i0, lo, hi), lo, grad_impl)
         pairs = _axis_pairs(w)
         feats = (_outer8(*pairs)[..., None] * vals).sum(2)
         one = torch.ones_like(w[..., 0])
@@ -206,7 +220,8 @@ class HashGridEncoding(nn.Module):
         return self._level_out(feats, lo, hi, step), tuple(jac)
 
     def encode_axis_probes(self, u: torch.Tensor, u_probes: torch.Tensor,
-                           probe_axes, step=None, levels=None):
+                           probe_axes, step=None, levels=None,
+                           grad_impl: str = "plain"):
         """A base point and axis-aligned FD probes from one 32-point
         neighbourhood gather per level (``encode_axis_probes`` of the JAX
         encoding).
@@ -255,7 +270,8 @@ class HashGridEncoding(nn.Module):
             cc = c[:, a - lo:b - lo]
             return self._grid_rows(cc[..., 0], cc[..., 1], cc[..., 2], a, b)
 
-        vals = self._lookup(self._rows_by_band(rows32, lo, hi), lo)
+        vals = self._lookup(self._rows_by_band(rows32, lo, hi), lo,
+                            grad_impl)
         feats = torch.einsum("pnlk,nlkf->pnlf", w32, vals)
         return self._level_out(feats, lo, hi, step)
 

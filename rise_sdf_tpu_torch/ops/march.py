@@ -164,19 +164,23 @@ def march_rays(rays_o, rays_d, *, aabb_min, aabb_max, step_size, num_samples,
     pos_in_buf = torch.cumsum(flat_live, 0) - 1
     num_live = pos_in_buf[-1] + 1 if flat_live.numel() else \
         torch.zeros((), dtype=torch.int64, device=dev)
-    ok = flat_live & (pos_in_buf < capacity)
-    dest = torch.where(ok, pos_in_buf, capacity)
+    buf_valid = torch.arange(capacity, device=dev) \
+        < torch.clamp(num_live, max=capacity)
+    # each slot gathers its sample (the (j+1)-th live one): torch's
+    # deterministic scatter would write the dead samples' shared slot one
+    # by one (0.37 s a call on an H100 at 4M samples)
+    src_of = torch.clamp(torch.searchsorted(
+        pos_in_buf + 1, torch.arange(1, capacity + 1, device=dev)),
+        max=max(flat_live.numel() - 1, 0))
 
     def compact(src, fill):
-        buf = torch.full((capacity + 1,), fill, dtype=src.dtype, device=dev)
-        return buf.scatter_(0, dest, src)[:capacity]
+        return torch.where(buf_valid, src.index_select(0, src_of),
+                           torch.full((), fill, dtype=src.dtype, device=dev))
 
     flat_ray = torch.arange(n_rays, device=dev).repeat_interleave(num_samples)
     buf_ts = compact(t_starts.reshape(-1), 0.0)
     buf_te = compact(t_ends.reshape(-1), 0.0)
     buf_ray = compact(flat_ray, n_rays)
-    buf_valid = torch.arange(capacity, device=dev) \
-        < torch.clamp(num_live, max=capacity)
 
     ray_count = live.sum(dim=1)
     ray_end = torch.cumsum(ray_count, 0)

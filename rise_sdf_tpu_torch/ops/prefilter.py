@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from .cubemap import face_directions, sample_cubemap
+from .scatter_sorted import index_select
 
 CACHE_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "_cache")
@@ -267,7 +268,7 @@ def apply_specular_level_filter(filt: TorchLevelFilter,
     if filt.dense is not None:
         out = (filt.dense @ flat).reshape(6, m, m, -1)
     else:
-        gathered = flat.index_select(0, filt.idx.reshape(-1)).view(
+        gathered = index_select(flat, filt.idx.reshape(-1)).view(
             *filt.idx.shape, flat.shape[1])            # [T, K, C]
         out = torch.einsum("tk,tkc->tc", filt.w, gathered).reshape(
             6, m, m, -1)

@@ -15,8 +15,11 @@ Counterpart of ``rise_sdf_tpu/ops/scatter_pallas.py``.
 * ``scatter_add_plain``: ``index_add_`` (counterpart of
   ``scatter_add_reference``).
 * ``TableGradLookup``: ``table[idx]`` (kernel G1, ``ops/gather.py``, on
-  the card) whose table-gradient is ``scatter_add``.  First-order in the
-  table, which is all the losses
+  the card) whose table-gradient is ``scatter_add``, or with
+  ``grad_impl='sorted'`` (and always under
+  ``torch.use_deterministic_algorithms(True)``) the deterministic
+  ``scatter_add_sorted`` (K2, ``ops/scatter_sorted.py``).  First-order
+  in the table, which is all the losses
   need: position gradients flow through the interpolation weights, so
   the table side of the gather is differentiated exactly once even
   under the eikonal loss's double backward.
@@ -30,6 +33,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from .gather import gather_rows
+from .scatter_sorted import scatter_add_sorted
 
 _LIB = None
 
@@ -103,14 +107,18 @@ def scatter_add(idx: torch.Tensor, vals: torch.Tensor, table_size: int,
 scatter_add.launches = 0
 
 
+GRAD_IMPLS = ("plain", "sorted")
+
+
 class TableGradLookup(torch.autograd.Function):
     """``table[idx]`` (rows of a ``[T, F]`` table) with a G1 forward and
-    a K1 backward."""
+    a K1 backward, or a K2 backward when ``sorted_grad``."""
 
     @staticmethod
-    def forward(ctx, table, idx):
+    def forward(ctx, table, idx, sorted_grad=False):
         ctx.save_for_backward(idx)
         ctx.table_size = table.shape[0]
+        ctx.sorted_grad = sorted_grad
         return gather_rows(table.contiguous(), idx.reshape(-1)).view(
             *idx.shape, table.shape[1])
 
@@ -119,6 +127,11 @@ class TableGradLookup(torch.autograd.Function):
     def backward(ctx, grad):
         (idx,) = ctx.saved_tensors
         f = grad.shape[-1]
+        if ctx.sorted_grad:
+            d_table = scatter_add_sorted(
+                idx.reshape(-1), grad.reshape(-1, f).float().contiguous(),
+                ctx.table_size)
+            return d_table.to(grad.dtype), None, None
         # the encodes' [N, L_open, 8] corner rows and [N, L_open, 32]
         # probe-neighbourhood rows: one sample's levels per row of the
         # layout, consecutive samples along a ray
@@ -127,9 +140,17 @@ class TableGradLookup(torch.autograd.Function):
         d_table = scatter_add(idx.reshape(-1),
                               grad.reshape(-1, f).float().contiguous(),
                               ctx.table_size, period)
-        return d_table.to(grad.dtype), None
+        return d_table.to(grad.dtype), None, None
 
 
-def table_grad_lookup(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """``table [T, F]``, ``idx [...]`` int32 -> ``[..., F]``."""
-    return TableGradLookup.apply(table, idx)
+def table_grad_lookup(table: torch.Tensor, idx: torch.Tensor,
+                      grad_impl: str = "plain") -> torch.Tensor:
+    """``table [T, F]``, ``idx [...]`` int32 -> ``[..., F]``.  The table
+    gradient is K1's (``grad_impl='plain'``) or K2's (``'sorted'``, and
+    whenever the deterministic switch is on)."""
+    if grad_impl not in GRAD_IMPLS:
+        raise ValueError(f"grad_impl is one of {GRAD_IMPLS}, not "
+                         f"{grad_impl!r}")
+    return TableGradLookup.apply(
+        table, idx,
+        grad_impl == "sorted" or torch.are_deterministic_algorithms_enabled())

@@ -23,7 +23,15 @@ running total rounds a ray's transmittance at the magnitude of the rays
 before it).  On the CPU torch's scan and
 ``index_add`` are sequential and deterministic already and stay as
 they are.  Training keeps the plain ops: its backward scatters with
-atomics in any case (K1 and the gathers' ``index_add_``).
+atomics (K1 and the gathers' ``index_add_``).
+
+Under ``torch.use_deterministic_algorithms(True)`` (on every device)
+training takes the deterministic ops too: the scans are
+``blocked_cumsum`` (the transmittance scan in float64, as eval's), the
+accumulation ``sorted_segment_sum``, and every gather whose gradient is
+taken goes through ``scatter_sorted.index_select``, whose backward is
+the deterministic scatter K2 (``ops/scatter_sorted.py``), so a training
+step repeats bit for bit.
 """
 
 from __future__ import annotations
@@ -32,6 +40,8 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from .scatter_sorted import index_select
 
 # transmittance below this is treated as opaque-terminated, matching
 # nerfacc's early_stop_eps used by OccGridEstimator.sampling
@@ -77,12 +87,15 @@ def sorted_segment_sum(src, ray_indices, n_rays: int):
         ray_indices, torch.arange(n_rays + 1, device=src.device,
                                   dtype=ray_indices.dtype))
     prefix = F.pad(blocked_cumsum(src.double()), (0, 0, 1, 0))
-    return (prefix.index_select(0, bounds[1:])
-            - prefix.index_select(0, bounds[:-1])).to(src.dtype)
+    return (index_select(prefix, bounds[1:])
+            - index_select(prefix, bounds[:-1])).to(src.dtype)
 
 
 def _use_deterministic(x, deterministic: bool) -> bool:
-    return deterministic and x.device.type != "cpu"
+    """The deterministic ops: asked for on the card, or under torch's
+    deterministic switch on any device."""
+    return (deterministic and x.device.type != "cpu") \
+        or torch.are_deterministic_algorithms_enabled()
 
 
 def render_weight_from_alpha(alphas, ray_start, ray_indices, valid,
@@ -93,7 +106,8 @@ def render_weight_from_alpha(alphas, ray_start, ray_indices, valid,
     sample; ray_indices: [C] (== n_rays for dead slots); valid: [C] bool.
     Returns (weights [C], trans [C]), ``trans`` being the transmittance
     *before* each sample within its ray.  ``deterministic`` takes
-    ``blocked_cumsum`` in float64 on the card (module docstring).
+    ``blocked_cumsum`` in float64 on the card, as the deterministic switch
+    does on every device (module docstring).
     """
     a = torch.where(valid, torch.clamp(alphas, 0.0, 1.0 - 1e-7), 0.0)
     la = torch.log1p(-a)
@@ -106,13 +120,14 @@ def render_weight_from_alpha(alphas, ray_start, ray_indices, valid,
         c = torch.cumsum(la, 0)
     c_prev = torch.cat([c.new_zeros(1), c[:-1]])  # exclusive
     # cumulative log-transmittance at the start of each ray.  Gathers go
-    # through index_select: its backward is an atomic index_add_, where
-    # advanced indexing's backward sorts the 1M indices first
+    # through index_select: its backward is an atomic index_add_ (K2
+    # under the deterministic switch), where advanced indexing's backward
+    # sorts the 1M indices first
     ray_start_cl = torch.clamp(ray_start, 0, max(a.shape[0] - 1, 0))
     start_c = torch.where(ray_start == 0, 0.0,
-                          c_prev.index_select(0, ray_start_cl))
-    per_sample_start = torch.cat([start_c, c.new_zeros(1)]).index_select(
-        0, torch.clamp(ray_indices, max=n_rays))
+                          index_select(c_prev, ray_start_cl))
+    per_sample_start = index_select(torch.cat([start_c, c.new_zeros(1)]),
+                                    torch.clamp(ray_indices, max=n_rays))
     trans = torch.exp((c_prev - per_sample_start).to(a.dtype))
     weights = trans * a
     return torch.where(valid, weights, 0.0), torch.where(valid, trans, 0.0)
@@ -194,7 +209,7 @@ def render_weight_from_alpha_dense(alphas, live):
     """Weights on a non-compacted ``[R, S]`` grid (secondary rays).
     Returns (weights [R, S], trans [R, S])."""
     a = torch.where(live, torch.clamp(alphas, 0.0, 1.0 - 1e-7), 0.0)
-    c = torch.cumsum(torch.log1p(-a), 1)
+    c = _scan_rows(torch.log1p(-a))
     c_prev = torch.cat([torch.zeros_like(c[:, :1]), c[:, :-1]], 1)
     trans = torch.exp(c_prev)
     return trans * a, trans
@@ -217,20 +232,24 @@ def distortion_loss(weights, t_mids, intervals, ray_indices, ray_start,
     buffer's running magnitude (``ROADMAP.md``, Queue 3).  On the card
     it runs in float64: in float32 the term of a 4096-ray step at
     ``neus_colmap`` widths came out 8.6e-5 (relative) from a float64
-    double sum (``chip_smoke.py`` phase 13d, ``PERF.md``)."""
+    double sum (``chip_smoke.py`` phase 13d, ``PERF.md``).  Under the
+    deterministic switch the scan is ``blocked_cumsum`` in the same
+    dtype."""
     w = torch.where(valid, weights, 0.0)
     last = max(w.shape[0] - 1, 0)
     start = torch.clamp(ray_start, 0, last)
     idx = torch.clamp(ray_indices, max=n_rays)
     scan_dtype = w.dtype if w.device.type == "cpu" else torch.float64
+    scan = blocked_cumsum if torch.are_deterministic_algorithms_enabled() \
+        else (lambda x: torch.cumsum(x, 0))
 
     def in_ray_exclusive(x):
-        c = torch.cumsum(x.to(scan_dtype), 0)
+        c = scan(x.to(scan_dtype))
         c_prev = torch.cat([c.new_zeros(1), c[:-1]])
         start_c = torch.where(ray_start == 0, 0.0,
-                              c_prev.index_select(0, start))
-        return (c_prev - torch.cat([start_c, c.new_zeros(1)]).index_select(
-            0, idx)).to(x.dtype)
+                              index_select(c_prev, start))
+        return (c_prev - index_select(torch.cat([start_c, c.new_zeros(1)]),
+                                      idx)).to(x.dtype)
 
     sw = in_ray_exclusive(w)
     swm = in_ray_exclusive(w * t_mids)

@@ -7,7 +7,11 @@ and a run without CUDA and without ``--device cpu`` exit non-zero;
 ``--preset neus_colmap`` raises without ``dataset.root_dir`` and with it
 trains on a capture in COLMAP's layout (shrunk by overrides) in a run
 named after the capture's directory.  Also the dotlist's value
-parser."""
+parser.  ``--config configs/split-smoke.yaml`` trains across the stage
+flip and tests, leaving ``parsed.yaml`` (the JAX package's
+``load_config`` of the same dotlist) and ``raw.yaml`` (the file);
+``--config`` and ``--preset`` exclude each other, and a yaml's ``???``
+left unset raises before anything is written."""
 
 import glob
 import json
@@ -17,7 +21,10 @@ import sys
 
 import numpy as np
 import pytest
+import yaml
 
+from rise_sdf_tpu.config import config_to_primitive, load_config
+from rise_sdf_tpu_torch import launch
 from rise_sdf_tpu_torch.launch import apply_overrides, parse_value
 from test_torch_colmap import write_capture
 from rise_sdf_tpu_torch.utils.saving import load_ply
@@ -150,3 +157,54 @@ def test_neus_colmap_needs_root_dir_and_names_the_run(tmp_path):
         cfg = json.load(f)
     assert cfg["name"] == "neus-colmap-garden"
     assert cfg["model"]["learned_background"] is True
+
+
+SMOKE = os.path.join(ROOT, "configs", "split-smoke.yaml")
+
+
+def test_config_trains_split_smoke_across_the_flip(tmp_path, capsys):
+    """11 steps (the stage flips at 10), then the test protocol, in this
+    process; YAML 1.1 typing in the dotlist (``1.0e-2`` a float)."""
+    exp = str(tmp_path / "exp")
+    cli = ["trainer.max_steps=11", "system.optimizer.args.lr=1.0e-2"]
+    launch.main(["--config", SMOKE, "--train", "--device", "cpu",
+                 "--exp_dir", exp, *cli])
+    out = capsys.readouterr().out
+    (trial,) = glob.glob(os.path.join(exp, "split-smoke", "smoke@*"))
+    assert sorted(os.listdir(os.path.join(trial, "config"))) == [
+        "parsed.yaml", "raw.yaml"]
+    with open(os.path.join(trial, "config", "raw.yaml")) as f, \
+            open(SMOKE) as g:
+        assert f.read() == g.read()
+    with open(os.path.join(trial, "config", "parsed.yaml")) as f:
+        parsed = yaml.safe_load(f)
+    assert parsed.pop("cmd_args")["config"] == SMOKE
+    assert parsed.pop("trial_dir") == trial
+    assert parsed == config_to_primitive(load_config(SMOKE, cli_args=cli))
+    assert isinstance(parsed["system"]["optimizer"]["args"]["lr"], float)
+    assert os.path.exists(os.path.join(trial, "ckpt", "step_11.ckpt.npz"))
+    save = os.path.join(trial, "save")
+    assert {f"{i}{part}.png" for i in range(3) for part in (
+        "", "-albedo", "-pbr")} <= set(os.listdir(os.path.join(
+            save, "it11-test")))
+    assert "phys_psnr" in out  # stage 1's metrics
+
+
+@pytest.mark.parametrize("args,message", [
+    (["--config", SMOKE, "--preset", "tiny_neus_config"], "not allowed"),
+    ([], "one of the arguments --config --preset is required")])
+def test_config_and_preset_exclude_each_other(args, message):
+    res = subprocess.run(
+        [sys.executable, "-m", "rise_sdf_tpu_torch.launch", "--train",
+         "--device", "cpu", *args], cwd=ROOT, capture_output=True,
+        text=True, timeout=120)
+    assert res.returncode != 0 and message in res.stderr
+
+
+def test_config_needs_the_yamls_mandatory_values(tmp_path):
+    with pytest.raises(ValueError, match="dataset.scene"):
+        launch.main(["--config", os.path.join(ROOT, "configs",
+                                               "neus-blender.yaml"),
+                     "--train", "--device", "cpu", "--exp_dir",
+                     str(tmp_path)])
+    assert not any(tmp_path.iterdir())

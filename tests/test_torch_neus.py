@@ -268,7 +268,8 @@ def test_port_imports_no_jax_yaml_or_reference():
         "        'utils.jpeg', 'systems.lpips', 'ops.warp',\n"
         "        'models.scatterer', 'ops.resample', 'ops.grid_sample',\n"
         "        'ops.renderutils_misc', 'ops.rendering_drivers',\n"
-        "        'utils.gif', 'ops.sphere_trace')]\n"
+        "        'utils.gif', 'ops.sphere_trace', 'config', 'utils.yamlio',\n"
+        "        'ops.scatter_sorted')]\n"
         "assert all(m in sys.modules for m in need), need\n"
         "from rise_sdf_tpu_torch.bridge import to_jax_state, from_jax_state\n"
         "print(len([m for m in sys.modules if m.startswith(p.__name__)]))\n")

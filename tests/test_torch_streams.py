@@ -31,9 +31,9 @@ def ray_encode_rows(n_rays, n_samples, seed=0):
     seen = {}
     lookup = hashgrid.table_grad_lookup
 
-    def recording_lookup(table, rows):
+    def recording_lookup(table, rows, *rest):
         seen["rows"] = rows
-        return lookup(table, rows)
+        return lookup(table, rows, *rest)
 
     hashgrid.table_grad_lookup = recording_lookup
     try:
@@ -67,9 +67,9 @@ def probe_encode_rows(n_rays, n_samples, seed=0):
     seen = {}
     lookup = hashgrid.table_grad_lookup
 
-    def recording_lookup(table, rows):
+    def recording_lookup(table, rows, *rest):
         seen["rows"] = rows
-        return lookup(table, rows)
+        return lookup(table, rows, *rest)
 
     hashgrid.table_grad_lookup = recording_lookup
     try:
