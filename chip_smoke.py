@@ -276,14 +276,18 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    CONFIG`` is ``:4096:8`` for the whole run, as torch's deterministic
    mode asks): (a) K2 (``scatter_add_sorted``) on the training, probe
    and background streams recorded by phases 7, 8 and 13 (their
-   cotangents, float32, 2 wide) and on the two gather backwards of the
-   training scan (4096 rays in a 1,048,576-slot buffer, float64, 1 wide):
-   bit-equal across two launches, per entry within 1e-6 of the sum of the
-   magnitudes of its plain version, and timed (median of 10) beside its
-   byte bound, its own sort, K1 at the stream's period and
-   ``index_add_``; (b) under ``torch.use_deterministic_algorithms``:
-   first two flagship steps at stage 0 under ``warn_only``; then
-   ``neus_sphere_full`` trains
+   cotangents, float32, 2 wide, at the encodes' periods 128, 96 and
+   128) and on the two gather backwards of the training scan (4096 rays
+   in a 1,048,576-slot buffer, float64, 1 wide): bit-equal across two
+   launches and to its plain version (the same fixed-point arithmetic in
+   torch ops), its passes run one by one bit-equal to it, per entry
+   within 1e-6 of the sum of the magnitudes of a float64 sum, and timed
+   (medians of CUDA events) whole and pass by pass (zero, range for
+   float64, buckets, scatter, convert) beside its byte bound, K1 at the
+   stream's period, ``index_add_`` and ``index_add_`` under
+   ``torch.use_deterministic_algorithms(True)``; (b) under
+   ``torch.use_deterministic_algorithms``: first two flagship steps at
+   stage 0 under ``warn_only``; then ``neus_sphere_full`` trains
    ``NEUS_DET_STEPS`` steps twice from one seed and once resumed from a
    checkpoint at half way, and phase 8's flagship system
    ``SPLIT_DET_STEPS`` stage-1 steps from step 13,000 twice, each also
@@ -3428,61 +3432,100 @@ SCAN_RAYS, SCAN_SLOTS = 4096, 1048576
 
 def check_time_sorted(torch, scatter, sorted_ops, idx, vals, t, what,
                       period=1):
-    """K2 twice on ``idx``, ``vals``: bit-equal, and per entry within
-    1e-6 of the sum of the magnitudes landing there of its plain version
-    (float64 sums rounded once; the plain one adds with atomics, so the
-    two may round a float64 sum a last bit apart); then median-of-10
-    times of K2, its plain version, ``index_add_`` and, for float32 rows,
-    K1 at the caller's ``period``."""
+    """K2 twice on ``idx``, ``vals`` at the caller's ``period``: bit-equal
+    to each other and to its plain version (the same fixed-point
+    arithmetic in torch ops), its passes run one by one bit-equal to it
+    too, and per entry within 1e-6 of the sum of the magnitudes
+    landing there of a float64 sum; then median-of-10 times of K2, of
+    each of its passes (``scatter_add_sorted_passes``), ``index_add_``
+    and, for float32 rows, K1 at ``period``, and median-of-5 times (2
+    calls each) of its plain version and of ``index_add_`` under
+    ``torch.use_deterministic_algorithms(True)``, torch's own
+    deterministic call for the same function."""
     from rise_sdf_tpu_torch.measure import median_ms
 
-    a = sorted_ops.scatter_add_sorted(idx, vals, t)
-    b = sorted_ops.scatter_add_sorted(idx, vals, t)
+    a = sorted_ops.scatter_add_sorted(idx, vals, t, period)
+    b = sorted_ops.scatter_add_sorted(idx, vals, t, period)
     plain = sorted_ops.scatter_add_sorted_plain(idx, vals, t)
+    out, passes = sorted_ops.scatter_add_sorted_passes(idx, vals, t, period)
+    for launch in passes.values():
+        launch()
+    ref = torch.zeros(plain.shape, dtype=torch.float64,
+                      device=vals.device).index_add_(0, idx.long(),
+                                                     vals.double())
     mag = torch.zeros(plain.shape, dtype=torch.float64,
                       device=vals.device).index_add_(0, idx.long(),
                                                      vals.double().abs())
     torch.cuda.synchronize()
-    err = (a.double() - plain.double()).abs()
+    err = (a.double() - ref).abs()
     bad = int((err > 1e-6 * mag).sum())
+    # the span of the values' binades, and the entries far below the
+    # largest value, where one scale per call would keep too few bits
+    nonzero = vals[torch.isfinite(vals) & (vals != 0)].double().abs()
+    binades = torch.frexp(nonzero).exponent if nonzero.numel() else \
+        torch.zeros(1, dtype=torch.int32)
+    largest = float(nonzero.max()) if nonzero.numel() else 0.0
+    far = int(((mag > 0) & (mag < largest * 2.0 ** -46)).sum())
+    del nonzero
     same = bool(torch.equal(a, b))
-    rec = {"max_abs_err": float(err.max()), "bit_equal": same,
+    same_plain = bool(torch.equal(a, plain))
+    same_passes = bool(torch.equal(a, out))
+    rec = {"max_abs_err": float((a.double() - plain.double()).abs().max()),
+           "max_abs_err_f64": float(err.max()), "bit_equal": same,
+           "bit_equal_plain": same_plain, "bit_equal_passes": same_passes,
            "rows": int(idx.shape[0]), "width": int(vals.shape[1]),
            "dtype": str(vals.dtype).replace("torch.", ""),
-           "table_rows": int(t)}
-    del a, b, plain, mag, err
-    rec["ms"] = median_ms(lambda: sorted_ops.scatter_add_sorted(idx, vals, t))
+           "table_rows": int(t), "period": period,
+           "binades": [int(binades.min()), int(binades.max())],
+           "entries_below_2^-46": far}
+    del a, b, plain, out, ref, mag, err
+    rec["ms"] = median_ms(lambda: sorted_ops.scatter_add_sorted(
+        idx, vals, t, period))
+    rec["pass_ms"] = {name: median_ms(fn) for name, fn in passes.items()}
+    del passes
     rec["plain_ms"] = median_ms(
-        lambda: sorted_ops.scatter_add_sorted_plain(idx, vals, t))
-    rec["library_ms"] = median_ms(lambda: torch.zeros(
-        (t, vals.shape[1]), dtype=vals.dtype, device="cuda").index_add_(
-        0, idx, vals))
+        lambda: sorted_ops.scatter_add_sorted_plain(idx, vals, t), reps=5,
+        inner=2)
+
+    def library():
+        return torch.zeros((t, vals.shape[1]), dtype=vals.dtype,
+                           device="cuda").index_add_(0, idx, vals)
+
+    rec["library_ms"] = median_ms(library)
+    with _Mode(torch, True):
+        rec["library_det_ms"] = median_ms(library, reps=5, inner=2)
     rec["k1_ms"] = median_ms(lambda: scatter.scatter_add(
         idx, vals, t, period)) if vals.dtype == torch.float32 else None
-    rec["sort_ms"] = median_ms(lambda: torch.sort(idx, stable=True))
     rec["bound_ms"] = max(
         (idx.shape[0] * 4 + vals.numel() * vals.element_size()
          + t * vals.shape[1] * vals.element_size()) / HBM_BYTES_PER_S,
         vals.numel() / F32_OPS_PER_S) * 1e3
     rec["bound_by"] = "bytes"
     k1 = f", K1 {rec['k1_ms']:.3f} ms" if rec["k1_ms"] is not None else ""
-    log(f"  a. {what}: K2 {rec['ms']:.3f} ms (its sort alone "
-        f"{rec['sort_ms']:.3f}), plain {rec['plain_ms']:.3f} ms, "
-        f"index_add_ {rec['library_ms']:.3f} ms{k1}, bound "
-        f"{rec['bound_ms']:.4f} ms (bytes; median of 10); bit-equal across "
-        f"launches {same}; max |K2 - plain| {rec['max_abs_err']:.3e}, "
-        f"entries over 1e-6 of the magnitudes {bad}")
-    if not same or bad:
-        fail(f"17a: K2 on the {what}: bit-equal {same}, {bad} entries off "
-             f"its plain version")
+    log(f"  a. {what}: K2 {rec['ms']:.3f} ms (passes: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in rec["pass_ms"].items())
+        + f"), plain {rec['plain_ms']:.3f} ms, index_add_ "
+        f"{rec['library_ms']:.3f} ms, deterministic index_add_ "
+        f"{rec['library_det_ms']:.3f} ms{k1}, bound {rec['bound_ms']:.4f} "
+        f"ms (bytes; medians of 10, the plain and the deterministic "
+        f"index_add_ of 5); bit-equal across launches {same}, to the plain "
+        f"version {same_plain}, pass by pass {same_passes}; max |K2 - "
+        f"float64 sum| {rec['max_abs_err_f64']:.3e}, entries over 1e-6 of "
+        f"the magnitudes {bad}; values in binades {rec['binades']} (frexp's "
+        f"exponents), {far} entries below 2^-46 of the largest value")
+    if not (same and same_plain and same_passes) or bad:
+        fail(f"17a: K2 on the {what}: bit-equal {same}, to its plain "
+             f"version {same_plain}, pass by pass {same_passes}; {bad} "
+             f"entries off a float64 sum")
     return rec
 
 
 def sorted_stream_phase(torch, scatter, sorted_ops, host_streams):
     """17a: K2 on the training, probe and background streams (their
-    cotangents, float32 F = 2, at the encodes' periods), which phases 7,
-    8 and 13 leave in ``host_streams`` as ``name -> (rows, vals, table
-    rows)`` on the host, and on the training scan's two gather backwards
+    cotangents, float32 F = 2, at the encodes' periods, as
+    ``TableGradLookup`` passes them to K2 and K1), which phases 7, 8 and
+    13 leave in ``host_streams`` as ``name -> (rows, vals, table rows)``
+    on the host, and on the training scan's two gather backwards
     (float64 F = 1)."""
     recs = {}
     for name, period in (("train", 128), ("probe", 96),
@@ -4075,8 +4118,8 @@ def main():
         {"name": "scatter_add_sorted (K2)", "route": "cuda",
          "source": SRC_K2, "replaces": REPLACES_K2,
          **{k: k2[k] for k in keys},
-         **{k: k2[k] for k in ("streams", "launches_per_run", "sort_ms",
-                                "k1_ms")}},
+         **{k: k2[k] for k in ("streams", "launches_per_run", "pass_ms",
+                                "library_det_ms", "k1_ms")}},
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

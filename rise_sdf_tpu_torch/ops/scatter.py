@@ -18,7 +18,8 @@ Counterpart of ``rise_sdf_tpu/ops/scatter_pallas.py``.
   the card) whose table-gradient is ``scatter_add``, or with
   ``grad_impl='sorted'`` (and always under
   ``torch.use_deterministic_algorithms(True)``) the deterministic
-  ``scatter_add_sorted`` (K2, ``ops/scatter_sorted.py``).  First-order
+  ``scatter_add_sorted`` (K2, ``ops/scatter_sorted.py``), both walking
+  the same ``period``.  First-order
   in the table, which is all the losses
   need: position gradients flow through the interpolation weights, so
   the table side of the gather is differentiated exactly once even
@@ -127,19 +128,15 @@ class TableGradLookup(torch.autograd.Function):
     def backward(ctx, grad):
         (idx,) = ctx.saved_tensors
         f = grad.shape[-1]
-        if ctx.sorted_grad:
-            d_table = scatter_add_sorted(
-                idx.reshape(-1), grad.reshape(-1, f).float().contiguous(),
-                ctx.table_size)
-            return d_table.to(grad.dtype), None, None
         # the encodes' [N, L_open, 8] corner rows and [N, L_open, 32]
         # probe-neighbourhood rows: one sample's levels per row of the
         # layout, consecutive samples along a ray
         period = idx.shape[-2] * idx.shape[-1] \
             if idx.dim() == 3 and idx.shape[-1] in (8, 32) else 1
-        d_table = scatter_add(idx.reshape(-1),
-                              grad.reshape(-1, f).float().contiguous(),
-                              ctx.table_size, period)
+        scatter_fn = scatter_add_sorted if ctx.sorted_grad else scatter_add
+        d_table = scatter_fn(idx.reshape(-1),
+                             grad.reshape(-1, f).float().contiguous(),
+                             ctx.table_size, period)
         return d_table.to(grad.dtype), None, None
 
 

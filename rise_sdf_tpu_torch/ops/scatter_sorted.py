@@ -5,16 +5,31 @@ Counterpart of the table gradient of ``grad_impl='sorted'`` in
 ``rise_sdf_tpu/ops/hashgrid.py`` (``_encode_sorted_vjp``: argsort, a
 float32 prefix sum, searchsorted), which is XLA ops in the JAX package.
 
-* ``scatter_add_sorted(idx, vals, table_size)``: a zeroed ``[table_size,
-  F]`` table with every ``vals`` row added at its ``idx``, each row's sum
-  taken in float64 in an order fixed by the input alone, so the result
-  repeats bit for bit.  On CUDA tensors it sorts ``idx`` with
-  ``torch.sort(stable=True)`` and launches the hand-written segmented
-  sum ``csrc/scatter_add_sorted.cu`` or raises; on CPU tensors it runs
-  ``scatter_add_sorted_plain``.  ``scatter_add_sorted.launches`` counts
-  kernel launches.
-* ``scatter_add_sorted_plain``: ``index_add_`` in float64, rounded once
-  to ``vals``' dtype.
+* ``scatter_add_sorted(idx, vals, table_size, period=1)``: a zeroed
+  ``[table_size, F]`` table with every ``vals`` row added at its
+  ``idx``, bit-reproducibly.  The sum is exact fixed-point arithmetic:
+  each entry of the table gets a power-of-two scale from the largest
+  magnitude that reaches it (to within a bucket of W binades), every
+  value becomes an integer on its entry's scale, split into a signed
+  high and an unsigned low 32-bit word, and the words are summed as
+  64-bit integers, which is exact in any order; each entry is converted
+  back and rounded once to ``vals``' dtype.  Against the exact sum an
+  entry is within one ulp of that dtype plus ``count * 2^-(93 -
+  bitlen(M) - W)`` of its own largest magnitude (W = 9 for float32:
+  2^-56 at M = 2^27), however far below the call's largest it lies; a
+  row whose sum is -0.0 may come out +0.0.  A NaN or an infinity makes
+  its entry NaN (a NaN, or both infinities) or that infinity, as a
+  float sum would.  On CUDA tensors it launches the hand-written kernel
+  ``csrc/scatter_add_sorted.cu`` (passes: zero the scratch; the range
+  of float64 values; K1's column walk twice, for each entry's bucket
+  and for the sums, with 64-bit atomics; the conversion) or raises; on
+  CPU tensors it runs ``scatter_add_sorted_plain``, which is the same
+  arithmetic in torch ops, so the two are bit-equal.  ``period`` is the
+  row stride of the caller's layout, as K1's: it changes how the kernel
+  walks the entries, not a bit of the result.
+  ``scatter_add_sorted.launches`` counts calls that launched the kernel.
+* ``scatter_add_sorted_plain``: the kernel's arithmetic with
+  ``index_add_`` on int64 tensors.
 * ``index_select(x, idx)``: ``x.index_select(0, idx)``.  Under
   ``torch.use_deterministic_algorithms(True)`` its backward is
   ``scatter_add_sorted`` (torch's is an atomic ``index_add_``), and the
@@ -27,10 +42,20 @@ The port has no switch of its own: it reads torch's,
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
 _LIB = None
+# the most rows of one call: the sums of the low words stay under 2^62,
+# below the two flag bits of their word
+MAX_ROWS = 1 << 30
+# the kernel's passes, as the bits of its ``passes`` argument
+PASSES = {"zero": 1, "range": 2, "buckets": 4, "scatter": 8, "convert": 16}
+# bucket bits in an entry's mask: 32 buckets of W binades each, over all
+# of float32's exponents (W = 9) or over the range of the call's finite
+# nonzero float64 magnitudes
+_BUCKETS = 32
 
 
 def _lib():
@@ -40,33 +65,119 @@ def _lib():
 
         lib = load_library("scatter_add_sorted")
         lib.rise_scatter_add_sorted.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
-            ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_longlong, ctypes.c_void_p]
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
+            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_void_p]
         lib.rise_scatter_add_sorted.restype = ctypes.c_int
-        lib.rise_scatter_add_sorted_workspace.argtypes = [ctypes.c_longlong]
-        lib.rise_scatter_add_sorted_workspace.restype = ctypes.c_longlong
+        lib.rise_scatter_add_sorted_words.argtypes = [ctypes.c_longlong,
+                                                      ctypes.c_int]
+        lib.rise_scatter_add_sorted_words.restype = ctypes.c_longlong
         lib.rise_scatter_add_sorted_error_string.argtypes = [ctypes.c_int]
         lib.rise_scatter_add_sorted_error_string.restype = ctypes.c_char_p
         _LIB = lib
     return _LIB
 
 
+def _pow2(k: torch.Tensor) -> torch.Tensor:
+    """``2^k`` as float64 from its bits, for int64 ``k`` in [-1022,
+    1023]."""
+    return ((k + 1023) << 52).view(torch.float64)
+
+
+def _times_pow2(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """``x * 2^k`` as the kernel takes it: two power-of-two products,
+    ``2^k1`` (``k`` clamped to [-1000, 1000]) and then ``2^(k - k1)``,
+    each a float64 multiply."""
+    k1 = k.clamp(-1000, 1000)
+    return x * _pow2(k1) * _pow2(k - k1)
+
+
 def scatter_add_sorted_plain(idx: torch.Tensor, vals: torch.Tensor,
                              table_size: int) -> torch.Tensor:
-    """Plain PyTorch version: ``zeros([T, F], float64).index_add_(0, idx,
-    vals)`` rounded to ``vals``' dtype."""
-    return torch.zeros((table_size, vals.shape[-1]), dtype=torch.float64,
-                       device=vals.device).index_add_(
-        0, idx.long(), vals.double()).to(vals.dtype)
+    """Plain PyTorch version, bit-equal to the kernel (its header has the
+    arithmetic): each entry's scale from the range of the call and the
+    bucket of its largest value, every value quantised on its entry's
+    scale, ``index_add_`` of the high and the low words as int64, each
+    entry converted back and rounded once to ``vals``' dtype."""
+    m, f = vals.shape
+    table = (table_size, f)
+    dev = vals.device
+    if vals.numel() == 0:
+        return torch.zeros(table, dtype=vals.dtype, device=dev)
+    finite = torch.isfinite(vals)
+    x = torch.where(finite, vals, 0).double()
+    nonzero = x != 0
+    if vals.dtype == torch.float32:
+        e_hi, width = 128, 9
+    else:
+        a = x.abs()
+        e_hi = math.frexp(float(a.max()))[1]
+        e_lo = math.frexp(float(a[nonzero].min()))[1] \
+            if bool(nonzero.any()) else e_hi
+        width = (e_hi - e_lo + _BUCKETS) // _BUCKETS
+        del a
+    # frexp's exponent e: |x| < 2^e
+    bucket = torch.where(nonzero, ((e_hi - torch.frexp(x).exponent.long())
+                                   // width).clamp(max=_BUCKETS - 1),
+                         _BUCKETS)
+    rows = idx.long()
+    least = torch.full(table, _BUCKETS, dtype=torch.int64,
+                       device=dev).scatter_reduce_(
+        0, rows[:, None].expand(m, f), bucket, "amin")
+    del bucket
+    shift = (94 - m.bit_length()) - (e_hi - width * torch.where(
+        least == _BUCKETS, 0, least))
+    q = _times_pow2(x, shift[rows]).round_()
+    del x
+    hi = (q * 2.0 ** -32).floor_()
+    lo = q.sub_(hi * 2.0 ** 32).long()
+    words = [torch.zeros(table, dtype=torch.int64, device=dev).index_add_(
+        0, rows, w) for w in (hi.long(), lo)]
+    del q, hi, lo
+    high = words[0] + (words[1] >> 32)
+    d = high.double() * 2.0 ** 32 + (words[1] & 0xffffffff).double()
+    out = _times_pow2(d, -shift).to(vals.dtype)
+    if not bool(finite.all()):
+        nan = torch.isnan(vals)
+        pos, neg = (torch.zeros(table, dtype=torch.int64, device=dev
+                                ).index_add_(0, rows, (nan | (vals == inf))
+                                             .long()) > 0
+                    for inf in (math.inf, -math.inf))
+        out = out.masked_fill(pos, math.inf).masked_fill(neg, -math.inf) \
+            .masked_fill(pos & neg, math.nan)
+    return out
 
 
 def scatter_add_sorted(idx: torch.Tensor, vals: torch.Tensor,
-                       table_size: int) -> torch.Tensor:
-    """idx [M] int32 in [0, table_size); vals [M, F] float32 or float64
-    -> [table_size, F] of vals' dtype, bit-reproducible.  Launches on the
-    current stream and does not synchronise."""
+                       table_size: int, period: int = 1) -> torch.Tensor:
+    """idx [M] int32 in [0, table_size), M <= ``MAX_ROWS``; vals [M, F]
+    float32 or float64 -> [table_size, F] of vals' dtype,
+    bit-reproducible.  ``period`` >= 1: entry ``n * period + j`` of
+    ``idx`` is row ``n``, column ``j`` of the caller's layout.  Launches
+    on the current stream and does not synchronise."""
+    out, run = _prepare(idx, vals, table_size, period)
+    if run is None:
+        return out
+    run(31)
+    scatter_add_sorted.launches += 1
+    return out
+
+
+scatter_add_sorted.launches = 0
+
+
+def _prepare(idx, vals, table_size, period):
+    """Check the arguments; -> (the output, None) on the CPU or for an
+    empty table, else (the output, ``run(passes)``, which launches the
+    kernel's passes named by the bits of ``passes`` into it and raises
+    if a launch fails)."""
+    if isinstance(period, bool) or not isinstance(period, int):
+        raise TypeError(f"scatter_add_sorted takes an int period, got "
+                        f"{period!r}")
+    if period < 1:
+        raise ValueError(f"scatter_add_sorted takes a period >= 1, got "
+                         f"{period}")
     if idx.dtype != torch.int32 or vals.dtype not in (torch.float32,
                                                       torch.float64):
         raise TypeError(f"scatter_add_sorted takes int32 idx and float32 or "
@@ -74,40 +185,58 @@ def scatter_add_sorted(idx: torch.Tensor, vals: torch.Tensor,
     if idx.dim() != 1 or vals.dim() != 2 or vals.shape[0] != idx.shape[0]:
         raise ValueError(f"scatter_add_sorted takes idx [M] and vals [M, F], "
                          f"got {tuple(idx.shape)} and {tuple(vals.shape)}")
+    if idx.shape[0] > MAX_ROWS:
+        raise ValueError(f"scatter_add_sorted takes at most {MAX_ROWS} rows, "
+                         f"got {idx.shape[0]}")
     if not (idx.is_contiguous() and vals.is_contiguous()):
         raise ValueError("scatter_add_sorted takes contiguous idx and vals")
     if idx.device != vals.device:
         raise ValueError(f"idx on {idx.device}, vals on {vals.device}")
     if idx.device.type == "cpu":
-        return scatter_add_sorted_plain(idx, vals, table_size)
+        return scatter_add_sorted_plain(idx, vals, table_size), None
     if idx.device.type != "cuda":
         raise ValueError(f"scatter_add_sorted runs on cpu or cuda, not "
                          f"{idx.device}")
     m, f = vals.shape
-    out = torch.zeros((table_size, f), dtype=vals.dtype, device=vals.device)
-    if m == 0 or f == 0:
-        return out
+    if f == 0 or table_size == 0:
+        return torch.zeros((table_size, f), dtype=vals.dtype,
+                           device=vals.device), None
     lib = _lib()
-    keys, order = torch.sort(idx, stable=True)
-    half = lib.rise_scatter_add_sorted_workspace(m)
-    ws_keys = torch.empty(2 * half, dtype=torch.int32, device=vals.device)
-    ws_vals = torch.empty(2 * half * f, dtype=torch.float64,
-                          device=vals.device)
-    with torch.cuda.device(vals.device):
-        stream = torch.cuda.current_stream(vals.device).cuda_stream
-        rc = lib.rise_scatter_add_sorted(
-            keys.data_ptr(), order.data_ptr(), vals.data_ptr(),
-            int(vals.dtype == torch.float64), m, f, out.data_ptr(),
-            table_size, ws_keys.data_ptr(), ws_vals.data_ptr(), half, stream)
-    if rc != 0:
-        raise RuntimeError("scatter_add_sorted kernel launch failed: "
-                           + lib.rise_scatter_add_sorted_error_string(
-                               rc).decode())
-    scatter_add_sorted.launches += 1
-    return out
+    out = torch.empty((table_size, f), dtype=vals.dtype, device=vals.device)
+    words = torch.empty(lib.rise_scatter_add_sorted_words(table_size, f),
+                        dtype=torch.int64, device=vals.device)
+
+    def run(passes):
+        with torch.cuda.device(vals.device):
+            stream = torch.cuda.current_stream(vals.device).cuda_stream
+            rc = lib.rise_scatter_add_sorted(
+                idx.data_ptr(), vals.data_ptr(),
+                int(vals.dtype == torch.float64), m, f, period,
+                out.data_ptr(), table_size, words.data_ptr(), passes, stream)
+        if rc != 0:
+            raise RuntimeError(
+                "scatter_add_sorted kernel launch failed: "
+                + lib.rise_scatter_add_sorted_error_string(rc).decode())
+
+    return out, run
 
 
-scatter_add_sorted.launches = 0
+def scatter_add_sorted_passes(idx: torch.Tensor, vals: torch.Tensor,
+                              table_size: int, period: int = 1):
+    """The kernel's passes one by one, for timing them (CUDA tensors): ->
+    ``(out, {name: launch})`` over the ``PASSES`` that ``vals``' dtype
+    runs (float32 has no range pass), each ``launch()`` running that
+    pass alone into ``out`` and one scratch table; run once each in that
+    order they leave ``scatter_add_sorted``'s result in ``out``.  Not
+    counted in ``scatter_add_sorted.launches``."""
+    if idx.device.type != "cuda":
+        raise ValueError("the kernel's passes run on CUDA tensors")
+    out, run = _prepare(idx, vals, table_size, period)
+    if run is None:
+        raise ValueError("an empty table has no passes to run")
+    return out, {name: (lambda bit=bit: run(bit))
+                 for name, bit in PASSES.items()
+                 if name != "range" or vals.dtype == torch.float64}
 
 
 class _Select(torch.autograd.Function):

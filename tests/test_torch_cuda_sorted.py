@@ -14,8 +14,8 @@ import torch
 
 from rise_sdf_tpu_torch import datasets, presets, systems
 from rise_sdf_tpu_torch.ops import scatter
-from rise_sdf_tpu_torch.ops.scatter_sorted import (index_select,
-                                                   scatter_add_sorted)
+from rise_sdf_tpu_torch.ops.scatter_sorted import (
+    index_select, scatter_add_sorted, scatter_add_sorted_plain)
 from test_torch_streams import probe_encode_rows, ray_encode_rows
 
 pytestmark = pytest.mark.cuda
@@ -41,17 +41,26 @@ def deterministic():
         torch.use_deterministic_algorithms(was, warn_only=warn)
 
 
-def _check(idx, vals, t):
-    """K2 twice: bit-equal, one launch each, and per entry within 1e-6
-    of a float64 sum (float32: K2 rounds its float64 sum once) or within
-    1e-13 of the sum of the magnitudes (float64, added in another
-    order)."""
+def _same_bits(a, b):
+    """Equal bit for bit, NaNs compared by place (their payloads are the
+    kernel's and the plain version's own constants)."""
+    nan = torch.isnan(a)
+    return bool(torch.equal(nan, torch.isnan(b))) and bool(
+        torch.equal(a[~nan], b[~nan]))
+
+
+def _check(idx, vals, t, period=1):
+    """K2 twice: bit-equal to each other and to its plain version, one
+    launch each, and per entry within 1e-6 of a float64 sum (float32: K2
+    rounds its exact sum once) or within 1e-13 of the sum of the
+    magnitudes (float64, added in another order)."""
     before = scatter_add_sorted.launches
-    a = scatter_add_sorted(idx, vals, t)
-    b = scatter_add_sorted(idx, vals, t)
+    a = scatter_add_sorted(idx, vals, t, period)
+    b = scatter_add_sorted(idx, vals, t, period)
     torch.cuda.synchronize()
     assert scatter_add_sorted.launches == before + 2
     assert torch.equal(a, b)
+    assert torch.equal(a, scatter_add_sorted_plain(idx, vals, t))
     ref = torch.zeros((t, vals.shape[1]), dtype=torch.float64,
                       device=vals.device).index_add_(0, idx.long(),
                                                      vals.double())
@@ -82,6 +91,69 @@ def test_sorted_scatter_on_encode_rows(cuda, stream):
     idx = rows.reshape(-1).to(cuda)
     vals = torch.randn((idx.shape[0], 2), device=cuda)
     _check(idx, vals, t)
+    _check(idx, vals, t, rows.shape[-2] * rows.shape[-1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_sorted_scatter_non_finite_rows(cuda, dtype):
+    """NaN, +Inf, -Inf and both infinities, alone and among finite
+    values, in float32 and float64: the kernel bit-equal to its plain
+    version and to what a float sum gives, across launches."""
+    inf, nan = float("inf"), float("nan")
+    idx = torch.tensor([0, 0, 1, 1, 2, 3, 3, 4, 5, 5, 6], dtype=torch.int32,
+                       device=cuda).repeat(40)
+    col = torch.tensor([1.5, nan, inf, 2.0, -inf, inf, -inf, 0.25, -inf,
+                        -inf, 3.0], dtype=dtype, device=cuda).repeat(40)
+    vals = torch.stack([col, col.flip(0)], 1).contiguous()
+    a = scatter_add_sorted(idx, vals, 8, 11)
+    b = scatter_add_sorted(idx, vals, 8, 11)
+    torch.cuda.synchronize()
+    assert _same_bits(a, b)
+    assert _same_bits(a, scatter_add_sorted_plain(idx, vals, 8))
+    want = torch.zeros((8, 2), dtype=torch.float64,
+                       device=cuda).index_add_(0, idx.long(),
+                                               vals.double()).to(dtype)
+    assert torch.equal(torch.isnan(a), torch.isnan(want))
+    assert torch.equal(a[~torch.isnan(a)], want[~torch.isnan(want)])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_sorted_scatter_wide_range(cuda, dtype):
+    """Values over 120 binades, as a cotangent far from convergence has
+    them: each entry takes its own scale, so every entry, however far
+    below the largest, stays within 1e-6 of its magnitudes of a float64
+    sum, and the kernel is bit-equal to its plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(21)
+    idx = torch.randint(0, 5000, (400000,), generator=gen, device=cuda,
+                        dtype=torch.int32)
+    spread = torch.exp2(-(idx.double() % 120) + 40)[:, None]
+    vals = (torch.randn((400000, 2), generator=gen, device=cuda,
+                        dtype=torch.float64) * spread).to(dtype)
+    _check(idx, vals, 5000, 8)
+    ref = torch.zeros((5000, 2), dtype=torch.float64,
+                      device=cuda).index_add_(0, idx.long(), vals.double())
+    mag = torch.zeros_like(ref).index_add_(0, idx.long(),
+                                           vals.double().abs())
+    got = scatter_add_sorted(idx, vals, 5000, 8).double()
+    assert bool(((got - ref).abs() <= 1e-6 * mag).all())
+
+
+@pytest.mark.parametrize("value", [2.0 ** -120, 3.0e38, 2.0 ** -1074],
+                         ids=["tiny", "largest_f32", "f64_subnormal"])
+def test_sorted_scatter_extreme_magnitudes(cuda, value):
+    """The scale at the ends of the range: the kernel bit-equal to its
+    plain version, and a lone value comes back exactly."""
+    for dtype in (torch.float32, torch.float64):
+        v = torch.tensor(value, dtype=dtype)
+        if v.item() == 0.0:
+            continue  # below float32's range
+        idx = torch.tensor([3, 3, 1, 3], dtype=torch.int32, device=cuda)
+        vals = torch.tensor([[0.0], [v.item()], [-v.item()], [0.0]],
+                            dtype=dtype, device=cuda)
+        a = scatter_add_sorted(idx, vals, 5)
+        torch.cuda.synchronize()
+        assert torch.equal(a, scatter_add_sorted_plain(idx, vals, 5))
+        assert a[3, 0].item() == v.item() and a[1, 0].item() == -v.item()
 
 
 def test_sorted_lookup_launches_k2_not_k1(cuda):

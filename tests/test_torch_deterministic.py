@@ -40,9 +40,9 @@ def deterministic(monkeypatch):
     calls = []
 
     def record(real):
-        def sorted_scatter(idx, vals, n):
+        def sorted_scatter(idx, vals, n, *period):
             calls.append((vals.shape[0], vals.shape[1], vals.dtype))
-            return real(idx, vals, n)
+            return real(idx, vals, n, *period)
         return sorted_scatter
 
     def k1(*args, **kw):
