@@ -73,8 +73,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 9. test protocol: ``SplitOccSystem.test`` on the stage-1 state that
    phase 8 leaves (step 13031), at ``split_mixed_occ_test_full``: the
    calibrated compaction fractions, then ``--test-views`` 800x800 test
-   views (1) under the learned light and the ``warm`` and ``bright``
-   environments in one geometry pass per chunk (``forward_multi``, the
+   views (1) under the learned light and the ``TEST_LIGHTS``
+   environment (``warm``; the preset's ``bright`` is cut for time)
+   in one geometry pass per chunk (``forward_multi``, the
    third bounce on); then view 0 again
    in single-light mode, one render per light
    (``rise_sdf_tpu_torch.measure.test_protocol``).  The counts are
@@ -312,6 +313,30 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    and ``neus_blender`` with the same dotlist (but for the two entries
    the yaml derives from ``trainer.max_steps``).
 
+Phase 18 is hash-table row sharding (``system.table_shards``, JAX's
+``model`` mesh axis): (a) K1, G1 and K2 on the training and probe
+streams cut as shards 0 and 1 of 2 (a row outside the shard absent,
+-1), each against its plain version (K1 to the float64 reference's
+per-entry bound, G1 and K2 bit for bit) and timed, with a bound of the
+bytes of every index, the present rows' values and the shard's table;
+(b) the flagship at full width with ``table_shards: 2`` on two ranks
+(gloo sharing the card, NCCL one card a rank with two or more;
+data=1 x model=2) for ``TABLE_SHARD_STEPS`` stage-1 steps from a
+one-process state ``SHARD_PRE_STEPS`` steps past step 13,000
+(``measure.table_shard_window``): the first step's reduced gradients
+against a one-process step on the same batch (the table as the shards'
+rows joined) within ``SHARD_GRAD_TOL`` of each tensor's largest entry
+or ``SHARD_SPREAD`` times the spread of ``SHARD_REFS`` one-process
+steps, the
+replicated parameters bit-equal on the ranks, K1's
+and G1's launches per rank and step, the checkpoint written at tp=2
+loaded into one process bit-equal to the ranks' gathered state,
+``VAL_CHUNKS`` chunks of validation view 0 against the one-process
+render within ``SHARD_RENDER_TOL``, and the export's vertex count (at
+``EXPORT_RES``^3, cut from 512 for time) equal to the one-process
+export's; (c) ``dryrun_multichip(4)`` on four gloo ranks sharing the
+card, which takes data=2 x model=2.
+
 ``--save-streams FILE`` saves both recorded streams for the same-call
 A/B against another tree, ``python -m rise_sdf_tpu_torch.kernel_ab``
 (``_ab/streams.pt``, about 1.7 GB, in the gitignored ``_ab/``).
@@ -324,7 +349,9 @@ phase 13's training and renders, with their times on its background
 stream, in phase 14's two training windows and test run, and in phase
 15's NeuS training, its validation and the ``volume-pbr`` run, and in
 phase 16's three parts; K2's entry carries its times on each stream of
-17a and its launches in each run of 17b) and
+17a and its launches in each run of 17b; all three carry their records
+on 18a's shard streams and K1's and G1's their launches per rank in
+18b) and
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the package
 beside it, the script exits non-zero and prints no result.
 """
@@ -354,6 +381,10 @@ REPLACES_G1 = ("scripts/pallas_gather_bench.py:79 (S2), "
                "scripts/pallas_gather_bench.py:128 (S3), "
                "scripts/r5_gather_width_bench.py:52 (S4)")
 F = 2
+# the relight lights of phases 9 and 16c's test protocols: one of the
+# preset's two (cut for time: each light is a full render in
+# single-light mode)
+TEST_LIGHTS = ("warm",)
 # the render chunk whose hash encode is recorded (of 157)
 RENDER_CHUNK = 78
 # the card's memory rate for the bounds (H100 SXM, 3.35 TB/s); scatter
@@ -1051,7 +1082,8 @@ def test_protocol_phase(torch, gather, scatter, system, state, views):
     gather.gather_rows.launches = 0
     scatter.scatter_add.launches = 0
     t0 = time.perf_counter()
-    res = measure.test_protocol(system, state, views=views, log=log)
+    res = measure.test_protocol(system, state, views=views, log=log,
+                                relights=TEST_LIGHTS)
     phase_s = time.perf_counter() - t0
     g1, k1 = gather.gather_rows.launches, scatter.scatter_add.launches
     gifs = check_test_gifs(os.path.join("exp", "test_protocol"),
@@ -1067,8 +1099,9 @@ def test_protocol_phase(torch, gather, scatter, system, state, views):
         gifs
 
 
-def check_protocol(res):
-    """Print and check ``measure.test_protocol``'s result: every metric
+def check_protocol(res, lights=TEST_LIGHTS):
+    """Print and check ``measure.test_protocol``'s result under the
+    relight ``lights``: every metric
     finite, no ray dropped, G1 launching and K1 not in either mode, and
     the single-light view 0 within 1e-3 of the multi-emitter render in
     its metrics and 1e-4 in its images."""
@@ -1088,7 +1121,7 @@ def check_protocol(res):
     want = {"psnr", "phys_psnr", "phys_ssim", "albedo_psnr", "albedo_ssim",
             "roughness_psnr", "normal_mae", "dropped_rays"} | {
         f"relight_{m}_{light}" for m in ("psnr", "ssim")
-        for light in ("warm", "bright")}
+        for light in lights}
     for run in (multi, single):
         if set(run["metrics"]) != want or not all(
                 np.isfinite(v) for v in run["metrics"].values()):
@@ -3388,7 +3421,8 @@ def surface_test_phase(torch, gather, scatter, system, state):
             variance.fill_(bench.VARIANCE)
         res = measure.test_protocol(system, sharp, views=SURFACE_VIEWS,
                                     log=log,
-                                    model={"eval_mode": "sphere_trace"})
+                                    model={"eval_mode": "sphere_trace"},
+                                    relights=TEST_LIGHTS)
     finally:
         with torch.no_grad():
             variance.copy_(soft)
@@ -3525,14 +3559,14 @@ def sorted_stream_phase(torch, scatter, sorted_ops, host_streams):
     cotangents, float32 F = 2, at the encodes' periods, as
     ``TableGradLookup`` passes them to K2 and K1), which phases 7, 8 and
     13 leave in ``host_streams`` as ``name -> (rows, vals, table rows)``
-    on the host, and on the training scan's two gather backwards
-    (float64 F = 1)."""
+    on the host (phase 18a reads the first two again), and on the
+    training scan's two gather backwards (float64 F = 1)."""
     recs = {}
     for name, period in (("train", 128), ("probe", 96),
                          ("background", 128)):
         if name not in host_streams:
             fail(f"17a: no {name} stream was recorded")
-        rows, vals, t = host_streams.pop(name)
+        rows, vals, t = host_streams[name]
         idx, vals = rows.reshape(-1).cuda(), vals.cuda()
         recs[name] = check_time_sorted(
             torch, scatter, sorted_ops, idx, vals, t,
@@ -3844,6 +3878,290 @@ def config_phase(torch, scatter, gather, sorted_ops, scene_root, root):
     return rec
 
 
+# phase 18: hash-table row sharding.  (b) starts from a one-process
+# state SHARD_PRE_STEPS stage-1 steps in (at the fresh init the table
+# takes no gradient).  Its tolerances: the first step's reduced
+# gradients against a one-process step on the same batch, per tensor,
+# SHARD_GRAD_TOL of its largest entry, or SHARD_SPREAD times the
+# largest spread of SHARD_REFS one-process steps where that is larger:
+# the card's atomics reorder every step's sums, and the geometry MLP's
+# finite-difference gradients amplify that until two one-process steps
+# differ by about their largest entry (the shards' features are summed
+# in another order as well; PERF.md has the numbers); the
+# partial validation view against the one-process render, absolute, as
+# phase 11 holds its sharded view
+SHARD_PRE_STEPS = 16
+SHARD_REFS = 3
+SHARD_GRAD_TOL = 1e-2
+SHARD_SPREAD = 4.0
+SHARD_RENDER_TOL = 2e-3
+SHARDS = 2
+
+
+def shard_rows(torch, idx, table_rows, m, tp=SHARDS):
+    """Rows ``idx`` of a flattened ``[L * T, F]`` table (level l's row
+    ``r`` at ``l T + r``) as shard ``m`` of ``tp`` holds them: level l's
+    row ``l T / tp + r - m T / tp`` when that shard owns ``r``, else
+    absent (-1), as ``HashGridEncoding._lookup`` builds them."""
+    from rise_sdf_tpu_torch.measure import LOG2_T
+
+    t = 1 << LOG2_T
+    rows = t // tp
+    level, r = idx // t, idx % t - m * rows
+    return torch.where((r >= 0) & (r < rows), level * rows + r,
+                       -1).to(torch.int32), table_rows // tp
+
+
+def shard_stream_phase(torch, scatter, gather, sorted_ops, host_streams):
+    """18a: K1, G1 and K2 on the training and probe streams cut as shards
+    0 and 1 of ``SHARDS`` (module docstring).  Returns each kernel's
+    records by stream and shard."""
+    from rise_sdf_tpu_torch.measure import median_ms
+
+    recs = {"k1": {}, "g1": {}, "k2": {}}
+    for name, period in (("train", 128), ("probe", 96)):
+        rows, vals_h, t = host_streams.pop(name)
+        idx_full, vals = rows.reshape(-1).cuda(), vals_h.cuda()
+        del rows, vals_h
+        m_all = idx_full.shape[0]
+        for m in range(SHARDS):
+            idx, ts = shard_rows(torch, idx_full, t, m)
+            keep = idx >= 0
+            present = int(keep.sum())
+            p_idx, p_vals = idx[keep], vals[keep]
+            what = (f"{name} stream, shard {m} of {SHARDS} ({m_all} rows, "
+                    f"{present} present, into {ts} x {F}, P = {period})")
+            # K1 against the float64 reference of the present rows
+            got = scatter.scatter_add(idx, vals, ts, period)
+            torch.cuda.synchronize()
+            k1 = {"max_abs_err": check_scatter(torch, got, p_idx, p_vals,
+                                               ts, f"18a. K1 on the {what}")}
+            del got
+            k1["ms"] = median_ms(lambda: scatter.scatter_add(
+                idx, vals, ts, period))
+            k1["plain_ms"] = median_ms(lambda: scatter.scatter_add_plain(
+                idx, vals, ts), reps=3, inner=1)
+            # index_add_ of the present rows (no torch call drops an
+            # index), timed without the filter
+            k1["library_ms"] = median_ms(lambda: torch.zeros(
+                (ts, F), device="cuda").index_add_(0, p_idx, p_vals))
+            bound_bytes = m_all * 4 + present * F * 4 + ts * F * 4
+            k1["bound_ms"] = max(bound_bytes / HBM_BYTES_PER_S,
+                                 present * F / F32_OPS_PER_S) * 1e3
+            k1["bound_by"] = "bytes"
+            # G1 on a shard table, bit for bit
+            table = torch.randn((ts, F), device="cuda",
+                                generator=torch.Generator(
+                                    device="cuda").manual_seed(18 + m))
+            got = gather.gather_rows(table, idx)
+            want = gather.gather_rows_plain(table, idx)
+            torch.cuda.synchronize()
+            equal = torch.equal(got.view(torch.int32),
+                                want.view(torch.int32))
+            del got, want
+            distinct = int(torch.unique(p_idx).numel())
+            g1 = {"max_abs_err": 0.0, "bit_equal": equal,
+                  "ms": median_ms(lambda: gather.gather_rows(table, idx)),
+                  "plain_ms": median_ms(lambda: gather.gather_rows_plain(
+                      table, idx), reps=3, inner=1),
+                  "library_ms": None,
+                  "bound_ms": (m_all * 4 + distinct * F * 4 + m_all * F * 4)
+                  / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+            del table
+            # K2 bit for bit against its plain version
+            a = sorted_ops.scatter_add_sorted(idx, vals, ts, period)
+            plain = sorted_ops.scatter_add_sorted_plain(idx, vals, ts)
+            torch.cuda.synchronize()
+            same = bool(torch.equal(a, plain))
+            k2 = {"max_abs_err": float((a - plain).abs().max()),
+                  "bit_equal_plain": same,
+                  "ms": median_ms(lambda: sorted_ops.scatter_add_sorted(
+                      idx, vals, ts, period)),
+                  "plain_ms": median_ms(
+                      lambda: sorted_ops.scatter_add_sorted_plain(
+                          idx, vals, ts), reps=3, inner=1),
+                  "library_ms": None, "bound_ms": k1["bound_ms"],
+                  "bound_by": "bytes"}
+            del a, plain, p_idx, p_vals
+            log(f"  a. {what}: K1 {k1['ms']:.3f} ms (plain "
+                f"{k1['plain_ms']:.3f}, index_add_ of the present rows "
+                f"{k1['library_ms']:.3f}); G1 {g1['ms']:.4f} ms (plain "
+                f"{g1['plain_ms']:.4f}; {distinct} distinct rows), bit-equal "
+                f"{equal}; K2 {k2['ms']:.3f} ms (plain {k2['plain_ms']:.3f}),"
+                f" bit-equal to its plain version {same}; bound "
+                f"{k1['bound_ms']:.4f} ms scatter, {g1['bound_ms']:.4f} ms "
+                f"gather (bytes; medians of 10, the plain of 3)")
+            if not (equal and same):
+                fail(f"18a: on the {what}: G1 bit-equal {equal}, K2 "
+                     f"bit-equal {same}")
+            key = f"{name}_shard{m}"
+            recs["k1"][key], recs["g1"][key], recs["k2"][key] = k1, g1, k2
+            del idx, keep
+        del idx_full, vals
+        torch.cuda.empty_cache()
+    return recs
+
+
+def table_shard_phase(torch):
+    """18b and 18c (module docstring).  Returns the window's record."""
+    from rise_sdf_tpu_torch import bridge, datasets, measure, systems
+    from rise_sdf_tpu_torch.parallel import dryrun
+    from rise_sdf_tpu_torch.presets import split_mixed_occ_train_full
+
+    world, backend = (SHARDS, "nccl") if torch.cuda.device_count() >= 2 \
+        else (SHARDS, "gloo")
+    out = os.path.join("exp", "chip_smoke_shards")
+    shutil.rmtree(out, ignore_errors=True)
+    torch.cuda.empty_cache()
+    cfg = split_mixed_occ_train_full()
+    cfg["model"]["geometry"]["isosurface"]["resolution"] = \
+        measure.EXPORT_RES
+    seed = int(cfg["seed"])
+    dm = datasets.make(cfg["dataset"]["name"], cfg["dataset"])
+    one = systems.make(cfg["system"]["name"], cfg, dm,
+                       save_dir=os.path.join(out, "one"), device="cuda")
+    state = one.init_state(seed)
+    state["step"] = measure.SPLIT_STAGE1_STEP
+    state = one.fit(max_steps=measure.SPLIT_STAGE1_STEP + SHARD_PRE_STEPS,
+                    seed=seed, state=state, log_every=0)
+    ckpt = one.save_checkpoint(state, os.path.join(out, "pre.ckpt.npz"))
+    start = int(state["step"])
+    del state
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    ranks = measure.table_shard_window(world, backend, out, ckpt=ckpt)
+    window_s = time.perf_counter() - t0
+    for r in ranks:
+        k1s, g1s = zip(*r["launches_per_step"])
+        log(f"  b. rank {r['rank']} ({backend}, {r['device']}, data="
+            f"{r['mesh'][0]} x model={r['mesh'][1]}): {r['steps']} steps from "
+            f"{start} in {r['fit_s']:.1f} s, {r['steps_per_s']:.3f} steps/s "
+            f"after the first; K1/G1 launches per step {list(k1s)}/"
+            f"{list(g1s)}; all-reduce per step {r['allreduce_mb_model']:.1f} "
+            f"MB of features over the model group, "
+            f"{r['allreduce_mb_world']:.1f} MB of replicated gradients over "
+            f"the world; peak {r['peak_gib']:.2f} GiB; replicated params and "
+            f"grid bit-equal {r['params_equal']}; {measure.VAL_CHUNKS} "
+            f"validation chunks in {r['val_s']:.1f} s (K1/G1 "
+            f"{r['val_launches']}); export in {r['export_s']:.1f} s, "
+            f"{r['vertices']} vertices")
+        if r["skipped"] or not np.all(np.isfinite(r["losses"])):
+            fail(f"18b: rank {r['rank']}: losses {r['losses']}, skipped "
+                 f"{r['skipped']}")
+        if min(k1s) < 1 or min(g1s) < 1:
+            fail(f"18b: rank {r['rank']}: a step without a K1 or G1 launch")
+        if not r["params_equal"]:
+            fail("18b: the ranks' replicated params differ")
+    log(f"  b. the window with the ranks' start: {window_s:.1f} s")
+
+    # one-process steps on the same batch from the same state
+    steps = []
+    for _ in range(SHARD_REFS):
+        grads = {}
+        state = one.load_checkpoint(ckpt)
+        one.fit(max_steps=start + 1, seed=seed, state=state, log_every=1,
+                on_log=lambda step, m: grads.update(
+                    {k: p.grad.double().cpu() for k, p in
+                     one.model.named_parameters()}))
+        steps.append(grads)
+    got = bridge.gather_params([
+        {bridge.jax_path(k): v.numpy() for k, v in torch.load(
+            os.path.join(out, f"grads{r}.pt")).items()}
+        for r in range(SHARDS)])
+    worst, rows = None, {}
+    for k, a in steps[0].items():
+        refs = [r[k].numpy() for r in steps]
+        a = refs[0]
+        scale = max(float(np.abs(a).max()), 1e-30)
+        err = float(np.abs(got[bridge.jax_path(k)] - a).max()) / scale
+        spread = max(float(np.abs(x - y).max()) for i, x in enumerate(refs)
+                     for y in refs[i + 1:]) / scale
+        bound = max(SHARD_GRAD_TOL, SHARD_SPREAD * spread)
+        rows[k] = [err, spread]
+        if worst is None or err / bound > worst[1] / worst[3]:
+            worst = (k, err, spread, bound)
+    del steps, got, one
+    torch.cuda.empty_cache()
+    table = rows["geometry.encoding.encoding.table"]
+    rounded = {k: [float(f"{x:.3e}") for x in v] for k, v in rows.items()}
+    log(f"  b. step {start}'s reduced gradients (tables joined from the "
+        f"shards) against a one-process step on the same batch, per tensor "
+        f"|difference| / its largest entry, beside {SHARD_REFS} one-process "
+        f"steps' largest spread: the table {table[0]:.3e} (spread {table[1]:.3e}); the "
+        f"closest to its bound {worst[0]} {worst[1]:.3e} (spread "
+        f"{worst[2]:.3e}, bound {worst[3]:.3e}); all {json.dumps(rounded)}")
+    if worst[1] > worst[3]:
+        fail(f"18b: the sharded step's gradient {worst[0]} is {worst[1]:.3e} "
+             f"from the one-process step (bound {worst[3]:.3e})")
+
+    # the tp=2 checkpoint in one process, the render and the export
+    one = systems.make(cfg["system"]["name"], cfg, dm,
+                       save_dir=os.path.join(out, "load"), device="cuda")
+    one.init_state(seed)
+    state = one.load_checkpoint(ranks[0]["ckpt"])
+    loaded = bridge.to_jax_state(one.model, one.optimizer, one.scheduler)
+    shards = [dict(np.load(os.path.join(out, f"state{r}.npz")))
+              for r in range(SHARDS)]
+    gathered = bridge.gather_params(shards)
+    differ = [k for k in gathered
+              if not np.array_equal(loaded[k], gathered[k])]
+    log(f"  b. the tp=2 checkpoint loaded into one process: {len(loaded)} "
+        f"entries, bit-equal to the ranks' gathered state "
+        f"{not differ and sorted(loaded) == sorted(gathered)}")
+    if differ or sorted(loaded) != sorted(gathered):
+        fail(f"18b: the loaded checkpoint differs at {differ[:5]}")
+    del loaded, shards, gathered
+    split, one.view_rays = measure.val_chunks(one)
+    with torch.no_grad():
+        want = one.render_image(state, split, 0)
+    sharded = np.load(os.path.join(out, "view.npz"))
+    diffs = {k: float(np.abs(sharded[k] - want[k]).max()) for k in want
+             if k != "ray_included"}
+    log(f"  b. {measure.VAL_CHUNKS} chunks of validation view 0, tp=2 vs "
+        f"one process, max |difference|: {json.dumps(diffs)}; rays dropped "
+        f"{int((~sharded['ray_included']).sum())} / "
+        f"{int((~want['ray_included']).sum())}")
+    if max(diffs.values()) > SHARD_RENDER_TOL:
+        fail("18b: the sharded validation chunks differ from the "
+             "one-process render")
+    t0 = time.perf_counter()
+    mesh = one.export(state)
+    export_s = time.perf_counter() - t0
+    vertices = None if mesh is None else int(mesh["v_pos"].shape[0])
+    log(f"  b. export at {measure.EXPORT_RES}^3: {ranks[0]['vertices']} "
+        f"vertices at tp=2, {vertices} in one process ({export_s:.1f} s)")
+    if vertices is None or vertices != ranks[0]["vertices"]:
+        fail("18b: the sharded export's vertex count differs")
+    del one, state, mesh
+    shutil.rmtree(out, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    dry = dryrun.dryrun_multichip(4, "cuda", "gloo")
+    dry_s = time.perf_counter() - t0
+    log(f"  c. dryrun_multichip(4) on four gloo ranks sharing the card: "
+        f"data={dry['data']} x model={dry['model']}, loss "
+        f"{dry['loss']:.5f}, {dry_s:.1f} s")
+    if (dry["data"], dry["model"]) != (2, 2):
+        fail(f"18c: dryrun_multichip(4) took data={dry['data']} x "
+             f"model={dry['model']}")
+    return {"backend": backend, "world": world,
+            "mesh": ranks[0]["mesh"][:2], "steps": ranks[0]["steps"],
+            "k1_per_rank_per_step": [[k for k, _ in r["launches_per_step"]]
+                                     for r in ranks],
+            "g1_per_rank_per_step": [[g for _, g in r["launches_per_step"]]
+                                     for r in ranks],
+            "steps_per_s": [r["steps_per_s"] for r in ranks],
+            "allreduce_mb_model": ranks[0]["allreduce_mb_model"],
+            "allreduce_mb_world": ranks[0]["allreduce_mb_world"],
+            "peak_gib": [r["peak_gib"] for r in ranks],
+            "grad_rel_err": rows, "render_max_abs": diffs,
+            "vertices": vertices, "window_s": window_s,
+            "dryrun": {"data": dry["data"], "model": dry["model"],
+                       "loss": dry["loss"], "s": dry_s}}
+
+
 def check_recorded_step(torch, scatter, table, encodes, stream):
     """The step's table gradient (the sum of its encodes' K1 launches)
     against the float64 plain scatter of every encode's rows and
@@ -3892,6 +4210,7 @@ def main():
                     help="save the recorded streams (torch.save) for "
                          "python -m rise_sdf_tpu_torch.kernel_ab")
     args = ap.parse_args()
+    t_start = time.perf_counter()
 
     # cuBLAS's workspace setting that torch's deterministic mode asks
     # for (phase 17b), before torch first calls cuBLAS
@@ -3953,8 +4272,8 @@ def main():
      (system, state)) = flagship_phase(torch, scatter, gather,
                                        args.split_steps, host_streams)
     log(f"test protocol: split_mixed_occ_test_full at step "
-        f"{int(state['step'])}, {args.test_views} views x (learned, warm, "
-        f"bright) + view 0 in single-light mode:")
+        f"{int(state['step'])}, {args.test_views} views x (learned, "
+        f"{', '.join(TEST_LIGHTS)}) + view 0 in single-light mode:")
     (g1["test_launches"], g1["test_protocol"], lpips_pair, surface,
      gifs9) = test_protocol_phase(torch, gather, scatter, system, state,
                                   args.test_views)
@@ -4057,6 +4376,19 @@ def main():
     p17["seconds"] = time.perf_counter() - t0
     log(f"  phase {p17['seconds']:.1f} s")
     log(f"  phase 17: {json.dumps(p17)}")
+    log(f"hash-table row sharding: K1, G1 and K2 on the training and probe "
+        f"streams as shards of {SHARDS}; split_mixed_occ_train_full with "
+        f"table_shards {SHARDS} on {SHARDS} ranks from step "
+        f"{measure.SPLIT_STAGE1_STEP}, {measure.TABLE_SHARD_STEPS} steps, "
+        f"{measure.VAL_CHUNKS} validation chunks and the export against one "
+        f"process; dryrun_multichip(4):")
+    t0 = time.perf_counter()
+    p18 = {"streams": shard_stream_phase(torch, scatter, gather, sorted_ops,
+                                         host_streams)}
+    p18["window"] = table_shard_phase(torch)
+    p18["seconds"] = time.perf_counter() - t0
+    log(f"  phase {p18['seconds']:.1f} s")
+    log(f"  phase 18: {json.dumps(p18['window'])}")
     k2 = dict(p17["streams"]["train"])
     k2["launches"] = p17["determinism"]["neus"]["det0"]["k2"]
     k2["streams"] = p17["streams"]
@@ -4074,6 +4406,11 @@ def main():
                      "sphere_row": p16["bench"]["k1_launches"],
                      "test_multi": test16["multi"]["k1_launches"],
                      "test_single": test16["single"]["k1_launches"]}
+    for key, rec in (("k1", k1), ("g1", g1), ("k2", k2)):
+        rec["phase18"] = p18["streams"][key]
+    for key, rec in (("k1", k1), ("g1", g1)):
+        rec["phase18"]["launches_per_rank_per_step"] = \
+            p18["window"][f"{key}_per_rank_per_step"]
     g1["phase16"] = {"small": p16["small"][0],
                      "sphere_row": p16["bench"]["g1_launches"],
                      "test_multi": test16["multi"]["g1_launches"],
@@ -4097,6 +4434,7 @@ def main():
                 rec[name] = {"device_ms": prof[f"{key}_ms"],
                              "launches": prof[f"{key}_launches"]}
 
+    log(f"all phases in {time.perf_counter() - t_start:.1f} s")
     log(card)
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
@@ -4104,7 +4442,7 @@ def main():
              "flagship_per_step", "flagship_launches", "test_launches",
              "test_protocol", "resume_launches", "resume_launches_per_step",
              "export_launches", "ddp", "scene", "capture", "phase14",
-             "phase15", "phase16", "phase17")
+             "phase15", "phase16", "phase17", "phase18")
     log(json.dumps({"kernels": [
         {"name": "scatter_add (K1)", "route": "cuda", "source": SRC_K1,
          "replaces": REPLACES_K1, **{k: k1[k] for k in keys},
@@ -4119,7 +4457,7 @@ def main():
          "source": SRC_K2, "replaces": REPLACES_K2,
          **{k: k2[k] for k in keys},
          **{k: k2[k] for k in ("streams", "launches_per_run", "pass_ms",
-                                "library_det_ms", "k1_ms")}},
+                                "library_det_ms", "k1_ms", "phase18")}},
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

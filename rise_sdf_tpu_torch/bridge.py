@@ -20,6 +20,14 @@ params and has its moments too, see ``systems/optim.py``),
 ``opt_state/3/count`` under AdamW, whose ``add_decayed_weights`` takes
 index 1 and holds no state).
 The system adds ``occs``, ``occ_binary`` and ``step``.
+
+``shard_params`` / ``gather_params`` carry a flat dict (the params, or
+the whole state with Adam's moments) between its full form and one
+rank's shard of a row-sharded run (``system.table_shards``, JAX's
+``table_specs``): every hash table, a rank-3 ``.../table`` entry ``[L,
+T, F]``, and its moments split along the rows into ``[L, T / tp, F]``;
+every other entry is whole on every rank.  A checkpoint is always the
+full form.
 """
 
 from __future__ import annotations
@@ -72,6 +80,40 @@ def to_jax_params(state_dict) -> Dict[str, np.ndarray]:
     """A state_dict -> flat ``params/*`` arrays in the JAX key format."""
     return {jax_path(k): v.detach().cpu().numpy()
             for k, v in state_dict.items()}
+
+
+def is_table(path: str, ndim: int) -> bool:
+    """Is the ``ndim``-dimensional entry at ``path`` a hash table or one
+    of its moments (JAX's ``table_specs``: a rank-3 leaf under a
+    ``table`` key)?"""
+    return path.split("/")[-1] == "table" and ndim == 3
+
+
+def shard_params(flat: Dict[str, np.ndarray], tp: int,
+                 index: int) -> Dict[str, np.ndarray]:
+    """Shard ``index`` of ``tp`` of a full flat dict: each table entry's
+    rows ``[index T / tp, (index + 1) T / tp)``, the rest as it is."""
+    out = {}
+    for k, v in flat.items():
+        if is_table(k, np.ndim(v)):
+            t = np.shape(v)[1]
+            if t % tp:
+                raise ValueError(f"'{k}' has {t} rows, which do not split "
+                                 f"into {tp} shards")
+            v = np.asarray(v)[:, index * (t // tp):(index + 1) * (t // tp)]
+        out[k] = v
+    return out
+
+
+def gather_params(shards) -> Dict[str, np.ndarray]:
+    """The full flat dict from every shard's (``shard_params``' outputs,
+    in shard order): the table entries joined along the rows, the rest
+    from shard 0."""
+    out = dict(shards[0])
+    for k, v in shards[0].items():
+        if is_table(k, np.ndim(v)):
+            out[k] = np.concatenate([np.asarray(s[k]) for s in shards], 1)
+    return out
 
 
 MU, NU = "opt_state/0/mu/", "opt_state/0/nu/"

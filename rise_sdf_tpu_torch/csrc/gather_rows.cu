@@ -42,8 +42,10 @@
 //
 // The copy moves bits, not floats (uint2 / uint4 vectors), so the result
 // is bit-equal to index_select for any 4- or 8-byte element type; the
-// wrapper takes float32 and float64.  A device-side assert checks every
-// index against the table's row count, as K1 does.
+// wrapper takes float32 and float64.  A negative index is an absent row
+// (a row that another shard of a row-sharded table owns): its output row
+// is zeros and no table row is read.  A device-side assert checks every
+// other index against the table's row count, as K1 does.
 //
 // Plain C interface, loaded with ctypes: pointers and the stream come in
 // as void*, the launch returns cudaGetLastError().
@@ -56,6 +58,18 @@
 namespace {
 
 constexpr int kThreads = 256;
+
+__device__ __forceinline__ uint2 zero_of(uint2) { return make_uint2(0u, 0u); }
+__device__ __forceinline__ uint4 zero_of(uint4) {
+  return make_uint4(0u, 0u, 0u, 0u);
+}
+
+// vector `r` of the table, or zeros for an absent row (r < 0)
+template <typename V>
+__device__ __forceinline__ V row_or_zero(const V* __restrict__ table,
+                                         long long r) {
+  return r >= 0 ? __ldg(table + r) : zero_of(V());
+}
 
 // the next grid-stride position, or `end` where that would pass it
 template <typename I>
@@ -88,10 +102,9 @@ __global__ void __launch_bounds__(kThreads)
     uint2 r[8];
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
-      assert(a[k].x >= 0 && a[k].x < n_rows && a[k].y >= 0 &&
-             a[k].y < n_rows);
-      r[2 * k] = __ldg(table + a[k].x);
-      r[2 * k + 1] = __ldg(table + a[k].y);
+      assert(a[k].x < n_rows && a[k].y < n_rows);
+      r[2 * k] = row_or_zero(table, a[k].x);
+      r[2 * k + 1] = row_or_zero(table, a[k].y);
     }
 #pragma unroll
     for (int k = 0; k < 4; ++k)
@@ -102,8 +115,8 @@ __global__ void __launch_bounds__(kThreads)
     for (I i = tiles * (8 * kThreads) + threadIdx.x; i < m;
          i = next(i, (I)kThreads, m)) {
       const int row = __ldcs(idx + i);
-      assert(row >= 0 && row < n_rows);
-      __stcs(out + i, __ldg(table + row));
+      assert(row < n_rows);
+      __stcs(out + i, row_or_zero(table, row));
     }
   }
 }
@@ -119,8 +132,9 @@ __global__ void gather_rows16_kernel(const int* __restrict__ idx,
        i = next(i, stride, total)) {
     const I r = i / q;
     const int row = __ldg(idx + r);
-    assert(row >= 0 && row < n_rows);
-    out[i] = __ldg(table + (long long)row * q + (i - r * q));
+    assert(row < n_rows);
+    out[i] = row_or_zero(table,
+                         row < 0 ? -1LL : (long long)row * q + (i - r * q));
   }
 }
 

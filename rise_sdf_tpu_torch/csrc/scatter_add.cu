@@ -39,6 +39,12 @@
 // level-major stream its atomics stay among one level's rows, which L2
 // holds.
 //
+// A negative index is an absent row (a row that another shard of a
+// row-sharded table owns, XLA's drop mode): its values are dropped.  A
+// run ends at an absent row and none starts there: the walk carries an
+// absent row's values in its registers like a run's, and issues no RED
+// for them.
+//
 // All levels go in one launch: the caller offsets level l's rows by
 // l * T, and L * T (16 x 2^19 = 8.4M) fits int32.  Sums are taken in
 // atomic order, which changes from run to run (not bit-reproducible).
@@ -66,7 +72,8 @@ __global__ void scatter_add_kernel(const int* __restrict__ idx,
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
        i < m; i += stride) {
     const long long row = __ldg(idx + i);
-    assert(row >= 0 && row < table_size);
+    assert(row < table_size);
+    if (row < 0) continue;  // absent
     for (int c = 0; c < f; ++c) {
       atomicAdd(out + row * f + c, __ldg(vals + i * f + c));
     }
@@ -78,8 +85,9 @@ constexpr int kWalk = 32;   // rows per walk
 constexpr int kBatch = 8;   // steps whose loads are in flight at once
 constexpr int kNoLayout = 32;  // the row width P = 1 is walked as
 
+// the run's sum into its row; nothing for an absent row (row < 0)
 __device__ __forceinline__ void red(float2* out, int row, float2 v) {
-  atomicAdd(out + row, v);  // result unused: a RED
+  if (row >= 0) atomicAdd(out + row, v);  // result unused: a RED
 }
 
 // F = 2: walk w takes rows [g * kWalk, g * kWalk + kWalk) of column j,
@@ -102,7 +110,7 @@ __global__ void __launch_bounds__(kThreads)
     const float2* vp = vals + e0;
     int cur = __ldcs(ip);
     float2 acc = __ldcs(vp);
-    assert(cur >= 0 && cur < table_size);
+    assert(cur < table_size);
     for (int s = 1; s < steps; s += kBatch) {
       int r[kBatch];
       float2 v[kBatch];
@@ -116,7 +124,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int u = 0; u < kBatch; ++u) {
         if (s + u < steps) {
-          assert(r[u] >= 0 && r[u] < table_size);
+          assert(r[u] < table_size);
           if (r[u] == cur) {
             acc.x += v[u].x;
             acc.y += v[u].y;
@@ -134,7 +142,7 @@ __global__ void __launch_bounds__(kThreads)
                      threadIdx.x;
        i < m; i += stride) {
     const int row = idx[i];
-    assert(row >= 0 && row < table_size);
+    assert(row < table_size);
     red(out, row, vals[i]);
   }
 }

@@ -34,6 +34,10 @@
 //   result  d = double(H + (L >> 32)) * 2^32 + double(L & (2^32 - 1)),
 //           times 2^-s (two power-of-two products), rounded once to vals'
 //           dtype.
+// A negative index is an absent row (a row that another shard of a
+// row-sharded table owns): its values take part in nothing, neither the
+// range nor a bucket nor a sum (XLA's drop mode, as K1); M still counts
+// every entry.
 // Every step is an IEEE operation written as an intrinsic (__dmul_rn,
 // __dadd_rn, rint, floor, the _rn conversions), so nvcc's FMA contraction
 // cannot change a bit; the build has no --use_fast_math, so subnormals
@@ -250,10 +254,17 @@ __global__ void __launch_bounds__(kFlatThreads)
     words[i] = make_ulonglong2(0ULL, 0ULL);
 }
 
+// Is value `i` of vals [m, f] in a present entry (its index >= 0)?
+__device__ __forceinline__ bool present(const int* __restrict__ idx,
+                                        long long i, int f) {
+  return __ldg(idx + i / f) >= 0;
+}
+
 // A value into the running max of |v| and of the complement of |v|
-// (finite nonzero values only)
-__device__ __forceinline__ void range_add(double v, u64& hi, u64& lo_c) {
-  if (isfinite(v) && v != 0.0) {
+// (finite nonzero values of present entries only)
+__device__ __forceinline__ void range_add(double v, bool keep, u64& hi,
+                                          u64& lo_c) {
+  if (keep && isfinite(v) && v != 0.0) {
     const u64 b = abs_bits(v);
     hi = max(hi, b);
     lo_c = max(lo_c, ~b);
@@ -263,8 +274,8 @@ __device__ __forceinline__ void range_add(double v, u64& hi, u64& lo_c) {
 // Pass 2: the range words.  kVec: 16-byte loads (vals 16-byte aligned).
 template <typename T, bool kVec>
 __global__ void __launch_bounds__(kFlatThreads)
-    range_kernel(const T* __restrict__ vals, long long n,
-                 u64* __restrict__ state) {
+    range_kernel(const int* __restrict__ idx, const T* __restrict__ vals,
+                 long long n, int f, u64* __restrict__ state) {
   constexpr int kPer = 16 / sizeof(T);
   const long long stride = (long long)gridDim.x * kFlatThreads;
   const long long first = (long long)blockIdx.x * kFlatThreads + threadIdx.x;
@@ -273,22 +284,23 @@ __global__ void __launch_bounds__(kFlatThreads)
   if constexpr (kVec) {
     const long long vecs = n / kPer;
     for (long long i = first; i < vecs; i += stride) {
+      const long long v0 = i * kPer;
       if constexpr (std::is_same_v<T, float>) {
         const float4 x = __ldcs(reinterpret_cast<const float4*>(vals) + i);
-        range_add(x.x, hi, lo_c);
-        range_add(x.y, hi, lo_c);
-        range_add(x.z, hi, lo_c);
-        range_add(x.w, hi, lo_c);
+        range_add(x.x, present(idx, v0, f), hi, lo_c);
+        range_add(x.y, present(idx, v0 + 1, f), hi, lo_c);
+        range_add(x.z, present(idx, v0 + 2, f), hi, lo_c);
+        range_add(x.w, present(idx, v0 + 3, f), hi, lo_c);
       } else {
         const double2 x = __ldcs(reinterpret_cast<const double2*>(vals) + i);
-        range_add(x.x, hi, lo_c);
-        range_add(x.y, hi, lo_c);
+        range_add(x.x, present(idx, v0, f), hi, lo_c);
+        range_add(x.y, present(idx, v0 + 1, f), hi, lo_c);
       }
     }
     done = vecs * kPer;
   }
   for (long long i = done + first; i < n; i += stride)
-    range_add(__ldcs(vals + i), hi, lo_c);
+    range_add(__ldcs(vals + i), present(idx, i, f), hi, lo_c);
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
     hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, off));
@@ -386,9 +398,11 @@ __global__ void __launch_bounds__(kThreads)
     const long long e0 = n0 * period + k * group + (w - kg * group);
     const int* ip = idx + e0;
     const T* vp = vals + e0 * f + c0;
+    // an absent row (cur < 0) starts no run: its values are skipped and
+    // the next present row starts one
     int cur = __ldcs(ip);
-    assert(cur >= 0 && cur < table_size);
-    {
+    assert(cur < table_size);
+    if (cur >= 0) {
       T v0[FT];
       load_row<T, FT, kVec>(vp, v0);
       run.start(masks, cur, f, c0, range);
@@ -407,24 +421,27 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int u = 0; u < kBatch; ++u) {
         if (s + u < steps) {
-          assert(r[u] >= 0 && r[u] < table_size);
+          assert(r[u] < table_size);
           if (r[u] != cur) {
-            red<kJob, FT>(words, masks, cur, f, c0, run.hi, run.lo,
-                          run.bits);
+            if (cur >= 0)
+              red<kJob, FT>(words, masks, cur, f, c0, run.hi, run.lo,
+                            run.bits);
             cur = r[u];
-            run.start(masks, cur, f, c0, range);
+            if (cur >= 0) run.start(masks, cur, f, c0, range);
           }
-          run.add(v[u], range);
+          if (cur >= 0) run.add(v[u], range);
         }
       }
     }
-    red<kJob, FT>(words, masks, cur, f, c0, run.hi, run.lo, run.bits);
+    if (cur >= 0)
+      red<kJob, FT>(words, masks, cur, f, c0, run.hi, run.lo, run.bits);
   }
   for (long long i = rows * period + (long long)blockIdx.x * kThreads +
                      threadIdx.x;
        i < m; i += stride) {
     const int row = idx[i];
-    assert(row >= 0 && row < table_size);
+    assert(row < table_size);
+    if (row < 0) continue;  // absent
     T v[FT];
     load_row<T, FT, false>(vals + i * f + c0, v);
     run.start(masks, row, f, c0, range);
@@ -615,13 +632,13 @@ cudaError_t run(const Walk& a, const T* vals, T* out, int passes) {
       if ((err = wave(kFlatPerSm, kFlatThreads, n / (16 / sizeof(T)) + 1,
                       &blocks)) != cudaSuccess)
         return err;
-      range_kernel<T, true><<<blocks, kFlatThreads, 0, a.s>>>(vals, n,
-                                                              a.sc.state);
+      range_kernel<T, true><<<blocks, kFlatThreads, 0, a.s>>>(
+          a.idx, vals, n, a.f, a.sc.state);
     } else {
       if ((err = wave(kFlatPerSm, kFlatThreads, n, &blocks)) != cudaSuccess)
         return err;
-      range_kernel<T, false><<<blocks, kFlatThreads, 0, a.s>>>(vals, n,
-                                                               a.sc.state);
+      range_kernel<T, false><<<blocks, kFlatThreads, 0, a.s>>>(
+          a.idx, vals, n, a.f, a.sc.state);
     }
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }

@@ -39,8 +39,15 @@ rank per listed GPU, joined over NCCL; under torchrun
 rise_sdf_tpu_torch.launch ...``) each process joins the group from
 torchrun's variables, over NCCL on CUDA (one GPU per rank, by
 ``LOCAL_RANK``) and over gloo with ``--device cpu``.  Rank 0 names the
-trial directory and writes every file.  ``system.table_shards`` above 1
-(the JAX launcher's hash-table row sharding) raises: it is not ported.
+trial directory and writes every file.  ``system.table_shards=N`` (the
+JAX launcher's hash-table row sharding, its ``model`` mesh axis) splits
+every hash table's rows over N ranks of each data index
+(``parallel/sharding.py``); N must divide the ranks, and on one process
+it is ignored, as the JAX launcher builds no mesh on one device:
+
+    python -m torch.distributed.run --standalone --nproc_per_node 2 -m
+        rise_sdf_tpu_torch.launch --preset tiny_neus_config --device cpu
+        --train system.table_shards=2
 """
 
 from __future__ import annotations
@@ -234,7 +241,9 @@ def run(args, extras):
     from .parallel import sharding
 
     config = load(args, extras)
-    sharding.table_shard_count(int(config["system"].get("table_shards", 1)))
+    # a count that does not divide the ranks raises before any file
+    sharding.table_shard_count(int(config["system"].get("table_shards", 1)
+                                   or 1))
     config["cmd_args"] = vars(args)
     device = args.device
     if device == "cuda":
@@ -274,6 +283,10 @@ def run(args, extras):
     system = systems.make(config["system"]["name"], config, dm,
                           save_dir=save_dir, ckpt_dir=ckpt_dir,
                           device=device)
+    if dist.is_initialized() and sharding.is_main_process():
+        mesh = system.mesh
+        print(f"mesh over {sharding.world_size()} ranks: data={mesh.dp}"
+              + (f" x model={mesh.tp}" if mesh.tp > 1 else ""), flush=True)
     state = system.init_state(seed)
     if args.resume:
         state = (system.load_weights_only(args.resume)

@@ -53,14 +53,24 @@ largest image difference and share of pixels more than 1e-4 apart, the
 single-light images against the multi-emitter ones, the seconds per
 view of each run and the ops' numbers.
 
+``--preset pbr`` measures the spread of ``chip_smoke.py`` phase 15b's
+``volume-pbr`` shading on a freshly trained stage-1 state: card runs
+against each other (default mode and deterministic) and every chunk of
+test view 0 against the CPU (``_pbr_main``).
+
 ``--preset ddp`` runs the flagship's data-parallel window
 (``ddp_window``): a fresh init at stage 1 for ``--steps`` steps (16)
 over NCCL ranks, one per GPU (up to 4), or over two gloo ranks sharing
 the one card there is; then one validation view sharded over the ranks.
+``--table-shards N`` splits every hash table's rows over N ranks of
+each data index (``system.table_shards``; N divides the ranks).
 Its JSON line holds each rank's report: steps/s, K1's and G1's launches
 per step, peak memory, the all-reduce's ms and MB per step, the
 all-reduced gradient against the ranks' float64 mean, and whether the
-ranks' params are bit-equal.
+ranks' params are bit-equal; with table shards also the MB per step of
+the gradient all-reduces over the world (``allreduce_mb_world``) and
+over the data group (``allreduce_mb_data``), and of the encodes'
+feature all-reduces over the model group (``allreduce_mb_model``).
 
 Without CUDA it raises.
 """
@@ -263,10 +273,12 @@ def train_split(system, steps, seed, on_log=None):
     return state, out, per_step
 
 
-def test_system(trained, multi=True, n_images=None, model=None):
+def test_system(trained, multi=True, n_images=None, model=None,
+                relights=None):
     """The split-occ system at ``split_mixed_occ_test_full`` (in
     multi-emitter mode or not, with ``n_images`` test views, the
-    ``model`` keys over the preset's) with the parameters of the
+    ``model`` keys over the preset's, the ``relights`` lights in place
+    of the preset's ``warm`` and ``bright``) with the parameters of the
     ``trained`` system."""
     from . import datasets, systems
     from .presets import split_mixed_occ_test_full
@@ -276,6 +288,8 @@ def test_system(trained, multi=True, n_images=None, model=None):
     cfg["model"].update(model or {})
     if n_images:
         cfg["dataset"]["n_images"] = n_images
+    if relights is not None:
+        cfg["dataset"]["relight_list"] = list(relights)
     system = systems.make(cfg["system"]["name"], cfg,
                           datasets.make(cfg["dataset"]["name"],
                                         cfg["dataset"]),
@@ -370,10 +384,11 @@ def run_test(system, state, profile_view=None, log=print):
 
 
 def test_protocol(trained, state, views=None, profile_view=None,
-                  log=print, model=None):
+                  log=print, model=None, relights=None):
     """The test protocol on ``state`` of the ``trained`` flagship (with
-    the ``model`` keys over the preset's): the preset's 4 views (or
-    ``views``) in multi-emitter mode (with
+    the ``model`` keys over the preset's, and the ``relights`` lights
+    when given): the preset's 4 views (or ``views``) in multi-emitter
+    mode (with
     ``profile_view`` profiled), then view 0 in single-light mode.  The
     single-light run's images and metrics are held against the
     multi-emitter run's view 0: the largest difference of each image and
@@ -382,12 +397,13 @@ def test_protocol(trained, state, views=None, profile_view=None,
     and its ground truth, [H, W, 3] each (LPIPS' input);
     ``view0_surface`` its rays [H * W, 6] in pixel order, ``depth`` [H *
     W, 1] and ``normal`` [H * W, 3] (host arrays)."""
-    multi = run_test(test_system(trained, n_images=views, model=model),
+    multi = run_test(test_system(trained, n_images=views, model=model,
+                                 relights=relights),
                      state, profile_view=profile_view, log=log)
     log(f"  multi-emitter: {multi['s_per_view']:.2f} s/view "
         f"({multi['render_s_per_view']:.2f} s/view rendering)")
     single_system = test_system(trained, multi=False, n_images=1,
-                                model=model)
+                                model=model, relights=relights)
     single = run_test(single_system, state, log=log)
     view0 = multi["images"][0]
     names = ["comp_rgb_phys_full"] + [f"relight{j}/comp_rgb_phys_full"
@@ -526,6 +542,138 @@ def _ops_repeat():
     return res
 
 
+PBR_SEED, PBR_CHUNK = 15, 64000  # chip_smoke.py phase 15b's
+
+
+def _pbr_main(steps):
+    """``--preset pbr``: the spread of ``chip_smoke.py`` phase 15b's
+    ``volume-pbr`` shading, card against card and card against CPU.  The
+    flagship trained ``steps`` stage-1 steps from a fresh init, test
+    view 0 of ``split_mixed_occ_test_full`` rendered for the shading
+    points (rays, depth, normals), materials and uniforms drawn as 15b
+    draws them; the shading of all ``PBR_CHUNK`` chunks three times in
+    the default mode and twice under ``torch.use_deterministic_
+    algorithms(True)``, then every chunk on the CPU.  Returns per
+    output (transmittance ``tr``, secondary head ``sec``, ``dirs``,
+    ``rgb_phys`` ...) the largest difference between card runs, and per
+    chunk the largest |card - CPU| / max(1, max |CPU|), and the worst
+    point's values on both."""
+    from . import datasets, models, systems
+    from .presets import split_mixed_occ_train_full
+
+    cfg = split_mixed_occ_train_full()
+    save = os.path.join("exp", "measure_pbr")
+    system = systems.make(cfg["system"]["name"], cfg,
+                          datasets.make(cfg["dataset"]["name"],
+                                        cfg["dataset"]),
+                          save_dir=save, device="cuda")
+    state = system.init_state(int(cfg["seed"]))
+    state["step"] = SPLIT_STAGE1_STEP
+    state = system.fit(max_steps=SPLIT_STAGE1_STEP + steps,
+                       seed=int(cfg["seed"]), state=state, log_every=0)
+    view_sys = test_system(system, n_images=1)
+    split = view_sys.datamodule.test()
+    with torch.no_grad():
+        view = view_sys.render_image(state, split, 0)
+    rays, inv = view_sys.view_rays(split, 0)
+    rays = (rays if inv is None else rays[inv]).cpu()
+    step, n = int(state["step"]), rays.shape[0]
+    d = rays[:, 3:]
+    nrm = torch.from_numpy(view["comp_normal"]).reshape(n, 3)
+    length = torch.linalg.vector_norm(nrm, dim=-1, keepdim=True)
+    rng = np.random.default_rng(PBR_SEED)
+    host = {"pos": rays[:, :3] + torch.from_numpy(view["depth"]).reshape(
+                n, 1) * d,
+            "dirs": d,
+            "normals": torch.where(length > 0.5,
+                                   nrm / length.clamp(min=1e-6), -d),
+            "albedo": torch.from_numpy(rng.uniform(0, 1, (n, 3)).astype(
+                np.float32)),
+            "rough": torch.from_numpy(rng.uniform(0.05, 1, (n, 1)).astype(
+                np.float32)),
+            "metal": torch.from_numpy(rng.uniform(0, 1, (n, 1)).astype(
+                np.float32))}
+    pbr = models.make("volume-pbr", {"name": "volume-pbr",
+                                     "scatterer": {"name": "brdf-ggx"}})
+    u_host = pbr.scatterer.draw_uniforms(
+        (n,), torch.Generator().manual_seed(PBR_SEED))
+    card = {k: v.cuda() for k, v in host.items()}
+    u_card = tuple(v.cuda() for v in u_host)
+    model = system.model
+    cpu_model = models.make(cfg["model"]["name"], cfg["model"])
+    cpu_model.load_state_dict({k: v.cpu()
+                               for k, v in model.state_dict().items()})
+    occ = state["occ_binary"]
+    with torch.no_grad():
+        bake = model.bake_eval_sdf(step)
+    host_bake = bake and {k: v.cpu() if torch.is_tensor(v) else v
+                          for k, v in bake.items()}
+
+    @torch.no_grad()
+    def shade(m, x, u, occ_, bake_, sl):
+        rec = {}
+
+        def indirect(o, dd):
+            tr = m.compute_indirect_radiance(o, dd, occ_, step, frac=1.0,
+                                             bake=bake_)[0]
+            feat = m.geometry(o, step, with_grad=False,
+                              with_feature=True)["feature"]
+            rec["tr"], rec["dirs"] = tr, dd
+            rec["sec"] = m.texture.secondary_shading(feat, dd,
+                                                     x["normals"][sl],
+                                                     step=step)
+            return rec["tr"], rec["sec"]
+
+        rec.update(pbr(x["pos"][sl], x["dirs"][sl], x["normals"][sl],
+                       x["albedo"][sl], x["rough"][sl], x["metal"][sl],
+                       indirect, m.emitter,
+                       uniforms=tuple(v[sl] for v in u)))
+        return {k: v.cpu() for k, v in rec.items()}
+
+    chunks = [slice(s, s + PBR_CHUNK) for s in range(0, n, PBR_CHUNK)]
+
+    def card_pass():
+        return [shade(model, card, u_card, occ, bake, sl) for sl in chunks]
+
+    runs = [card_pass() for _ in range(3)]
+    torch.use_deterministic_algorithms(True)
+    try:
+        det = [card_pass() for _ in range(2)]
+    finally:
+        torch.use_deterministic_algorithms(False)
+    keys = list(runs[0][0])
+
+    def spread(a, b):
+        return {k: max(float((x[k] - y[k]).abs().max())
+                       for x, y in zip(a, b)) for k in keys}
+
+    res = {"step": step, "card_repeats": spread(runs[0], runs[1]),
+           "card_repeats_2": spread(runs[0], runs[2]),
+           "deterministic_repeats": spread(det[0], det[1]),
+           "deterministic_vs_default": spread(det[0], runs[0]),
+           "chunks": [], "worst": None}
+    for c, sl in enumerate(chunks):
+        cpu = shade(cpu_model, host, u_host, occ.cpu(), host_bake, sl)
+        got = runs[0][c]
+        res["chunks"].append({k: float((got[k] - cpu[k]).abs().max())
+                              / max(1.0, float(cpu[k].abs().max()))
+                              for k in keys})
+        diff = (got["rgb_phys"] - cpu["rgb_phys"]).abs().amax(-1)
+        i = int(diff.argmax())
+        if res["worst"] is None or float(diff[i]) > res["worst"]["err"]:
+            g = sl.start + i
+            res["worst"] = {"err": float(diff[i]), "chunk": c,
+                            "pixel": [g // split.w, g % split.w],
+                            "rough": float(host["rough"][g, 0]),
+                            **{f"{k}_card": got[k][i].tolist()
+                               for k in keys},
+                            **{f"{k}_cpu": cpu[k][i].tolist()
+                               for k in keys}}
+    shutil.rmtree(save, ignore_errors=True)
+    shutil.rmtree(os.path.join("exp", "test_protocol"), ignore_errors=True)
+    return res
+
+
 def _determinism_main(steps):
     from . import datasets, systems
     from .ops import volrend
@@ -607,9 +755,10 @@ def ddp_plan():
     return (min(n, 4), "nccl") if n >= 2 else (2, "gloo")
 
 
-def _check_reduced(post, pre, world):
+def _check_reduced(post, pre, world, group=None):
     """The all-reduced gradient ``post`` against the float64 mean of
-    every rank's ``pre`` (gathered): the entries out of bound and the
+    the ``world`` ranks' ``pre`` of ``group`` (gathered; the world by
+    default): the entries out of bound and the
     largest relative error.  At two ranks the bound is one float32 ulp
     (2^-23) of the mean, relative: the sum of two is one rounding and
     the halving is exact.  At more, it is the float32 sum's bound in any
@@ -617,7 +766,7 @@ def _check_reduced(post, pre, world):
     import torch.distributed as dist
 
     parts = [torch.empty_like(pre) for _ in range(world)]
-    dist.all_gather(parts, pre)
+    dist.all_gather(parts, pre, group=group)
     stacked = torch.stack(parts).double()
     del parts
     mean = stacked.mean(0)
@@ -634,6 +783,29 @@ def _check_reduced(post, pre, world):
             "max_abs_mean": float(mag.max())}
 
 
+def _ranks_agree(system, state) -> bool:
+    """Are the replicated params and the occupancy grid bit-equal on
+    every rank, and each table shard on its data group?"""
+    import torch.distributed as dist
+
+    mesh = system.mesh
+    shards = {id(p) for p in system.table_shards()}
+    params = list(system.model.parameters())
+    equal = True
+    for group, ts in ((None, [p for p in params if id(p) not in shards]
+                       + [state["occs"]]),
+                      (mesh.data_group,
+                       [p for p in params if id(p) in shards])):
+        if not ts:
+            continue
+        flat = torch.cat([t.detach().reshape(-1) for t in ts])
+        parts = [torch.empty_like(flat)
+                 for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, flat, group=group)
+        equal &= all(torch.equal(parts[0], q) for q in parts[1:])
+    return equal
+
+
 def _ddp_rank(rank, world, steps, out_dir, validate, cfg, device):
     """One rank of ``ddp_window``: the system of ``cfg`` from a fresh
     init at stage 1 for ``steps`` steps, then the checks and the numbers
@@ -643,6 +815,7 @@ def _ddp_rank(rank, world, steps, out_dir, validate, cfg, device):
     from . import datasets, systems
     from .bench import _sync
     from .ops.gather import gather_rows
+    from .ops.hashgrid import ReduceFrom
     from .ops.scatter import scatter_add
     from .parallel import sharding
     from .parallel.dryrun import rank_device
@@ -661,6 +834,7 @@ def _ddp_rank(rank, world, steps, out_dir, validate, cfg, device):
                           save_dir=os.path.join(out_dir, "save"),
                           device=str(dev))
     build_s = time.perf_counter() - t0
+    mesh = system.mesh
     table = system.model.geometry.encoding.encoding.table
     state = system.init_state(seed)
     state["step"] = SPLIT_STAGE1_STEP
@@ -676,17 +850,23 @@ def _ddp_rank(rank, world, steps, out_dir, validate, cfg, device):
         per_step.append((step, scatter_add.launches, gather_rows.launches,
                          m["loss"], m["skipped_nonfinite"]))
         if step == SPLIT_PROFILE_FROM:
-            check.update(_check_reduced(table.grad, pre.pop("g"), world))
+            # a table shard's gradient is reduced over its data group
+            sharded = mesh.tp > 1
+            check.update(_check_reduced(
+                table.grad, pre.pop("g"), mesh.dp if sharded else world,
+                mesh.data_group if sharded else None))
         rec["on"] = step == SPLIT_PROFILE_FROM - 1
 
     _sync(dev)
     scatter_add.launches = gather_rows.launches = 0
+    ReduceFrom.bytes = 0
     t0 = time.perf_counter()
     state = system.fit(max_steps=SPLIT_STAGE1_STEP + steps, seed=seed,
                        state=state, log_every=1, on_log=on_log)
     _sync(dev)
     fit_s = time.perf_counter() - t0
     k1, g1 = scatter_add.launches, gather_rows.launches
+    model_mb = ReduceFrom.bytes / 1e6 / max(len(per_step), 1)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30 \
         if dev.type == "cuda" else None
     last, launches = (0, 0), []
@@ -698,23 +878,24 @@ def _ddp_rank(rank, world, steps, out_dir, validate, cfg, device):
     rate = (len(stamps) - 1 - warm) / (stamps[-1] - stamps[warm])
 
     params = list(system.model.parameters())
-    flat = torch.cat([p.detach().reshape(-1) for p in params]
-                     + [state["occs"].reshape(-1)])
-    parts = [torch.empty_like(flat) for _ in range(world)]
-    dist.all_gather(parts, flat)
-    equal = all(torch.equal(parts[0], q) for q in parts[1:])
-    del parts, flat
-    bucket = [torch.zeros_like(p) for p in params]
+    shards = {id(p) for p in system.table_shards()}
+    replicated = [p for p in params if id(p) not in shards]
+    tables = [p for p in params if id(p) in shards]
+    equal = _ranks_agree(system, state)
+    # a step's gradient all-reduces, as train_step takes them
+    buckets = [([torch.zeros_like(p) for p in replicated], None),
+               ([torch.zeros_like(p) for p in tables], mesh.data_group)]
     times = []
     for i in range(13):
         dist.barrier()
         _sync(dev)
         t = time.perf_counter()
-        sharding.all_reduce_mean_(bucket)
+        for bucket, group in buckets:
+            sharding.all_reduce_mean_(bucket, group)
         _sync(dev)
         if i >= 3:
             times.append((time.perf_counter() - t) * 1e3)
-    del bucket
+    del buckets
     res = {"rank": rank, "world": world, "backend": dist.get_backend(),
            "device": str(dev), "card": torch.cuda.get_device_name(dev)
            if dev.type == "cuda" else None,
@@ -726,6 +907,11 @@ def _ddp_rank(rank, world, steps, out_dir, validate, cfg, device):
            "grad_check": check, "params_equal": equal,
            "allreduce_ms": float(np.median(times)),
            "allreduce_mb": 4 * sum(p.numel() for p in params) / 1e6,
+           "allreduce_mb_world": 4 * sum(p.numel() for p in replicated)
+           / 1e6,
+           "allreduce_mb_data": 4 * sum(p.numel() for p in tables) / 1e6
+           if mesh.dp > 1 else 0.0,
+           "allreduce_mb_model": model_mb, "mesh": list(mesh[:4]),
            "ckpt": os.path.join(system.ckpt_dir,
                                 f"step_{int(state['step'])}.ckpt.npz"),
            "rays_per_rank": system.rank_counts(system.capacity)[0]}
@@ -751,7 +937,7 @@ def _ddp_rank(rank, world, steps, out_dir, validate, cfg, device):
 
 
 def ddp_window(world, backend, out_dir, steps=DDP_STEPS, validate=True,
-               cfg=None, device="cuda"):
+               cfg=None, device="cuda", table_shards=1):
     """The flagship (``split_mixed_occ_train_full``, full width; or the
     split-occ config ``cfg``) over ``world`` data-parallel ranks on the
     card(s), or the CPU with ``device="cpu"`` (``parallel.dryrun.
@@ -769,8 +955,10 @@ def ddp_window(world, backend, out_dir, steps=DDP_STEPS, validate=True,
     adds the aux's few scalars).  Rank 0
     writes the final checkpoint (its path is ``ckpt``) and, with
     ``validate``, the view's images (``out_dir/val_view0.npz``).
-    ``world`` 1 runs in this process, more ranks are spawned.  Returns
-    the ranks' reports."""
+    ``world`` 1 runs in this process, more ranks are spawned.  With
+    ``table_shards`` (``system.table_shards``) the hash tables' rows
+    split over that many ranks of each data index.  Returns the ranks'
+    reports."""
     import tempfile
 
     import torch.distributed as dist
@@ -783,6 +971,7 @@ def ddp_window(world, backend, out_dir, steps=DDP_STEPS, validate=True,
                          f"{SPLIT_PROFILE_FROM}: it needs more than "
                          f"{SPLIT_PROFILE_FROM - SPLIT_STAGE1_STEP} steps")
     cfg = cfg or split_mixed_occ_train_full()
+    cfg["system"]["table_shards"] = table_shards
     os.makedirs(out_dir, exist_ok=True)
     if world > 1:
         dryrun.spawn(_ddp_rank, world, backend,
@@ -804,15 +993,168 @@ def ddp_window(world, backend, out_dir, steps=DDP_STEPS, validate=True,
     return out
 
 
+TABLE_SHARD_STEPS = 8
+VAL_CHUNKS = 8  # the validation chunks a table-shard window renders
+EXPORT_RES = 256  # its export's isosurface resolution
+
+
+def val_chunks(system, n=VAL_CHUNKS):
+    """The rays of ``n`` chunks of validation view 0 (in the eval ray
+    order, from the view's middle), for a partial ``render_image``: its
+    split and a ``view_rays`` that returns them."""
+    split = system.datamodule.val()
+    rays, _ = system.view_rays(split, 0)
+    chunk = system.eval_chunk
+    start = max(rays.shape[0] // 2 - n * chunk // 2, 0)
+    part = rays[start:start + n * chunk]
+    return split, lambda *_: (part, None)
+
+
+def _table_shard_rank(rank, world, steps, out_dir, cfg, device, ckpt):
+    """One rank of ``table_shard_window`` (its docstring)."""
+    import torch.distributed as dist
+
+    from . import bridge, datasets, systems
+    from .bench import _sync
+    from .ops.gather import gather_rows
+    from .ops.hashgrid import ReduceFrom
+    from .ops.scatter import scatter_add
+    from .parallel.dryrun import rank_device
+
+    dev = rank_device(device, rank)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+        torch.cuda.reset_peak_memory_stats()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    seed = int(cfg.get("seed", 42))
+    system = systems.make(cfg["system"]["name"], cfg,
+                          datasets.make(cfg["dataset"]["name"],
+                                        cfg["dataset"]),
+                          save_dir=os.path.join(out_dir, "save"),
+                          device=str(dev))
+    mesh = system.mesh
+    state = system.init_state(seed)
+    state["step"] = SPLIT_STAGE1_STEP
+    if ckpt is not None:
+        state = system.load_checkpoint(ckpt)
+    start = int(state["step"])
+    stamps, per_step = [], []
+
+    def on_log(step, m):
+        stamps.append(time.perf_counter())
+        per_step.append((scatter_add.launches, gather_rows.launches,
+                         m["loss"], m["skipped_nonfinite"]))
+        if step == start:  # the first step's reduced gradients
+            torch.save({k: p.grad.cpu() for k, p in
+                        system.model.named_parameters()},
+                       os.path.join(out_dir, f"grads{rank}.pt"))
+
+    _sync(dev)
+    scatter_add.launches = gather_rows.launches = 0
+    ReduceFrom.bytes = 0
+    t0 = time.perf_counter()
+    state = system.fit(max_steps=start + steps, seed=seed, state=state,
+                       log_every=1, on_log=on_log)
+    _sync(dev)
+    fit_s = time.perf_counter() - t0
+    model_mb = ReduceFrom.bytes / 1e6 / steps
+    launches, last = [], (0, 0)
+    for k, g, _, _ in per_step:
+        launches.append([k - last[0], g - last[1]])
+        last = (k, g)
+    params = list(system.model.parameters())
+    shards = {id(p) for p in system.table_shards()}
+    equal = _ranks_agree(system, state)
+    flat = bridge.to_jax_state(system.model, system.optimizer,
+                               system.scheduler)
+    np.savez(os.path.join(out_dir, f"state{rank}.npz"), **flat)
+    del flat
+    split, system.view_rays = val_chunks(system)
+    gather_rows.launches = scatter_add.launches = 0
+    _sync(dev)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        view = system.render_image(state, split, 0)
+    _sync(dev)
+    val_s = time.perf_counter() - t0
+    val_launches = [scatter_add.launches, gather_rows.launches]
+    if rank == 0:
+        np.savez(os.path.join(out_dir, "view.npz"), **view)
+    t0 = time.perf_counter()
+    exported = system.export(state)
+    _sync(dev)
+    res = {"rank": rank, "world": world, "mesh": list(mesh[:4]),
+           "backend": dist.get_backend(), "device": str(dev),
+           "steps": len(per_step), "fit_s": fit_s,
+           "steps_per_s": (len(stamps) - 2) / (stamps[-1] - stamps[1]),
+           "launches_per_step": launches,
+           "losses": [x[2] for x in per_step],
+           "skipped": system.skipped_updates, "params_equal": equal,
+           "allreduce_mb_model": model_mb,
+           "allreduce_mb_world": 4 * sum(
+               p.numel() for p in params if id(p) not in shards) / 1e6,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30
+           if dev.type == "cuda" else None,
+           "val_s": val_s, "val_launches": val_launches,
+           "export_s": time.perf_counter() - t0,
+           "vertices": None if exported is None
+           else int(exported["v_pos"].shape[0]),
+           "ckpt": os.path.join(system.ckpt_dir,
+                                f"step_{int(state['step'])}.ckpt.npz")}
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def table_shard_window(world, backend, out_dir, steps=TABLE_SHARD_STEPS,
+                       table_shards=2, cfg=None, device="cuda", ckpt=None):
+    """The flagship (``split_mixed_occ_train_full``, full width; or the
+    split-occ config ``cfg``) at ``system.table_shards`` over ``world``
+    spawned ranks: a fresh init at stage 1, or the checkpoint ``ckpt``,
+    trained ``steps`` steps
+    through ``fit`` (K1's and G1's counts zeroed just before), then
+    ``VAL_CHUNKS`` chunks of validation view 0 and the export
+    (``system.export``: rank 0 from the gathered tables; the flagship's
+    at ``EXPORT_RES``^3).  Each rank writes its first step's reduced gradients
+    (``out_dir/grads{rank}.pt``), its whole state with its rows of each
+    table (``state{rank}.npz``) and a report (``rank{rank}.json``):
+    steps/s over the steps after the first, K1's and G1's launches per
+    step, losses, skipped updates, whether the replicated params and
+    the grid are bit-equal on every rank and each table shard on its
+    data group, the MB per step of the gradient all-reduce over the
+    world and of the encodes' feature all-reduces over the model group,
+    peak device memory, the render's and the export's seconds and
+    launches, the vertex count and the final checkpoint's path (rank 0
+    writes it); rank 0 also the view (``view.npz``).  Returns the
+    reports."""
+    from .parallel import dryrun
+    from .presets import split_mixed_occ_train_full
+
+    if cfg is None:
+        cfg = split_mixed_occ_train_full()
+        cfg["model"]["geometry"]["isosurface"]["resolution"] = EXPORT_RES
+    cfg["system"]["table_shards"] = table_shards
+    os.makedirs(out_dir, exist_ok=True)
+    dryrun.spawn(_table_shard_rank, world, backend,
+                 args=(steps, out_dir, cfg, device, ckpt))
+    out = []
+    for r in range(world):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
 def main(argv=None):
     from . import datasets, systems
     from .presets import neus_sphere_full
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--preset", choices=("neus", "split", "test",
-                                         "determinism", "ddp"),
+                                         "determinism", "ddp", "pbr"),
                     default="neus")
     ap.add_argument("--steps", type=int, default=None)
+    ap.add_argument("--table-shards", type=int, default=1,
+                    help="--preset ddp: system.table_shards")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("measure: CUDA is not available")
@@ -824,11 +1166,14 @@ def main(argv=None):
         res = _test_main(args.steps or 32)
     elif args.preset == "determinism":
         res = _determinism_main(args.steps or 32)
+    elif args.preset == "pbr":
+        res = _pbr_main(args.steps or 32)
     elif args.preset == "ddp":
         world, backend = ddp_plan()
         out = os.path.join("exp", "measure_ddp")
         res = {"ranks": ddp_window(world, backend, out,
-                                   args.steps or DDP_STEPS)}
+                                   args.steps or DDP_STEPS,
+                                   table_shards=args.table_shards)}
         shutil.rmtree(out, ignore_errors=True)
     else:
         cfg = neus_sphere_full()

@@ -14,6 +14,8 @@ baked-SDF sample (``ops/sdf_bake.py``, 8-wide rows).
   ``gather_rows.launches`` counts kernel launches.
 * ``gather_rows_plain``: ``index_select``.
 
+A negative index is an absent row (a row that another shard of a
+row-sharded table owns, ``ops/hashgrid.py``): its output row is zeros.
 A gather is exact: G1 copies bits, so it is bit-equal to the plain
 version.
 """
@@ -45,13 +47,20 @@ def _lib():
 
 
 def gather_rows_plain(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version: ``table.index_select(0, idx)``."""
-    return table.index_select(0, idx.long())
+    """Plain PyTorch version: ``table.index_select(0, idx)``, the rows
+    of absent (negative) indices clamped in and then zeroed."""
+    idx = idx.long()
+    absent = idx < 0
+    if not bool(absent.any()):
+        return table.index_select(0, idx)
+    return table.index_select(0, idx.clamp(min=0)).masked_fill(
+        absent[:, None], 0)
 
 
 def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """table [N, W] float32/float64 contiguous; idx [M] int32 in [0, N)
-    -> [M, W].  Launches on the current stream and does not synchronise."""
+    """table [N, W] float32/float64 contiguous; idx [M] int32 below N
+    (a negative index gives a row of zeros) -> [M, W].  Launches on the
+    current stream and does not synchronise."""
     if idx.dtype != torch.int32:
         raise TypeError(f"gather_rows takes int32 idx, got {idx.dtype}")
     if table.dtype not in (torch.float32, torch.float64):

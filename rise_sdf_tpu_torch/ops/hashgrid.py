@@ -19,14 +19,35 @@ gradient (K2, ``ops/scatter_sorted.py``; the counterpart of
 (True)`` every encode takes ``'sorted'``.  The position gradient is the
 same either way, and unlike JAX's custom VJP the sorted one can be
 differentiated again: it is first-order in the table only.
+
+Row sharding (``shard_table``, JAX's ``model`` mesh axis and
+``_lookup_masked``): shard ``m`` of ``tp`` holds rows ``[m T / tp, (m +
+1) T / tp)`` of every level as its ``[L, T / tp, F]`` parameter.  The
+hash and the dense-level test still take the global ``T``; a row that
+another shard owns becomes an absent row (index -1), which G1 reads as
+zeros and K1 and K2 drop, so the table gradient stays in the shard.
+Each encode's outputs are summed over the shard's model group by one
+all-reduce (``_reduce``), whose backward hands the replicated cotangent
+to this shard's rows unchanged, as JAX's ``v + stop_gradient(psum(v) -
+v)`` does; the positions enter through an identity whose backward sums
+their cotangent over the group (``_enter``), since every shard holds a
+part of d features / d x.  The pair (Megatron's reduce-from and
+copy-to regions) is each other's backward, so it is right at every
+order: the analytic SDF gradient (``VolumeSDF.analytic_grad``: eval
+normals, the secondary pass' alpha) is the whole one, and its own
+gradient reaches the tables and the MLP whole.  A sharded encode takes
+the plain table gradient for ``grad_impl='sorted'``, as JAX's ``apply``
+does (the deterministic switch still takes K2).
 """
 
 from __future__ import annotations
 
 import math
+from contextlib import contextmanager
 from typing import Any, Dict, Optional
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from .scatter import table_grad_lookup
@@ -75,12 +96,58 @@ class HashGridEncoding(nn.Module):
             [r + 1 for r in self.resolutions], dtype=torch.int64),
             persistent=False)
         self.register_buffer("off32", _off32(), persistent=False)
+        # (tp, shard index, model group) once row-sharded; a full table
+        # that stands in for the shard (``unsharded``)
+        self.shard = None
+        self._full = None
         self.reset_parameters()
 
     @torch.no_grad()
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
-        self.table.copy_(torch.rand(self.table.shape, generator=generator)
-                         * 2e-4 - 1e-4)
+        """The full table's draw; a shard keeps its own rows of it."""
+        full = torch.rand((self.n_levels, self.table_size,
+                           self.n_features_per_level),
+                          generator=generator) * 2e-4 - 1e-4
+        if self.shard is not None:
+            tp, index, _ = self.shard
+            rows = self.table_size // tp
+            full = full[:, index * rows:(index + 1) * rows]
+        self.table.copy_(full)
+
+    @torch.no_grad()
+    def shard_table(self, tp: int, index: int, group) -> None:
+        """Keep rows ``[index T / tp, (index + 1) T / tp)`` of every level
+        as the parameter, and sum every encode over ``group`` (the model
+        group of ``tp`` ranks; a lookup without one raises)."""
+        if self.shard is not None:
+            raise RuntimeError("the hash table is sharded already")
+        if tp < 2 or self.table_size % tp or not 0 <= index < tp:
+            raise ValueError(f"a table of {self.table_size} rows does not "
+                             f"split into shard {index} of {tp}")
+        rows = self.table_size // tp
+        self.table = nn.Parameter(
+            self.table[:, index * rows:(index + 1) * rows].clone(),
+            requires_grad=self.table.requires_grad)
+        self.shard = (tp, index, group)
+
+    @contextmanager
+    def unsharded(self, full: torch.Tensor):
+        """Encodes inside read the whole ``[L, T, F]`` table ``full`` with
+        no collective (a sharded table gathered for one rank's use)."""
+        if tuple(full.shape) != (self.n_levels, self.table_size,
+                                 self.n_features_per_level):
+            raise ValueError(f"a full table is {self.n_levels} x "
+                             f"{self.table_size} x "
+                             f"{self.n_features_per_level}, not "
+                             f"{tuple(full.shape)}")
+        self._full = full
+        try:
+            yield
+        finally:
+            self._full = None
+
+    def _sharded(self) -> bool:
+        return self.shard is not None and self._full is None
 
     # ------------------------------------------------------------------ #
     def current_level(self, step) -> int:
@@ -156,13 +223,51 @@ class HashGridEncoding(nn.Module):
         """[N, Lo, K] rows of levels lo, lo + 1, ... -> [N, Lo, K, F]
         values: one gather from the flattened ``[L*T, F]`` table (G1 on
         the card), whose table gradient is one K1 launch (K2 with
-        ``grad_impl='sorted'``)."""
-        L, F, T = self.n_levels, self.n_features_per_level, self.table_size
+        ``grad_impl='sorted'``).  A shard's table is ``[L*T/tp, F]``:
+        global row ``flat`` of level l is its row ``l T/tp + flat - m
+        T/tp``, or absent (-1) outside the shard; the caller sums the
+        values' contributions over the model group (``_reduce``)."""
+        L, F = self.n_levels, self.n_features_per_level
+        table = self.table if self._full is None else self._full
+        rows = table.shape[1]
         offs = torch.arange(lo, lo + flat.shape[1], device=flat.device,
-                            dtype=torch.int64) * T
-        rows = (flat + offs[None, :, None]).to(torch.int32)
-        return table_grad_lookup(self.table.view(L * T, F), rows,
-                                 grad_impl)
+                            dtype=torch.int64)[None, :, None] * rows
+        if self._sharded():
+            tp, index, group = self.shard
+            if group is None or not dist.is_initialized():
+                raise RuntimeError(
+                    f"shard {index} of {tp} of a row-sharded hash table "
+                    "looked up without its model group: its features "
+                    "would be one shard's part")
+            local = flat - index * rows
+            flat = torch.where((local >= 0) & (local < rows), local + offs,
+                               -1)
+            grad_impl = "plain"  # as JAX's apply: sorted takes the plain
+        else:
+            flat = flat + offs
+        return table_grad_lookup(table.view(L * rows, F),
+                                 flat.to(torch.int32), grad_impl)
+
+    def _reduce(self, *outs: torch.Tensor):
+        """The encode's outputs summed over the model group of a sharded
+        table (each row lives in one shard, so the sum is the unsharded
+        encode), in one all-reduce (``ReduceFrom``): the value is the
+        all-reduce bit for bit, the same on every rank of the group, so
+        the ranks take the same branches downstream.  Unsharded:
+        ``outs`` as they are."""
+        if self._sharded():
+            outs = ReduceFrom.apply(self.shard[2], *outs)
+        return outs if len(outs) > 1 else outs[0]
+
+    def _enter(self, *xs: torch.Tensor):
+        """The encode's positions; sharded, through ``CopyTo``, so that
+        their gradient sums every shard's part.  A position that takes
+        no gradient passes as it is."""
+        if not self._sharded():
+            return xs if len(xs) > 1 else xs[0]
+        xs = tuple(CopyTo.apply(self.shard[2], x)[0] if x.requires_grad
+                   else x for x in xs)
+        return xs if len(xs) > 1 else xs[0]
 
     def _level_out(self, feats: torch.Tensor, lo: int, hi: int, step):
         """[..., N, Lo, F] features of levels [lo, hi) -> [..., N, L*F]:
@@ -189,9 +294,10 @@ class HashGridEncoding(nn.Module):
         lo, hi = self._level_range(levels, self.n_levels)
         if hi <= lo:
             return x.new_zeros((x.shape[0], self.n_output_dims))
-        i0, w = self._cell(x, lo, hi)
+        i0, w = self._cell(self._enter(x), lo, hi)
         vals = self._lookup(self._corner_rows(i0, lo, hi), lo, grad_impl)
-        feats = (_outer8(*_axis_pairs(w))[..., None] * vals).sum(2)
+        feats = self._reduce((_outer8(*_axis_pairs(w))[..., None]
+                              * vals).sum(2))
         return self._level_out(feats, lo, hi, step)
 
     def encode_with_grad(self, x: torch.Tensor, step=None, levels=None,
@@ -204,7 +310,7 @@ class HashGridEncoding(nn.Module):
         if hi <= lo:
             z = x.new_zeros((x.shape[0], self.n_output_dims))
             return z, (z, z, z)
-        i0, w = self._cell(x, lo, hi)
+        i0, w = self._cell(self._enter(x), lo, hi)
         vals = self._lookup(self._corner_rows(i0, lo, hi), lo, grad_impl)
         pairs = _axis_pairs(w)
         feats = (_outer8(*pairs)[..., None] * vals).sum(2)
@@ -215,9 +321,10 @@ class HashGridEncoding(nn.Module):
         for a in range(3):
             dp = list(pairs)
             dp[a] = d
-            jac.append(self._level_out(
-                (_outer8(*dp)[..., None] * vals).sum(2) * res, lo, hi, step))
-        return self._level_out(feats, lo, hi, step), tuple(jac)
+            jac.append((_outer8(*dp)[..., None] * vals).sum(2) * res)
+        feats, *jac = self._reduce(feats, *jac)
+        return self._level_out(feats, lo, hi, step), tuple(
+            self._level_out(j, lo, hi, step) for j in jac)
 
     def encode_axis_probes(self, u: torch.Tensor, u_probes: torch.Tensor,
                            probe_axes, step=None, levels=None,
@@ -239,6 +346,7 @@ class HashGridEncoding(nn.Module):
             raise ValueError(f"{u_probes.shape[0]} probes for {p_n} axes")
         if hi <= lo:
             return u.new_zeros((p_n + 1, n, self.n_output_dims))
+        u, u_probes = self._enter(u, u_probes)
         i0, f = self._cell(u, lo, hi)
         res = self.level_res[lo:hi].to(u.dtype)
         w2 = _axis_pairs(f)
@@ -272,8 +380,43 @@ class HashGridEncoding(nn.Module):
 
         vals = self._lookup(self._rows_by_band(rows32, lo, hi), lo,
                             grad_impl)
-        feats = torch.einsum("pnlk,nlkf->pnlf", w32, vals)
+        feats = self._reduce(torch.einsum("pnlk,nlkf->pnlf", w32, vals))
         return self._level_out(feats, lo, hi, step)
+
+
+class ReduceFrom(torch.autograd.Function):
+    """Forward: the tensors summed over ``group`` (one all-reduce);
+    backward: ``CopyTo`` of the replicated cotangents, which is the
+    identity to first order.  ``ReduceFrom.bytes`` counts the bytes its
+    all-reduces took, forward and backward."""
+
+    bytes = 0
+
+    @staticmethod
+    def forward(ctx, group, *outs):
+        ctx.group = group
+        s = torch.stack(outs)
+        dist.all_reduce(s, group=group)
+        ReduceFrom.bytes += s.numel() * s.element_size()
+        return tuple(s.unbind())
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None,) + CopyTo.apply(ctx.group, *grads)
+
+
+class CopyTo(torch.autograd.Function):
+    """Forward: the tensors as they are (replicated over ``group``);
+    backward: ``ReduceFrom`` of the shards' parts of their cotangents."""
+
+    @staticmethod
+    def forward(ctx, group, *xs):
+        ctx.group = group
+        return tuple(x.view_as(x) for x in xs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None,) + ReduceFrom.apply(ctx.group, *grads)
 
 
 def _axis_pairs(w: torch.Tensor):

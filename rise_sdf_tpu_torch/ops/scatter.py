@@ -14,6 +14,9 @@ Counterpart of ``rise_sdf_tpu/ops/scatter_pallas.py``.
   counts kernel launches.
 * ``scatter_add_plain``: ``index_add_`` (counterpart of
   ``scatter_add_reference``).
+* A negative index is an absent row (a row that another shard of a
+  row-sharded table owns, ``ops/hashgrid.py``): both drop its values,
+  as XLA's scatter drops an out-of-bounds index.
 * ``TableGradLookup``: ``table[idx]`` (kernel G1, ``ops/gather.py``, on
   the card) whose table-gradient is ``scatter_add``, or with
   ``grad_impl='sorted'`` (and always under
@@ -34,7 +37,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from .gather import gather_rows
-from .scatter_sorted import scatter_add_sorted
+from .scatter_sorted import present_entries, scatter_add_sorted
 
 _LIB = None
 
@@ -58,15 +61,18 @@ def _lib():
 
 def scatter_add_plain(idx: torch.Tensor, vals: torch.Tensor,
                       table_size: int) -> torch.Tensor:
-    """Plain PyTorch version: ``zeros([T, F]).index_add_(0, idx, vals)``."""
+    """Plain PyTorch version: ``zeros([T, F]).index_add_(0, idx, vals)``
+    over the present (non-negative) indices."""
+    idx, vals = present_entries(idx, vals)
     return torch.zeros((table_size, vals.shape[-1]), dtype=vals.dtype,
                        device=vals.device).index_add_(0, idx.long(), vals)
 
 
+
 def scatter_add(idx: torch.Tensor, vals: torch.Tensor, table_size: int,
                 period: int = 1) -> torch.Tensor:
-    """idx [M] int32 in [0, table_size); vals [M, F] float32 ->
-    [table_size, F] float32.  ``period`` >= 1: entry ``n * period + j``
+    """idx [M] int32 below table_size (a negative index is dropped);
+    vals [M, F] float32 -> [table_size, F] float32.  ``period`` >= 1: entry ``n * period + j``
     of ``idx`` is row ``n``, column ``j`` of the caller's layout (the
     kernel adds the entries past the last whole row one by one).
     Launches on the current stream and does not synchronise."""

@@ -26,7 +26,10 @@ float32 prefix sum, searchsorted), which is XLA ops in the JAX package.
   CPU tensors it runs ``scatter_add_sorted_plain``, which is the same
   arithmetic in torch ops, so the two are bit-equal.  ``period`` is the
   row stride of the caller's layout, as K1's: it changes how the kernel
-  walks the entries, not a bit of the result.
+  walks the entries, not a bit of the result.  A negative index is an
+  absent row (a row that another shard of a row-sharded table owns,
+  ``ops/hashgrid.py``): its values take part in nothing, neither the
+  range nor a bucket nor a sum; M counts every entry.
   ``scatter_add_sorted.launches`` counts calls that launched the kernel.
 * ``scatter_add_sorted_plain``: the kernel's arithmetic with
   ``index_add_`` on int64 tensors.
@@ -93,6 +96,15 @@ def _times_pow2(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     return x * _pow2(k1) * _pow2(k - k1)
 
 
+def present_entries(idx: torch.Tensor, vals: torch.Tensor):
+    """``idx`` and ``vals`` without the entries of absent (negative)
+    indices."""
+    keep = idx >= 0
+    if bool(keep.all()):
+        return idx, vals
+    return idx[keep], vals[keep]
+
+
 def scatter_add_sorted_plain(idx: torch.Tensor, vals: torch.Tensor,
                              table_size: int) -> torch.Tensor:
     """Plain PyTorch version, bit-equal to the kernel (its header has the
@@ -100,9 +112,10 @@ def scatter_add_sorted_plain(idx: torch.Tensor, vals: torch.Tensor,
     bucket of its largest value, every value quantised on its entry's
     scale, ``index_add_`` of the high and the low words as int64, each
     entry converted back and rounded once to ``vals``' dtype."""
-    m, f = vals.shape
+    m, f = vals.shape  # M counts the absent entries too
     table = (table_size, f)
     dev = vals.device
+    idx, vals = present_entries(idx, vals)
     if vals.numel() == 0:
         return torch.zeros(table, dtype=vals.dtype, device=dev)
     finite = torch.isfinite(vals)
@@ -124,7 +137,7 @@ def scatter_add_sorted_plain(idx: torch.Tensor, vals: torch.Tensor,
     rows = idx.long()
     least = torch.full(table, _BUCKETS, dtype=torch.int64,
                        device=dev).scatter_reduce_(
-        0, rows[:, None].expand(m, f), bucket, "amin")
+        0, rows[:, None].expand(-1, f), bucket, "amin")
     del bucket
     shift = (94 - m.bit_length()) - (e_hi - width * torch.where(
         least == _BUCKETS, 0, least))
@@ -151,7 +164,8 @@ def scatter_add_sorted_plain(idx: torch.Tensor, vals: torch.Tensor,
 
 def scatter_add_sorted(idx: torch.Tensor, vals: torch.Tensor,
                        table_size: int, period: int = 1) -> torch.Tensor:
-    """idx [M] int32 in [0, table_size), M <= ``MAX_ROWS``; vals [M, F]
+    """idx [M] int32 below table_size (a negative index is dropped), M <=
+    ``MAX_ROWS``; vals [M, F]
     float32 or float64 -> [table_size, F] of vals' dtype,
     bit-reproducible.  ``period`` >= 1: entry ``n * period + j`` of
     ``idx`` is row ``n``, column ``j`` of the caller's layout.  Launches

@@ -11,9 +11,12 @@ no JAX.
 ``dryrun_multichip(n, device, backend)`` runs one stage-1 train step of
 ``tiny_split_config`` (the emitter mips in the loss, the secondary pass,
 hybrid finite differences, the curvature probe) over ``n`` ranks and
-checks that the loss is finite.  It returns each rank's gradients before
-and after the all-reduce and its parameters after the update, for the
-caller to hold against the one-process mean.
+checks that the loss is finite.  As ``__graft_entry__.dryrun_multichip``
+it takes ``table_shards = 2`` when ``n`` is even and at least 4, so
+``n = 4`` is data=2 x model=2.  It returns each rank's gradients before
+and after the all-reduce and its parameters after the update (a table
+shard's rows only), for the caller to hold against the one-process
+mean.
 
     python -m rise_sdf_tpu_torch.parallel.dryrun [--ranks 2]
         [--device cuda|cpu] [--backend nccl|gloo]
@@ -69,6 +72,12 @@ def spawn(fn, world: int, backend: str, args=(), init_method=None) -> None:
             shutil.rmtree(tmp, ignore_errors=True)
 
 
+def table_shards_for(n: int) -> int:
+    """``__graft_entry__.dryrun_multichip``'s model axis at ``n``
+    devices."""
+    return 2 if n >= 4 and n % 2 == 0 else 1
+
+
 def _dryrun_rank(rank, world, device, out_dir):
     from .. import datasets, systems
     from ..presets import tiny_split_config
@@ -76,6 +85,7 @@ def _dryrun_rank(rank, world, device, out_dir):
 
     dev = rank_device(device, rank)
     cfg = tiny_split_config()
+    cfg["system"]["table_shards"] = table_shards_for(world)
     dm = datasets.make(cfg["dataset"]["name"], cfg["dataset"])
     system = systems.make(cfg["system"]["name"], cfg, dm,
                           save_dir=os.path.join(out_dir, "save"),
@@ -88,13 +98,14 @@ def _dryrun_rank(rank, world, device, out_dir):
         p.register_post_accumulate_grad_hook(
             lambda p, name=name: pre.__setitem__(name, p.grad.clone()))
     gen = torch.Generator(device=dev)
-    gen.manual_seed(_step_seed(0, 2 * step, rank, world))
+    mesh = system.mesh
+    gen.manual_seed(_step_seed(0, 2 * step, mesh.data_index, mesh.dp))
     data = system.device_data(dm.train())
     rays = system.rank_counts(system.capacity)[0]
     batch = system.sample_batch(gen, data, num_rays=rays)
     aux = system.train_step(state, batch, gen)
     named = dict(system.model.named_parameters())
-    res = {"loss": float(aux["loss"]),
+    res = {"loss": float(aux["loss"]), "mesh": (mesh.dp, mesh.tp),
            "skipped": float(aux["skipped_nonfinite"]),
            "pre": {k: pre.get(k, torch.zeros_like(p)).cpu()
                    for k, p in named.items()},
@@ -107,9 +118,9 @@ def dryrun_multichip(n: int, device: str = "cuda",
                      backend: str = "nccl") -> Dict:
     """One stage-1 step of ``tiny_split_config`` over ``n`` ranks (see
     the module docstring); raises unless the loss is finite and no
-    update was skipped.  Returns ``{"loss", "ranks"}``, ``ranks`` being
-    each rank's ``pre`` and ``post`` gradients and ``params`` by
-    parameter name, on the CPU."""
+    update was skipped.  Returns ``{"loss", "data", "model", "ranks"}``,
+    ``ranks`` being each rank's ``pre`` and ``post`` gradients and
+    ``params`` by parameter name, on the CPU."""
     out = tempfile.mkdtemp(prefix="rise_dryrun_")
     try:
         spawn(_dryrun_rank, n, backend, args=(device, out))
@@ -121,9 +132,10 @@ def dryrun_multichip(n: int, device: str = "cuda",
     if not np.isfinite(loss) or any(r["skipped"] for r in ranks):
         raise RuntimeError(f"dryrun_multichip({n}): loss {loss}, skipped "
                            f"{[r['skipped'] for r in ranks]}")
-    print(f"dryrun_multichip({n}): ok (data={n}, {backend} on {device}), "
-          f"loss={loss:.4f}", flush=True)
-    return {"loss": loss, "ranks": ranks}
+    dp, tp = ranks[0]["mesh"]
+    print(f"dryrun_multichip({n}): ok (data={dp} x model={tp}, {backend} "
+          f"on {device}), loss={loss:.4f}", flush=True)
+    return {"loss": loss, "data": dp, "model": tp, "ranks": ranks}
 
 
 def main(argv=None):

@@ -10,19 +10,28 @@ step.  A JAX checkpoint loads whole here and the port's loads whole in
 the JAX package's ``load_checkpoint``.  Over data-parallel ranks
 (``parallel/sharding.py``) rank 0 writes the files and every rank loads
 the same file, after a barrier that follows rank 0's write.
+
+With ``system.table_shards`` above 1 (``self.mesh.tp``) every hash
+table of the model keeps this rank's rows (``HashGridEncoding.
+shard_table``).  A checkpoint is the full state all the same: the
+ranks gather the table shards and their moments over their model
+groups and rank 0 writes the file an unsharded run writes; a load at
+any ``tp`` takes its rows of it (``bridge.shard_params``).
 """
 
 from __future__ import annotations
 
+import math
 import os
 import threading
-from contextlib import contextmanager
-from typing import Dict, Optional
+from contextlib import ExitStack, contextmanager
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
 from .. import bridge, models
+from ..ops.hashgrid import HashGridEncoding
 from ..parallel import sharding
 from .optim import make_optimizer
 from ..utils.saving import Saver
@@ -44,6 +53,14 @@ class BaseSystem:
             torch.backends.cudnn.allow_tf32 = False
         self.model = models.make(config["model"]["name"],
                                  config["model"]).to(self.device)
+        grids = self.hash_grids()
+        self.mesh = sharding.make_mesh(
+            int(config["system"].get("table_shards", 1) or 1),
+            math.gcd(*[g.table_size for g in grids]) if grids else None)
+        if self.mesh.tp > 1:
+            for g in grids:
+                g.shard_table(self.mesh.tp, self.mesh.model_index,
+                              self.mesh.model_group)
         self.save_dir = save_dir
         self.saver = Saver(save_dir, write=sharding.is_main_process())
         self.ckpt_dir = ckpt_dir or os.path.join(save_dir, "ckpt")
@@ -93,6 +110,43 @@ class BaseSystem:
                 p.requires_grad_(f)
 
     # ------------------------------------------------------------------ #
+    def hash_grids(self) -> List[HashGridEncoding]:
+        """The model's hash-grid encodings."""
+        return [m for m in self.model.modules()
+                if isinstance(m, HashGridEncoding)]
+
+    def table_shards(self) -> List[torch.Tensor]:
+        """The parameters that hold this rank's rows of a sharded hash
+        table (none unless ``mesh.tp > 1``)."""
+        return [g.table for g in self.hash_grids() if g.shard is not None]
+
+    @contextmanager
+    def gathered_tables(self):
+        """Every sharded hash table gathered whole over the model group
+        (a collective: every rank enters), and read whole, with no
+        collective, inside; a no-op unsharded."""
+        with ExitStack() as stack:
+            for g in self.hash_grids():
+                if g.shard is not None:
+                    stack.enter_context(g.unsharded(sharding.all_gather_rows(
+                        g.table.detach(), self.mesh.model_group)))
+            yield
+
+    def _gathered_state(self, flat):
+        """The full flat state from this rank's ``flat`` (every table
+        entry this rank's rows): the table entries all-gathered over the
+        model group in shard order (``bridge.gather_params``)."""
+        tp = self.mesh.tp
+        shards = [dict(flat) for _ in range(tp)]
+        for k, v in flat.items():
+            if bridge.is_table(k, v.ndim):
+                parts = sharding.all_gather_shards(
+                    torch.from_numpy(v).to(self.device),
+                    self.mesh.model_group)
+                for shard, part in zip(shards, parts):
+                    shard[k] = part.cpu().numpy()
+        return bridge.gather_params(shards)
+
     def fresh_optimizer(self):
         """A new Adam and LR schedule over the model's parameters."""
         self.optimizer, self.scheduler = make_optimizer(
@@ -108,6 +162,10 @@ class BaseSystem:
                 path = bridge.jax_path(self._param_names[p])[len("params/"):]
                 shapes[bridge.MU + path] = shapes[bridge.NU + path] = \
                     tuple(p.shape)
+        # a table shard's entries are the full table's in the file
+        shapes = {k: (v[0], v[1] * self.mesh.tp, v[2])
+                  if bridge.is_table(k, len(v)) else v
+                  for k, v in shapes.items()}
         cells = (self.model.grid_resolution ** 3,)
         shapes.update({bridge.ADAM_COUNT: (),
                        bridge.schedule_count_key(self.optimizer): (),
@@ -127,17 +185,24 @@ class BaseSystem:
         most one writer is in flight: a save first joins the previous
         one (``wait_checkpoint_writer``).  Over ranks only rank 0
         writes, and a synchronous save returns on every rank once the
-        file is written."""
+        file is written; with sharded tables every rank first gathers
+        its model group's shards (a collective), so the file is the
+        unsharded run's."""
         path = path or os.path.join(self.ckpt_dir,
                                     f"step_{int(state['step'])}.ckpt.npz")
         if self.optimizer is None:
             self.fresh_optimizer()
+        flat = None
+        if self.mesh.tp > 1:
+            flat = self._gathered_state(bridge.to_jax_state(
+                self.model, self.optimizer, self.scheduler))
         if not sharding.is_main_process():
             if not async_write:
                 sharding.barrier()
             return path
-        flat = bridge.to_jax_state(self.model, self.optimizer,
-                                   self.scheduler)
+        if flat is None:
+            flat = bridge.to_jax_state(self.model, self.optimizer,
+                                       self.scheduler)
         flat["occs"] = bridge.host_copy(state["occs"])
         flat["occ_binary"] = bridge.host_copy(state["occ_binary"])
         flat["step"] = np.asarray(int(state["step"]), np.int32)
@@ -176,7 +241,8 @@ class BaseSystem:
         """The checkpoint's entries, each of ``keys`` checked: a missing
         one raises ``KeyError`` and a wrong shape ``ValueError``, both
         naming the state path.  Over ranks it reads after a barrier
-        that rank 0 passes once its writes are done."""
+        that rank 0 passes once its writes are done; with sharded tables
+        each table entry comes back as this rank's rows of it."""
         self.wait_checkpoint_writer()
         sharding.barrier()
         flat = bridge.load_npz(path)
@@ -192,6 +258,9 @@ class BaseSystem:
                     f"checkpoint shape mismatch at '{key}': saved "
                     f"{tuple(flat[key].shape)}, state expects "
                     f"{shapes[key]}")
+        if self.mesh.tp > 1:
+            flat = bridge.shard_params(flat, self.mesh.tp,
+                                       self.mesh.model_index)
         return flat
 
     def _load_state(self, flat) -> Dict:
@@ -245,7 +314,9 @@ class BaseSystem:
         """Occupancy-grid EMA sweep over a rotating 1/``subset_fraction``
         of the cells (all cells refresh within 4 updates = 64 steps).
         Every rank sweeps with the same draws and the same params, as
-        JAX's replicated sweep does, so the ranks' grids stay equal."""
+        JAX's replicated sweep does, so the ranks' grids stay equal;
+        with sharded tables each model group encodes the points
+        together, as JAX's sweep reads the whole table."""
         model = self.model
         res = model.grid_resolution
         thre = float(self.config["model"].get("grid_prune_occ_thre", 0.01))

@@ -14,11 +14,13 @@ uninterrupted one.  ``test`` renders the test split and exports the
 mesh (``export``), ``predict`` renders the predict split.
 
 Over data-parallel ranks (``parallel/sharding.py``, JAX's ``data``
-mesh axis) each rank draws its own share of the rays from its own
+mesh axis) each data index draws its own share of the rays from its own
 generator and marches them into its share of the buffer; the gradients
 are averaged before the guard, and the update runs on every rank.  An
-eval chunk's rays split over the ranks and every rank gathers the whole
-image.  Rank 0 writes the files.
+eval chunk's rays split over the data indices and every rank gathers
+the whole image.  With ``system.table_shards`` (JAX's ``model`` axis)
+the ranks of one data index hold a hash table's rows between them and
+take the same rays.  Rank 0 writes the files.
 """
 
 from __future__ import annotations
@@ -45,12 +47,13 @@ from ..utils.rays import get_rays
 OCC_UPDATE_EVERY = 16  # steps between occupancy-grid sweeps in ``fit``
 
 
-def _step_seed(seed: int, k: int, rank: int = 0, world: int = 1) -> int:
+def _step_seed(seed: int, k: int, index: int = 0, shards: int = 1) -> int:
     """Per-step generator seed: the random stream is a function of
-    (seed, step) and, over ranks, of (rank, world size), so a resumed
-    run replays the batches of an uninterrupted one and each rank draws
-    its own; one rank of one is the one-process stream."""
-    return ((seed + 1) * 1_000_003 + k) * world + rank
+    (seed, step) and, over ranks, of (data index, data shards), so a
+    resumed run replays the batches of an uninterrupted one, each data
+    index draws its own and a model group draws the same; one rank of
+    one is the one-process stream."""
+    return ((seed + 1) * 1_000_003 + k) * shards + index
 
 
 @register("neus-system")
@@ -189,9 +192,9 @@ class NeuSSystem(BaseSystem):
 
     def rank_counts(self, capacity: int):
         """This rank's rays per step and its share of ``capacity``
-        (``sharding.per_rank_counts`` at the world size)."""
+        (``sharding.per_rank_counts`` at the data shards)."""
         return sharding.per_rank_counts(self.train_num_rays, capacity,
-                                        sharding.data_shard_count())
+                                        self.mesh.dp)
 
     def train_options(self, step: int) -> Dict:
         """``forward_loss``'s per-step options, as the JAX fit sets them:
@@ -214,9 +217,10 @@ class NeuSSystem(BaseSystem):
         JAX step keeps the whole optax state, schedule count included)
         and counts the skip in ``self.skipped_updates``.
 
-        Over ranks, the gradients are averaged (one all-reduce) before
-        the guard, and the aux scalars, the loss and the guard's flag in
-        a second collective, so every rank takes the same update or
+        Over ranks, the gradients are averaged (one all-reduce; a table
+        shard's over its data group, in a second one) before the guard,
+        and the aux scalars, the loss and the guard's flag over the world
+        in one more collective, so every rank takes the same update or
         skips with the others (JAX's ``pmean``)."""
         step = int(state["step"])
         self.optimizer.zero_grad(set_to_none=True)
@@ -229,7 +233,15 @@ class NeuSSystem(BaseSystem):
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for p in params]
-        sharding.all_reduce_mean_(grads)
+        shards = {id(p) for p in self.table_shards()}
+        if shards:
+            sharding.all_reduce_mean_([p.grad for p in params
+                                       if id(p) not in shards])
+            sharding.all_reduce_mean_([p.grad for p in params
+                                       if id(p) in shards],
+                                      self.mesh.data_group)
+        else:
+            sharding.all_reduce_mean_(grads)
         aux["loss"] = loss.detach()
         aux["finite"] = torch.stack([torch.isfinite(g).all()
                                      for g in grads]).all()
@@ -269,7 +281,7 @@ class NeuSSystem(BaseSystem):
             self.fresh_optimizer()
         data = self.device_data(self.datamodule.train())
         gen = torch.Generator(device=self.device)
-        rank, world = sharding.rank(), sharding.data_shard_count()
+        index, shards = self.mesh.data_index, self.mesh.dp
         num_rays = self.rank_counts(self.capacity)[0]
         t0 = time.time()
         start = int(state["step"])
@@ -279,7 +291,7 @@ class NeuSSystem(BaseSystem):
                 # the same draws on every rank
                 gen.manual_seed(_step_seed(seed, 2 * step + 1))
                 self.update_occupancy(state, gen)
-            gen.manual_seed(_step_seed(seed, 2 * step, rank, world))
+            gen.manual_seed(_step_seed(seed, 2 * step, index, shards))
             batch = self.sample_batch(gen, data, num_rays=num_rays)
             aux = self.train_step(state, batch, gen)
             if log_every and (step % log_every == 0 or step == max_steps - 1):
@@ -380,12 +392,13 @@ class NeuSSystem(BaseSystem):
         ``render_chunk``; the chunks' ``stat_*`` counts are dropped.
 
         Over ranks, each (edge-padded) chunk's rays split evenly over
-        them; each rank renders its shard into its share of the buffers
-        and the per-ray outputs are gathered, so every rank holds the
-        whole chunk and escalates it with the others."""
+        the data indices; each renders its shard into its share of the
+        buffers and the per-ray outputs are gathered over the data group,
+        so every rank holds the whole chunk and escalates it with the
+        others (a model group renders the same rays)."""
         rays, inv = self.view_rays(split, index)
         n, chunk = rays.shape[0], self.eval_chunk
-        rank, world = sharding.rank(), sharding.data_shard_count()
+        rank, world = self.mesh.data_index, self.mesh.dp
         outs = []
         with self.frozen_params():
             ctx = self.eval_context(state, emitter_base)
@@ -396,7 +409,7 @@ class NeuSSystem(BaseSystem):
                     shards=world, **ctx, **opts)
                 return sharding.gather_rays(
                     {k: v for k, v in res.items()
-                     if not k.startswith("stat_")})
+                     if not k.startswith("stat_")}, self.mesh.data_group)
 
             for s in range(0, n, chunk):
                 part = rays[s:s + chunk]
@@ -493,11 +506,14 @@ class NeuSSystem(BaseSystem):
         ``metallic.npy`` and ``roughness.npy`` (sRGB-encoded, as the
         JAX package writes them); returns the mesh (None without a
         surface).  ``times`` gets ``export_mesh``'s seconds.  Over ranks
-        rank 0 alone exports (the others return None)."""
-        if not sharding.is_main_process():
-            return None
-        with self.frozen_params():
-            mesh = export_mesh(self.model, state, self.config, times)
+        rank 0 alone exports (the others return None), from the whole
+        tables when they are sharded (``gathered_tables``: every rank
+        takes part in the gather)."""
+        with self.gathered_tables():
+            if not sharding.is_main_process():
+                return None
+            with self.frozen_params():
+                mesh = export_mesh(self.model, state, self.config, times)
         if mesh is None:
             return None
         iso = self.config["model"]["geometry"]["isosurface"]

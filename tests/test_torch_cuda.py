@@ -284,6 +284,39 @@ def test_scatter_add_out_of_range_index_raises(cuda):
         "64, 8)")
 
 
+@pytest.mark.parametrize("f,period", [(2, 128), (2, 1), (3, 8)],
+                         ids=["walk", "no_layout", "scalar"])
+def test_kernels_take_absent_rows(cuda, f, period):
+    """A negative index (another shard's row): G1 writes zeros, K1 and K2
+    drop it, runs of equal rows around it included; the kernels equal
+    their plain versions (K1 within its float32 bound, G1 and K2 bit for
+    bit)."""
+    from rise_sdf_tpu_torch.ops import scatter_sorted
+
+    gen = torch.Generator(device=cuda).manual_seed(16 + f + period)
+    m, t = 8192 * 8, 3000
+    idx = torch.randint(0, t, (m,), generator=gen, device=cuda,
+                        dtype=torch.int32)
+    # runs of equal rows, broken by absent ones
+    idx = idx.view(-1, 8).sort(0).values.reshape(-1).contiguous()
+    absent = torch.rand(m, generator=gen, device=cuda) < 0.3
+    idx = torch.where(absent, -1, idx).to(torch.int32)
+    vals = torch.randn((m, f), generator=gen, device=cuda)
+    vals[absent] = float("nan")  # reaches nothing
+    keep = idx >= 0
+    got = scatter_add(idx, vals, t, period)
+    torch.cuda.synchronize()
+    _assert_matches_f64(got, idx[keep], vals[keep], t)
+    k2 = scatter_sorted.scatter_add_sorted(idx, vals, t, period)
+    assert torch.equal(k2, scatter_sorted.scatter_add_sorted_plain(
+        idx, vals, t))
+    for w in (2, 8):
+        table = torch.randn((t, w), generator=gen, device=cuda)
+        rows = gather_rows(table, idx)
+        assert torch.equal(rows, table[idx.long().clamp(min=0)]
+                           .masked_fill(~keep[:, None], 0))
+
+
 def test_forward_multi_on_the_card_matches_cpu(cuda):
     """The tiny split eval through ``forward_multi`` (the learned light
     and a relight light with the third bounce) on the card: G1 gathers

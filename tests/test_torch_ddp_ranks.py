@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from rise_sdf_tpu_torch import bridge, datasets, launch, presets, systems
+from rise_sdf_tpu_torch import bridge, datasets, presets, systems
 from rise_sdf_tpu_torch.parallel import sharding
 from rise_sdf_tpu_torch.utils import saving
 
@@ -246,16 +246,20 @@ def test_one_process_is_one_shard():
     assert sharding.all_reduce_mean_scalars(scalars, "cpu") is scalars
 
 
-def test_table_shards_raise(tmp_path):
-    assert sharding.table_shard_count(1) == 1
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        sharding.table_shard_count(2)
-    # the JAX launcher's override, before any file is written
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        launch.main(["--preset", "tiny_neus_config", "--device", "cpu",
-                     "--train", "--exp_dir", str(tmp_path),
-                     "system.table_shards=2"])
-    assert os.listdir(tmp_path) == []
+def test_table_shard_count():
+    assert sharding.table_shard_count(2, world=4) == 2
+    assert sharding.table_shard_count(4, world=4, table_size=4096) == 4
+    assert sharding.table_shard_count(1, world=4) == 1
+    # one rank is one shard: the JAX launcher builds no mesh on one device
+    assert sharding.table_shard_count(2, world=1) == 1
+    assert sharding.table_shard_count(2) == 1  # no process group
+    with pytest.raises(ValueError, match="does not divide"):
+        sharding.table_shard_count(3, world=4)
+    with pytest.raises(ValueError, match="does not split"):
+        sharding.table_shard_count(4, world=8, table_size=2 ** 19 + 2)
+    with pytest.raises(ValueError, match="at least 1"):
+        sharding.table_shard_count(0, world=4)
+    assert sharding.make_mesh(2) == sharding.Mesh(1, 1, 0, 0, None, None)
 
 
 def test_backend_is_explicit():
