@@ -19,7 +19,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    times (each over 10 back-to-back calls) of K1, of its plain version
    and of ``index_add_``;
 4. G1 bit-equal to ``index_select`` at S2/S3's shape (8,388,608 rows from
-   2^19 x 2), at S4's (4,194,304 rows from 2^19 x w, w = 2, 8, 32), at
+   2^19 x 2), at S4's (4,194,304 rows from 2^19 x w, w = 2, 8, 32, and
+   float64 W = 2: the 16-byte path at q = 2, 8 and 1 vectors a row), at
    the render's (one chunk's hash encode and baked-SDF probe) and at the
    main-path shape (134,217,728 rows from 8,388,608 x 2); median-of-10
    times of G1, of its plain version and of ``index_select``;
@@ -36,9 +37,13 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    JAX package's ``bench.py``), G1 and K1 counts zeroed just before and
    read just after: the image must be finite, G1 must launch and K1 must
    not (the run includes the bench's sphere-traced row, checked in phase
-   16b).  The band-sample hash encode of one chunk from the middle of the
-   image is recorded (the render stream); G1 is held to and timed
-   against ``index_select`` on its rows;
+   16b); G1's 16-byte path (the baked-SDF sample) must launch, its
+   launches in the timed image and its device ms over the profiled
+   chunks are printed.  The band-sample hash encode of one chunk from
+   the middle of the image is recorded (the render stream), and the
+   same chunk's baked-SDF rows, the visibility probe's and the secondary
+   alpha's (the bake stream); G1 is held to and timed against
+   ``index_select`` on their rows;
 7. training slice: the NeuS system at ``neus_sphere_full`` widths (hash
    grid 16 x 2^19 x 2, 4096 rays x 1024 samples into a 1,048,576-sample
    buffer) on the synthetic sphere at 800x800, trained through
@@ -80,7 +85,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    in single-light mode, one render per light
    (``rise_sdf_tpu_torch.measure.test_protocol``).  The counts are
    zeroed just before and read just after: G1 must launch and K1 must
-   not (no table gradient at eval); every metric is finite, no ray is
+   not (no table gradient at eval; G1's launches on its 16-byte path per
+   multi-emitter view are printed); every metric is finite, no ray is
    dropped after escalation, view 0's metrics in single-light mode are
    within 1e-3 of the multi-emitter render's (the bound of the JAX
    package's test of the two modes) and its images within 1e-4 in max
@@ -107,7 +113,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    ``latest.ckpt.npz`` must load back at the step after its last save;
    (e) ``python -m rise_sdf_tpu_torch.launch --preset
    split_mixed_occ_test_full --test --resume <a's file>
-   dataset.n_images=1`` as a subprocess: exit 0, the test PNGs and the
+   dataset.n_images=1 dataset.img_wh=[400,400]`` (the view cut from
+   800x800 for time) as a subprocess: exit 0, the test PNGs and the
    PLY in the trial's ``save/``, the wall time printed;
 11. data parallel (``rise_sdf_tpu_torch.measure.ddp_window``): the
    flagship at ``split_mixed_occ_train_full``, full width, from a fresh
@@ -229,10 +236,14 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    ``compute_indirect`` wrapping the flagship's
    ``compute_indirect_radiance`` (no compaction, on the eval bake) and
    secondary head, in chunks of 64,000 points: finite, G1 launching;
-   the CPU repeats one chunk on the same uniforms: sampled directions
-   within 1e-3 and within 1e-5 on all but 0.5 % of them (square roots
-   near 0 amplify float32 rounding), outputs within 2e-3 of max(1,
-   their largest entry) (the flagship's bf16 heads); (c) the learned
+   the CPU repeats one chunk on the same uniforms: its sampled
+   directions within 1e-3 of the card's and within 1e-5 on all but 0.5 %
+   of them (square roots near 0 amplify float32 rounding); then it
+   shades the chunk from the card's directions, every output within
+   2e-3 of max(1, its largest entry) (the flagship's bf16 heads); its
+   shading from its own directions is printed beside it, unbounded (the
+   environment and the GGX pdf turn ~1e-4 in a direction into up to
+   ~1e-2 of radiance); (c) the learned
    light's ``update_pdf`` at 128 x 256 and 1,048,576 ``sample`` draws,
    card against CPU on the same uniforms: the CDFs within 1e-4
    (relative: the projection of the 512^2 base), the directions on the
@@ -263,8 +274,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    protocol of phase 9 with ``eval_mode: sphere_trace`` on phase 8's
    parameters made sharp as the bench's headline makes them (variance
    0.67, inv_s ~ 812, and the bench's solid occupancy grid: the stand-in
-   for a converged field that sphere tracing is meant for), one 800x800
-   test view in multi-emitter mode and then in single-light mode, phase
+   for a converged field that sphere tracing is meant for), one test
+   view at 400x400 (cut from 800x800 for time) in multi-emitter mode
+   and then in single-light mode, phase
    9's bounds between the modes, every metric finite and no ray dropped
    after the volumetric residual; the residual rays, seconds per view
    and counts printed.  (On phase 8's soft state itself, inv_s ~ 20,
@@ -337,9 +349,10 @@ render within ``SHARD_RENDER_TOL``, and the export's vertex count (at
 export's; (c) ``dryrun_multichip(4)`` on four gloo ranks sharing the
 card, which takes data=2 x model=2.
 
-``--save-streams FILE`` saves both recorded streams for the same-call
-A/B against another tree, ``python -m rise_sdf_tpu_torch.kernel_ab``
-(``_ab/streams.pt``, about 1.7 GB, in the gitignored ``_ab/``).
+``--save-streams FILE`` saves the recorded training, render and bake
+streams for the same-call A/B against another tree, ``python -m
+rise_sdf_tpu_torch.kernel_ab`` (``_ab/streams.pt``, about 1.8 GB, in the
+gitignored ``_ab/``).
 The last two lines are the kernels' JSON record (K1's and G1's entries
 also carry their times on the recorded streams and per NeuS and flagship
 train step, G1's its launches in the test protocol, both their launches
@@ -351,13 +364,15 @@ stream, in phase 14's two training windows and test run, and in phase
 phase 16's three parts; K2's entry carries its times on each stream of
 17a and its launches in each run of 17b; all three carry their records
 on 18a's shard streams and K1's and G1's their launches per rank in
-18b) and
+18b; G1's ``rows16`` its 16-byte path's records: S4's shapes, the
+bake stream, launches per render and per test view) and
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the package
 beside it, the script exits non-zero and prints no result.
 """
 
 import argparse
 import atexit
+import contextlib
 import gc
 import json
 import os
@@ -417,11 +432,11 @@ def scatter_bound_ms(m, f, table_size):
     return max(moved / HBM_BYTES_PER_S, m * f / F32_OPS_PER_S) * 1e3
 
 
-def gather_bound_ms(m, w, rows):
+def gather_bound_ms(m, w, rows, elem=4):
     """Least time of ``table[idx]``: idx read once, each of the ``rows``
     distinct table rows it names read once, the output written once (a
-    gather does no arithmetic)."""
-    return (m * 4 + rows * w * 4 + m * w * 4) / HBM_BYTES_PER_S * 1e3
+    gather does no arithmetic); ``elem`` bytes per table entry."""
+    return (m * 4 + (rows + m) * w * elem) / HBM_BYTES_PER_S * 1e3
 
 
 def check_scatter(torch, got, idx, vals, table_size, what):
@@ -499,8 +514,9 @@ def check_gather(torch, gather, table, idx, what):
     lib_ms = median_ms(lambda: torch.index_select(table, 0, idx))
     (n, w), m = table.shape, idx.shape[0]
     rows = int(torch.unique(idx).numel())
-    bound = gather_bound_ms(m, w, rows)
-    log(f"  {what}: {m} rows ({rows} distinct) from {n} x {w}: bit-equal "
+    bound = gather_bound_ms(m, w, rows, table.element_size())
+    log(f"  {what}: {m} rows ({rows} distinct) from {n} x {w} "
+        f"{str(table.dtype)[6:]}: bit-equal "
         f"{equal}; G1 {ms:.4f} ms, plain {plain_ms:.4f} ms, index_select "
         f"{lib_ms:.4f} ms, bound {bound:.4f} ms (bytes; median of 10)")
     if not equal:
@@ -511,15 +527,19 @@ def check_gather(torch, gather, table, idx, what):
 
 def gather_phase(torch, gather):
     """G1 at S2/S3's, S4's, one render chunk's and the main path's
-    shapes; returns the main path's record."""
+    shapes; returns the main path's record and those of the shapes on
+    G1's 16-byte path (rows of 16-byte vectors)."""
     from rise_sdf_tpu_torch.measure import g1_shapes
 
     gen = torch.Generator(device="cuda").manual_seed(1)
+    rows16 = {}
     for what, (table, idx) in g1_shapes(gen):
         res = check_gather(torch, gather, table, idx, what)
+        if table.shape[1] * table.element_size() != 8:
+            rows16[what] = res
         del table, idx
     torch.cuda.empty_cache()
-    return res
+    return res, rows16
 
 
 def small_reference_phase(torch):
@@ -714,12 +734,64 @@ def split_train_reference_phase(torch, gather, scatter):
                  f"{launches[0]}, K1 {launches[1]} times")
 
 
+@contextlib.contextmanager
+def recording_bake(chunk):
+    """Records the baked-SDF rows that the flagship model's forward call
+    ``1 + chunk`` reads (call 0 is ``bench.run``'s warm-up chunk): the
+    int32 row indices of each G1 gather of the visibility probe
+    (``sdf_bake.sample_packed``, under ``"probe"``) and of the secondary
+    pass's alpha (``sample_packed_grad``, under ``"alpha"``), as lists,
+    and the packed table (``"table"``).  Yields that dict."""
+    from rise_sdf_tpu_torch.models.split_mixed_occ import SplitMixedOccModel
+    from rise_sdf_tpu_torch.ops import sdf_bake
+
+    seen = {"forwards": 0, "chunk": None, "part": None, "probe": [],
+            "alpha": []}
+    forward, gather_rows = SplitMixedOccModel.forward, sdf_bake.gather_rows
+    readers = {"probe": sdf_bake.sample_packed,
+               "alpha": sdf_bake.sample_packed_grad}
+
+    def recording_forward(self, *args, **kw):
+        seen["chunk"] = seen["forwards"] - 1
+        seen["forwards"] += 1
+        return forward(self, *args, **kw)
+
+    def reading(part):
+        def read(*args, **kw):
+            seen["part"] = part
+            try:
+                return readers[part](*args, **kw)
+            finally:
+                seen["part"] = None
+        return read
+
+    def recording_gather(table, idx):
+        if seen["chunk"] == chunk and seen["part"]:
+            seen["table"] = table
+            seen[seen["part"]].append(idx.clone())
+        return gather_rows(table, idx)
+
+    SplitMixedOccModel.forward = recording_forward
+    sdf_bake.sample_packed = reading("probe")
+    sdf_bake.sample_packed_grad = reading("alpha")
+    sdf_bake.gather_rows = recording_gather
+    try:
+        yield seen
+    finally:
+        SplitMixedOccModel.forward = forward
+        sdf_bake.sample_packed = readers["probe"]
+        sdf_bake.sample_packed_grad = readers["alpha"]
+        sdf_bake.gather_rows = gather_rows
+
+
 def render_phase(torch, gather, scatter):
     """The flagship render through its entry point, at 800x800.  The
     hash encode of the band samples of chunk ``RENDER_CHUNK`` of the
     timed image (call 0 is the warm-up chunk) is recorded: its table and
     its ``[N, 16, 8]`` rows (the eval encode gathers every level and
-    masks the closed ones after)."""
+    masks the closed ones after); so are the same chunk's baked-SDF rows
+    (the bake stream, ``recording_bake``), which G1's 16-byte path
+    reads."""
     from rise_sdf_tpu_torch import bench, presets
     from rise_sdf_tpu_torch.ops import hashgrid
 
@@ -741,8 +813,9 @@ def render_phase(torch, gather, scatter):
     gather.gather_rows.launches = 0
     scatter.scatter_add.launches = 0
     try:
-        res = bench.run("full", "cuda", profile_chunks=8,
-                        log=lambda msg: log(f"  {msg}"))
+        with recording_bake(RENDER_CHUNK) as baked:
+            res = bench.run("full", "cuda", profile_chunks=8,
+                            log=lambda msg: log(f"  {msg}"))
     finally:
         hashgrid.table_grad_lookup = lookup
     g1, k1 = gather.gather_rows.launches, scatter.scatter_add.launches
@@ -765,6 +838,16 @@ def render_phase(torch, gather, scatter):
         f"device time over {res['profile_chunks']} chunks "
         f"(share {res['g1_share']}), device busy "
         f"{res['device_busy_share']}")
+    rows16 = {"render_launches": res["g1_16_launches"],
+              "render_chunks": res["n_chunks"],
+              "profile_chunks": res["profile_chunks"],
+              "profile_ms": res["g1_16_device_ms"],
+              "profile_launches": res["g1_16_profile_launches"]}
+    log(f"  G1's 16-byte path (the baked-SDF sample): "
+        f"{rows16['render_launches']} launches in the timed image "
+        f"({res['n_chunks']} chunks); {rows16['profile_ms']:.3f} ms of "
+        f"device time in {rows16['profile_launches']} launches over "
+        f"{res['profile_chunks']} profiled chunks")
     if tuple(img.shape) != (800, 800, 3) or not bool(
             torch.isfinite(img).all()):
         fail("the 800x800 render is not a finite 800x800x3 image")
@@ -775,14 +858,29 @@ def render_phase(torch, gather, scatter):
     if "rows" not in seen:
         fail(f"no band-sample encode at chunk {RENDER_CHUNK} "
              f"({seen['calls']} recorded)")
+    if not rows16["render_launches"]:
+        fail("G1's 16-byte path never launched during the render")
     rows = seen["rows"]
     what = (f"render stream (chunk {RENDER_CHUNK}'s band-sample encode, "
             f"rows {list(rows.shape)})")
     log_runs(torch, rows, what)
     stream = check_gather(torch, gather, seen["table"], rows.reshape(-1),
                           what)
-    return g1, stream, {"render_rows": rows.cpu(),
-                        "render_table": seen["table"].cpu()}, sphere
+    saved = {"render_rows": rows.cpu(), "render_table": seen["table"].cpu()}
+    if "table" not in baked:
+        fail(f"no baked-SDF read at chunk {RENDER_CHUNK}")
+    saved["bake_table"] = baked["table"].cpu()
+    for part, name in (("probe", "visibility probe"),
+                       ("alpha", "secondary alpha")):
+        if not baked[part]:
+            fail(f"no {name} read of the bake at chunk {RENDER_CHUNK}")
+        idx = torch.cat(baked[part])
+        rows16[f"bake_{part}"] = check_gather(
+            torch, gather, baked["table"], idx,
+            f"bake stream, {name} (chunk {RENDER_CHUNK}, "
+            f"{len(baked[part])} gather(s))")
+        saved[f"bake_{part}_rows"] = idx.cpu()
+    return g1, stream, saved, sphere, rows16
 
 
 def slice_phase(torch, scatter, steps, cfg, device="cuda"):
@@ -1091,12 +1189,16 @@ def test_protocol_phase(torch, gather, scatter, system, state, views):
     shutil.rmtree(os.path.join("exp", "test_protocol"), ignore_errors=True)
     multi, single = res["multi"], res["single"]
     check_protocol(res)
-    log(f"  phase {phase_s:.1f} s; G1 launches {g1}, K1 launches {k1}")
+    per_view16 = multi["g1_16_launches"] / multi["views"]
+    log(f"  phase {phase_s:.1f} s; G1 launches {g1} (multi-emitter: "
+        f"{per_view16:g} per view on its 16-byte path, the baked-SDF "
+        f"sample), K1 launches {k1}")
     return g1, {"multi_s_per_view": multi["s_per_view"],
                 "single_s_per_view": single["s_per_view"],
                 "multi_launches_per_view": multi["g1_launches"]
-                / multi["views"]}, res["view0_pair"], res["view0_surface"], \
-        gifs
+                / multi["views"],
+                "multi_16_launches_per_view": per_view16}, \
+        res["view0_pair"], res["view0_surface"], gifs
 
 
 def check_protocol(res, lights=TEST_LIGHTS):
@@ -1311,7 +1413,9 @@ def lifecycle_phase(torch, gather, scatter, trained, state, steps):
     exp_dir = os.path.join(root, "cli")
     cmd = [sys.executable, "-m", "rise_sdf_tpu_torch.launch", "--preset",
            "split_mixed_occ_test_full", "--test", "--resume", ckpt,
-           "dataset.n_images=1", "--exp_dir", exp_dir]
+           "dataset.n_images=1",
+           "dataset.img_wh=[{},{}]".format(*SMALL_VIEW_WH),
+           "--exp_dir", exp_dir]
     t0 = time.perf_counter()
     res = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
     cli_s = time.perf_counter() - t0
@@ -2973,8 +3077,19 @@ def _indirect(model, occ, bake, normals, step):
 
 
 def pbr_phase(torch, gather, trained, state, cpu_model, surface):
-    """15b: ``volume-pbr`` with ``brdf-ggx`` on phase 9's view 0."""
+    """15b: ``volume-pbr`` with ``brdf-ggx`` on phase 9's view 0.  The
+    card samples the directions; the CPU samples its own from the same
+    uniforms, held to the card's within ``DIR_TOL`` (all but
+    ``DIR_SHARE`` of them within 1e-5), then shades chunk
+    ``PBR_CPU_CHUNK`` from the card's directions (``measure.
+    fixed_directions``), each output held to the card's within
+    ``PBR_RGB_TOL``.  The CPU's shading from its own directions is
+    logged beside it: a square root near 0 in the sampler turns the two
+    devices' last-bit differences into ~1e-4 of a direction, and the
+    environment and the GGX pdf of a small roughness into up to ~1e-2
+    of radiance, so that chained comparison holds no bound."""
     from rise_sdf_tpu_torch import models
+    from rise_sdf_tpu_torch.measure import fixed_directions
 
     step = int(state["step"])
     rays = torch.from_numpy(surface["rays"])
@@ -3021,41 +3136,49 @@ def pbr_phase(torch, gather, trained, state, cpu_model, surface):
         g1 = gather.gather_rows.launches
         rgb = torch.cat([x["rgb_phys"] for x in outs])
         sl = slice(PBR_CPU_CHUNK * PBR_CHUNK, (PBR_CPU_CHUNK + 1) * PBR_CHUNK)
-        t0 = time.perf_counter()
-        host_bake = bake and {k: v.cpu() if torch.is_tensor(v) else v
-                              for k, v in bake.items()}
-        cpu = run(cpu_model, host, u_host, occ.cpu(), host_bake, sl)
-        cpu_s = time.perf_counter() - t0
         sc = pbr.scatterer
         dirs_card = sc.sample_from_uniforms(
             *(v[sl] for v in u_card), card["normals"][sl], -card["dirs"][sl],
-            card["rough"][sl, 0])
+            card["rough"][sl, 0]).cpu()
         dirs_cpu = sc.sample_from_uniforms(
             *(v[sl] for v in u_host), host["normals"][sl], -host["dirs"][sl],
             host["rough"][sl, 0])
-    dir_diff = (dirs_card.cpu() - dirs_cpu).abs().amax(-1)
+        host_bake = bake and {k: v.cpu() if torch.is_tensor(v) else v
+                              for k, v in bake.items()}
+        t0 = time.perf_counter()
+        with fixed_directions(sc, dirs_card):
+            cpu = run(cpu_model, host, u_host, occ.cpu(), host_bake, sl)
+        cpu_s = time.perf_counter() - t0
+        cpu_own = run(cpu_model, host, u_host, occ.cpu(), host_bake, sl)
+    dir_diff = (dirs_card - dirs_cpu).abs().amax(-1)
     dir_err = float(dir_diff.max())
     dir_share = float((dir_diff > 1e-5).double().mean())
-    errs = {k: float((outs[PBR_CPU_CHUNK][k].cpu() - cpu[k]).abs().max()
-                     / max(1.0, float(cpu[k].abs().max())))
-            for k in cpu}
+
+    def rel_errs(ref):
+        return {k: float((outs[PBR_CPU_CHUNK][k].cpu() - ref[k]).abs().max()
+                         / max(1.0, float(ref[k].abs().max())))
+                for k in ref}
+
+    errs, errs_own = rel_errs(cpu), rel_errs(cpu_own)
     rec = {"points": n, "card_s": card_s, "cpu_points": sl.stop - sl.start,
            "cpu_s": cpu_s, "g1": g1, "dir_max_abs_err": dir_err,
            "dir_share_above_1e-5": dir_share,
-           "rel_err": errs, "rgb_phys_mean": float(rgb.mean()),
+           "rel_err": errs, "rel_err_own_dirs": errs_own,
+           "rgb_phys_mean": float(rgb.mean()),
            "rgb_phys_max": float(rgb.max())}
     log(f"  b. volume-pbr + brdf-ggx on phase 9's view 0 ({n} shading "
         f"points, materials from seed {PBR_SEED}, the phase-8 emitter, "
         f"compute_indirect = the flagship's compute_indirect_radiance and "
         f"secondary head) in {len(outs)} chunks: card {card_s:.2f} s (G1 "
         f"launches {g1}); rgb_phys mean {rec['rgb_phys_mean']:.4f}, max "
-        f"{rec['rgb_phys_max']:.4f}; the CPU on chunk {PBR_CPU_CHUNK} "
-        f"({rec['cpu_points']} points, the same uniforms) in {cpu_s:.1f} s: "
+        f"{rec['rgb_phys_max']:.4f}; chunk {PBR_CPU_CHUNK} on the CPU "
+        f"({rec['cpu_points']} points, the same uniforms): its own "
         f"directions max |card - CPU| {dir_err:.2e} (at most {DIR_TOL:g}), "
-        f"{dir_share:.2e} of them beyond 1e-5 (at most {DIR_SHARE:g}), "
-        f"outputs "
-        f"max |card - CPU| / max(1, max |CPU|) {json.dumps(errs)} (at most "
-        f"{PBR_RGB_TOL:g})")
+        f"{dir_share:.2e} of them beyond 1e-5 (at most {DIR_SHARE:g}); "
+        f"shaded from the card's directions in {cpu_s:.1f} s, outputs max "
+        f"|card - CPU| / max(1, max |CPU|) {json.dumps(errs)} (at most "
+        f"{PBR_RGB_TOL:g}); from its own directions (no bound: float32 "
+        f"conditioning) {json.dumps(errs_own)}")
     finite = bool(torch.isfinite(rgb).all())
     if not finite or g1 == 0:
         fail(f"volume-pbr on the card: finite {finite}, G1 launches {g1}")
@@ -3276,6 +3399,8 @@ def appearance_phase(torch, scatter, gather, trained, state, surface,
 # tracing; (c) phase 8's parameters, sharp, at split_mixed_occ_test_full
 # with eval_mode sphere_trace, one 800x800 test view in both modes.
 SURFACE_RAYS, SURFACE_VIEWS = 128, 1
+# 16c's and 10e's test views: cut from the preset's 800 x 800 for time
+SMALL_VIEW_WH = (400, 400)
 
 
 def surface_small_phase(torch, gather, scatter):
@@ -3405,8 +3530,9 @@ def surface_test_phase(torch, gather, scatter, system, state):
     """16c: the test protocol with ``eval_mode: sphere_trace`` on phase
     8's parameters made sharp as the bench's headline makes them
     (variance ``bench.VARIANCE``, its solid occupancy grid),
-    ``SURFACE_VIEWS`` test view in multi-emitter mode, then single-light
-    mode (``check_protocol``'s bounds).  Returns its record."""
+    ``SURFACE_VIEWS`` test view at ``SMALL_VIEW_WH`` in multi-emitter
+    mode, then single-light mode (``check_protocol``'s bounds).  Returns
+    its record."""
     from rise_sdf_tpu_torch import bench, measure
 
     variance = system.model.variance.variance
@@ -3422,7 +3548,8 @@ def surface_test_phase(torch, gather, scatter, system, state):
         res = measure.test_protocol(system, sharp, views=SURFACE_VIEWS,
                                     log=log,
                                     model={"eval_mode": "sphere_trace"},
-                                    relights=TEST_LIGHTS)
+                                    relights=TEST_LIGHTS,
+                                    img_wh=SMALL_VIEW_WH)
     finally:
         with torch.no_grad():
             variance.copy_(soft)
@@ -4243,15 +4370,16 @@ def main():
     log("K1 vs float64 index_add_:")
     k1, s1 = kernel_phase(torch, scatter)
     log("G1 vs index_select:")
-    g1 = gather_phase(torch, gather)
+    g1, rows16 = gather_phase(torch, gather)
     log("small-input reference (card vs CPU):")
     small_reference_phase(torch)
     render_reference_phase(torch, gather)
     split_train_reference_phase(torch, gather, scatter)
     log("render slice: rise_sdf_tpu_torch.bench, split_mixed_occ_full, "
         "800x800:")
-    g1["launches"], g1["render_stream"], streams, sphere = render_phase(
-        torch, gather, scatter)
+    g1["launches"], g1["render_stream"], streams, sphere, render16 = \
+        render_phase(torch, gather, scatter)
+    rows16.update(render16)
     from rise_sdf_tpu_torch import bench, measure
     from rise_sdf_tpu_torch.presets import neus_sphere_full
 
@@ -4277,6 +4405,9 @@ def main():
     (g1["test_launches"], g1["test_protocol"], lpips_pair, surface,
      gifs9) = test_protocol_phase(torch, gather, scatter, system, state,
                                   args.test_views)
+    rows16["test_launches_per_view"] = \
+        g1["test_protocol"]["multi_16_launches_per_view"]
+    g1["rows16"] = rows16
     log(f"lifecycle: split_mixed_occ_test_full from step "
         f"{int(state['step'])}: save, load, {args.resume_steps} resumed "
         f"steps, export, the launch CLI:")
@@ -4442,7 +4573,7 @@ def main():
              "flagship_per_step", "flagship_launches", "test_launches",
              "test_protocol", "resume_launches", "resume_launches_per_step",
              "export_launches", "ddp", "scene", "capture", "phase14",
-             "phase15", "phase16", "phase17", "phase18")
+             "phase15", "phase16", "phase17", "phase18", "rows16")
     log(json.dumps({"kernels": [
         {"name": "scatter_add (K1)", "route": "cuda", "source": SRC_K1,
          "replaces": REPLACES_K1, **{k: k1[k] for k in keys},

@@ -21,11 +21,12 @@ timed image then builds the mips, bakes the SDF and renders every chunk,
 as a real eval of one checkpoint does; rays/s is the image's rays over
 that time.  The script prints one JSON line: rays/s, dropped rays, the
 mip-build, bake and render seconds, the kernels' launches in the timed
-image, peak device memory and the image's largest opacity (above 1 by
-the float32 error of the transmittance scan); with ``--profile-chunks N``, the device
-time of ``N`` chunks by kernel under ``torch.profiler`` and G1's share
-of it, and the same (``sphere_profile_*``) for ``N // 4`` chunks of the
-sphere row.
+image (``g1_16_launches``: those of G1's 16-byte path, the baked-SDF
+sample), peak device memory and the image's largest opacity (above 1 by
+the float32 error of the transmittance scan); with ``--profile-chunks
+N``, the device time of ``N`` chunks by kernel under ``torch.profiler``,
+G1's share of it and its 16-byte path's ms and launches, and the same
+(``sphere_profile_*``) for ``N // 4`` chunks of the sphere row.
 
 After the headline, the ``sphere`` row of the JAX package's bench: the
 same model, sharp variance and solid occupancy rendered by sphere tracing
@@ -179,6 +180,7 @@ def run(preset: str = "full", device="cuda", profile_chunks: int = 0,
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     g1, k1 = gather_rows.launches, scatter_add.launches
+    g16 = gather_rows.launches16
     rgb = torch.empty((n, 3), device=device)
     included = torch.empty((n,), dtype=torch.bool, device=device)
     # opacity above 1 measures the float32 error of the transmittance
@@ -205,6 +207,7 @@ def run(preset: str = "full", device="cuda", profile_chunks: int = 0,
         dropped_rays=int((~included).sum()),
         opacity_max=float(opacity_max),
         g1_launches=gather_rows.launches - g1,
+        g1_16_launches=gather_rows.launches16 - g16,
         k1_launches=scatter_add.launches - k1)
     if device.type == "cuda":
         res["peak_memory_gib"] = torch.cuda.max_memory_allocated(device) \
@@ -287,7 +290,8 @@ def sphere_row(model, rays, occ, step, log) -> dict:
 def profile(render, device, chunk, n_chunks) -> dict:
     """Device time of ``n_chunks`` chunks (``render(s)`` renders the one
     at ray ``s``) by kernel (``torch.profiler``) beside their wall time;
-    G1's share of the device time."""
+    G1's share of the device time, and its 16-byte path's
+    (``gather_rows16_kernel``) ms and launches."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
@@ -302,11 +306,14 @@ def profile(render, device, chunk, n_chunks) -> dict:
     times = _kernel_times(prof)
     total = sum(t for t, _ in times.values())
     g1 = sum(t for k, (t, _) in times.items() if "gather_rows" in k)
+    g16 = [v for k, v in times.items() if "gather_rows16" in k]
     top = sorted(times.items(), key=lambda kv: -kv[1][0])[:12]
     return {"profile_chunks": n_chunks, "profile_wall_ms": wall_ms,
             "profile_device_ms": total,
             "kernels_per_chunk": sum(c for _, c in times.values()) / n_chunks,
             "g1_device_ms": g1,
+            "g1_16_device_ms": sum(t for t, _ in g16),
+            "g1_16_profile_launches": sum(c for _, c in g16),
             "g1_share": g1 / total if total > 0 else None,
             "device_busy_share": total / wall_ms if wall_ms > 0 else None,
             "top_kernels_ms": [[k[:80], t, c] for k, (t, c) in top]}

@@ -31,9 +31,26 @@
 //     about 3/4 of the time on hashed levels, whose x prime is 1).  idx
 //     and out must be 16-byte aligned; the rows past the last whole tile
 //     are done one by one;
-//   * a multiple of 16 bytes: one thread per 16-byte vector, neighbouring
-//     threads on neighbouring output vectors so the stores coalesce; table
-//     and out must be 16-byte aligned.
+//   * a multiple of 16 bytes (q 16-byte vectors a row; the baked-SDF
+//     sample's 32-byte rows are q = 2, S4's w = 32 q = 8, float64 W = 2
+//     q = 1): bytes bound it too, and at these widths the output is most
+//     of them.  S4 at w = 32 writes 537 MB and reads as many bytes of
+//     rows, at random, from a 67 MB table: the bound counts each row
+//     once, but L2 cannot hold the table, so many reads go to DRAM (on
+//     the H100 the gather takes less time than a copy of its output's
+//     bytes, and 56 % of its bound's).  A warp takes a tile of 32 * K
+//     output vectors (K = 2; K = 1 for rows of one vector), 32 * K / q
+//     whole rows: lane l loads the index of row l of the tile, each
+//     index once per row, and a vector takes its row's index from the
+//     lane holding it by __shfl_sync, with shifts for q = 1, 2, 4, 8 (no
+//     division); each lane issues its index load, then its K table
+//     loads, then its K stores, each store a warp-wide 512 contiguous
+//     bytes.  More vectors a lane (4, 8, 16 were timed) were no faster:
+//     the bytes, not the loads in flight, hold it back.  The index and
+//     output stream through L2 evict-first, as on the 8-byte path, so
+//     the bake's 68.7 MB table keeps what L2 it can.  Any other q runs
+//     the same tiles with a division and an index load per vector.
+//     table and out must be 16-byte aligned.
 // Anything else is refused (cudaErrorInvalidValue).
 //
 // Loop counters are 32-bit (unsigned) when the work fits, else 64-bit.  A
@@ -58,6 +75,10 @@
 namespace {
 
 constexpr int kThreads = 256;
+// the 16-byte path: output vectors per lane of a warp tile, by log2 q
+// (one for rows of one vector, two else: what timed fastest on the H100)
+template <int LOG2Q>
+constexpr int kVecsPerLane = LOG2Q == 0 ? 1 : 2;
 
 __device__ __forceinline__ uint2 zero_of(uint2) { return make_uint2(0u, 0u); }
 __device__ __forceinline__ uint4 zero_of(uint4) {
@@ -121,20 +142,68 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// rows of q 16-byte vectors: one thread per output vector
-template <typename I>
-__global__ void gather_rows16_kernel(const int* __restrict__ idx,
-                                     const uint4* __restrict__ table,
-                                     uint4* __restrict__ out, I total, I q,
-                                     int n_rows) {
-  const I stride = (I)gridDim.x * blockDim.x;
-  for (I i = (I)blockIdx.x * blockDim.x + threadIdx.x; i < total;
-       i = next(i, stride, total)) {
-    const I r = i / q;
-    const int row = __ldg(idx + r);
-    assert(row < n_rows);
-    out[i] = row_or_zero(table,
-                         row < 0 ? -1LL : (long long)row * q + (i - r * q));
+// Rows of q 16-byte vectors, as warp tiles of 32 * K output vectors:
+// vector t of a tile goes to lane t % 32, slot t / 32, so each of the K
+// stores of a warp is 512 contiguous bytes.  With q = 2^LOG2Q (q <= 8) a
+// tile is 32 * K / q whole rows: lane l loads the index of row l of the
+// tile (one coalesced evict-first load), and each vector takes its
+// row's index from the lane that holds it (__shfl_sync), so an index is
+// read once per row and nothing is divided.  LOG2Q < 0 takes any q: the
+// row of each vector by a division, its index read by each of its
+// vectors.  A lane issues its index loads, then checks them, then
+// issues its K table loads before its K stores.  The tile past the last
+// whole one is masked per index and per vector.
+template <typename I, int LOG2Q>
+__global__ void __launch_bounds__(kThreads)
+    gather_rows16_kernel(const int* __restrict__ idx,
+                         const uint4* __restrict__ table,
+                         uint4* __restrict__ out, I total, I q, int n_rows) {
+  constexpr int K = kVecsPerLane<LOG2Q>, kTile = 32 * K;
+  const unsigned lane = threadIdx.x % 32;
+  const I warps = (I)gridDim.x * (kThreads / 32);
+  const I tiles = (total + (kTile - 1)) / kTile;
+  for (I tile = (I)blockIdx.x * (kThreads / 32) + threadIdx.x / 32;
+       tile < tiles; tile = next(tile, warps, tiles)) {
+    const I base = tile * kTile;
+    const bool whole = total - base >= (I)kTile;
+    long long src[K];  // table vector of each slot, or -1
+    if constexpr (LOG2Q >= 0) {
+      constexpr int kRows = kTile >> LOG2Q;  // 32, 32, 16 or 8
+      const I r = (base >> LOG2Q) + lane;
+      int a = (whole || r < (total >> LOG2Q)) && lane < kRows
+                  ? __ldcs(idx + r)
+                  : -1;
+      assert(a < n_rows);
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const unsigned t = k * 32 + lane;
+        const int row = LOG2Q == 0 ? a
+                                   : __shfl_sync(0xffffffffu, a, t >> LOG2Q);
+        src[k] = row < 0 ? -1LL
+                         : ((long long)row << LOG2Q) + (t % (1 << LOG2Q));
+      }
+    } else {
+      int row[K];
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const I i = base + k * 32 + lane;
+        row[k] = whole || i < total ? __ldg(idx + i / q) : -1;
+      }
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        assert(row[k] < n_rows);
+        const I i = base + k * 32 + lane;
+        src[k] = row[k] < 0 ? -1LL : (long long)row[k] * q + i % q;
+      }
+    }
+    uint4 v[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) v[k] = row_or_zero(table, src[k]);
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const I i = base + k * 32 + lane;
+      if (whole || i < total) __stcs(out + i, v[k]);
+    }
   }
 }
 
@@ -147,6 +216,27 @@ unsigned blocks_for(long long work) {
 }
 
 constexpr long long kU32 = 0xffffffffLL;
+
+// one warp tile per warp; q = 1, 2, 4, 8 by shifts, any other q by the
+// general case
+template <typename I, int LOG2Q>
+void launch_rows16(const int* idx, const uint4* table, uint4* out, I total,
+                   I q, int n_rows, cudaStream_t s) {
+  constexpr long long kTile = 32 * kVecsPerLane<LOG2Q>;
+  const unsigned blocks = blocks_for((total + kTile - 1) / kTile * 32);
+  gather_rows16_kernel<I, LOG2Q>
+      <<<blocks, kThreads, 0, s>>>(idx, table, out, total, q, n_rows);
+}
+
+template <typename I>
+void launch_rows16(const int* idx, const uint4* table, uint4* out, I total,
+                   I q, int n_rows, cudaStream_t s) {
+  if (q == 1) launch_rows16<I, 0>(idx, table, out, total, q, n_rows, s);
+  else if (q == 2) launch_rows16<I, 1>(idx, table, out, total, q, n_rows, s);
+  else if (q == 4) launch_rows16<I, 2>(idx, table, out, total, q, n_rows, s);
+  else if (q == 8) launch_rows16<I, 3>(idx, table, out, total, q, n_rows, s);
+  else launch_rows16<I, -1>(idx, table, out, total, q, n_rows, s);
+}
 
 }  // namespace
 
@@ -176,14 +266,15 @@ extern "C" int rise_gather_rows(const void* idx, const void* table,
     if ((tab | o) % 16 != 0) return (int)cudaErrorInvalidValue;
     const long long q = row_bytes / 16;
     const long long total = m * q;
-    const unsigned blocks = blocks_for(total);
-    if (total <= kU32) {
-      gather_rows16_kernel<unsigned><<<blocks, kThreads, 0, s>>>(
-          (const int*)idx, (const uint4*)table, (uint4*)out,
-          (unsigned)total, (unsigned)q, rows);
+    // 32-bit counters while a tile's last vector (a tile is at most 64
+    // vectors) stays below 2^32
+    if (total <= kU32 - 64) {
+      launch_rows16<unsigned>((const int*)idx, (const uint4*)table,
+                              (uint4*)out, (unsigned)total, (unsigned)q, rows,
+                              s);
     } else {
-      gather_rows16_kernel<long long><<<blocks, kThreads, 0, s>>>(
-          (const int*)idx, (const uint4*)table, (uint4*)out, total, q, rows);
+      launch_rows16<long long>((const int*)idx, (const uint4*)table,
+                               (uint4*)out, total, q, rows, s);
     }
   } else {
     return (int)cudaErrorInvalidValue;

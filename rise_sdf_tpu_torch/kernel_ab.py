@@ -4,6 +4,7 @@ NVIDIA GPU.
     python3 chip_smoke.py --save-streams _ab/streams.pt
     python3 -m rise_sdf_tpu_torch.kernel_ab --parent _ab/parent \\
         [--streams _ab/streams.pt] [--out ab.json] [--steps 120]
+        [--kernels-only]
 
 ``--parent`` holds an unpacked copy of another commit of this repository
 (``git archive <commit> | tar -x -C _ab/parent``; ``_ab/`` is
@@ -17,14 +18,23 @@ then times:
 
 1. the kernels, on the same inputs for both sides: K1 and G1 at the
    uniform shapes of ``chip_smoke.py`` (``measure.k1_shapes`` and
-   ``measure.g1_shapes``); and, with ``--streams``, both on the recorded
-   streams that ``chip_smoke.py`` saved: K1 and G1 on the step-1
-   training stream, G1 on the render chunk's band-sample encode.  Each
-   time is the median of 10 CUDA-event samples of 10 back-to-back calls
+   ``measure.g1_shapes``); and, with ``--streams``, both on each
+   recorded stream that the file holds (``chip_smoke.py`` saves them
+   all): K1 and G1 on the step-1 training stream, G1 on the render
+   chunk's band-sample encode and on its baked-SDF reads (the bake
+   stream: the visibility probe's and the secondary alpha's rows of the
+   129^3 x 8 table, G1's 16-byte path).  Each time is the median of 10
+   CUDA-event samples of 10 back-to-back calls
    (``measure.median_ms``), beside ``index_add_`` / ``index_select`` on
    the same inputs; every side's result is held to the float64
-   reference (K1) or to ``index_select`` bit for bit (G1) first;
-2. end to end, each in a process of its own in that side's tree: the
+   reference (K1) or to ``index_select`` bit for bit (G1) first; G1 is
+   also timed inside a CUDA graph of 10 launches into one output
+   (``graph_ms``), its device time alone, where a small gather would
+   otherwise wait on the host between launches, beside a copy of as many
+   bytes as its output (``copy_ms``: the card's copy rate, which a
+   gather of wide rows from a table larger than L2 cannot beat);
+2. end to end (unless ``--kernels-only``), each in a process of its
+   own in that side's tree: the
    800x800 render (``python -m rise_sdf_tpu_torch.bench
    --profile-chunks 8``) and ``--steps`` steps of the NeuS slice at
    ``neus_sphere_full`` (``python -m rise_sdf_tpu_torch.measure``).
@@ -86,11 +96,13 @@ class Side:
             raise RuntimeError(f"{self.tree}: K1 launch failed ({rc})")
         return out
 
-    def gather(self, table, idx):
-        out = torch.empty((idx.numel(), table.shape[1]), device="cuda")
+    def gather(self, table, idx, out=None):
+        if out is None:
+            out = torch.empty((idx.numel(), table.shape[1]),
+                              dtype=table.dtype, device="cuda")
         rc = self.g1(idx.data_ptr(), table.data_ptr(), out.data_ptr(),
-                     idx.numel(), table.shape[1] * 4, table.shape[0],
-                     torch.cuda.current_stream().cuda_stream)
+                     idx.numel(), table.shape[1] * table.element_size(),
+                     table.shape[0], torch.cuda.current_stream().cuda_stream)
         if rc:
             raise RuntimeError(f"{self.tree}: G1 launch failed ({rc})")
         return out
@@ -113,14 +125,39 @@ def build(trees):
 
 
 def stream_cases(path):
+    """K1's and G1's cases on each recorded stream the file holds."""
     s = torch.load(path, map_location="cuda")
-    rows = s["train_rows"]
-    k1 = {"train stream": (rows.reshape(-1), s["train_vals"],
-                           s["train_table"].shape[0],
-                           rows.shape[-2] * rows.shape[-1])}
-    g1 = {"train stream": (s["train_table"], rows.reshape(-1)),
-          "render stream": (s["render_table"], s["render_rows"].reshape(-1))}
+    k1, g1 = {}, {}
+    if "train_rows" in s:
+        rows = s["train_rows"]
+        k1["train stream"] = (rows.reshape(-1), s["train_vals"],
+                              s["train_table"].shape[0],
+                              rows.shape[-2] * rows.shape[-1])
+        g1["train stream"] = (s["train_table"], rows.reshape(-1))
+    if "render_rows" in s:
+        g1["render stream"] = (s["render_table"],
+                               s["render_rows"].reshape(-1))
+    for part in ("probe", "alpha"):
+        if f"bake_{part}_rows" in s:
+            g1[f"bake stream, {part}"] = (s["bake_table"],
+                                          s[f"bake_{part}_rows"])
     return k1, g1
+
+
+def graph_ms(fn, launches=10):
+    """Device ms per call of ``fn``, from a CUDA graph of ``launches``
+    calls replayed (median of ``measure.median_ms``'s samples): no host
+    time between the launches, which a kernel of a few microseconds
+    would otherwise wait on."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    ms = median_ms(graph.replay) / launches
+    del graph
+    return ms
 
 
 def check(sides, k1_cases, g1_cases):
@@ -135,8 +172,9 @@ def check(sides, k1_cases, g1_cases):
             if not bool(((got - ref).abs() <= 1e-5 * s + 1e-7).all()):
                 raise SystemExit(f"{side.tree}: K1 wrong at {what}")
         for what, (table, idx) in g1_cases.items():
-            if not torch.equal(side.gather(table, idx),
-                               table.index_select(0, idx.long())):
+            if not torch.equal(side.gather(table, idx).view(torch.int32),
+                               table.index_select(0, idx.long()).view(
+                                   torch.int32)):
                 raise SystemExit(f"{side.tree}: G1 wrong at {what}")
 
 
@@ -147,6 +185,7 @@ def kernel_rounds(sides, k1_cases, g1_cases):
     res = {f"K1 {k}": {n: [] for n in sides} for k in k1_cases}
     res.update({f"G1 {k}": {n: [] for n in sides} for k in g1_cases})
     lib = {k: [] for k in res}
+    graphed = {f"G1 {k}": {n: [] for n in sides} for k in g1_cases}
     for name in order:
         side = sides[name]
         for what, (idx, vals, t, p) in k1_cases.items():
@@ -159,16 +198,43 @@ def kernel_rounds(sides, k1_cases, g1_cases):
                 lambda: side.gather(table, idx)))
             lib[f"G1 {what}"].append(median_ms(
                 lambda: torch.index_select(table, 0, idx)))
+            out = torch.empty((idx.numel(), table.shape[1]),
+                              dtype=table.dtype, device="cuda")
+            graphed[f"G1 {what}"][name].append(graph_ms(
+                lambda: side.gather(table, idx, out)))
+            del out
+            torch.cuda.empty_cache()
+    # the card's copy rate at each gather's output size: a copy reads and
+    # writes the output's bytes, a gather writes them and reads the rows
+    copy = {}
+    for what, (table, idx) in g1_cases.items():
+        dst = torch.empty((idx.numel(), table.shape[1]), dtype=table.dtype,
+                          device="cuda")
+        src = torch.empty_like(dst)
+        copy[f"G1 {what}"] = graph_ms(lambda: dst.copy_(src))
+        del dst, src
+        torch.cuda.empty_cache()
     out = {}
     for k, ms in res.items():
         ratio = sum(ms["change"]) / sum(ms["parent"])
         out[k] = {"ms": ms, "library_ms": lib[k], "change_over_parent": ratio,
                   "change_over_library": sum(ms["change"]) / 2
                   / float(np.median(lib[k]))}
-        print(f"{k:40s} library {float(np.median(lib[k])):.4f} ms; parent "
-              f"{ms['parent'][0]:.4f} {ms['parent'][1]:.4f}; change "
-              f"{ms['change'][0]:.4f} {ms['change'][1]:.4f} ({ratio:.3f})",
-              flush=True)
+        line = (f"{k:40s} library {float(np.median(lib[k])):.4f} ms; parent "
+                f"{ms['parent'][0]:.4f} {ms['parent'][1]:.4f}; change "
+                f"{ms['change'][0]:.4f} {ms['change'][1]:.4f} ({ratio:.3f})")
+        if k in graphed:
+            g = graphed[k]
+            out[k]["graph_ms"] = g
+            out[k]["graph_change_over_parent"] = \
+                sum(g["change"]) / sum(g["parent"])
+            out[k]["copy_ms"] = copy[k]
+            line += (f"; in a graph: parent {g['parent'][0]:.4f} "
+                     f"{g['parent'][1]:.4f}, change {g['change'][0]:.4f} "
+                     f"{g['change'][1]:.4f} "
+                     f"({out[k]['graph_change_over_parent']:.3f}); a copy "
+                     f"of the output's bytes {copy[k]:.4f}")
+        print(line, flush=True)
     return out
 
 
@@ -193,6 +259,9 @@ def end_to_end(trees, steps):
         row = {"side": name,
                "render_device_ms_per_8_chunks": render["profile_device_ms"],
                "render_g1_ms_per_8_chunks": render["g1_device_ms"],
+               # G1's 16-byte path (the bake's reads); trees older than
+               # its count leave it out
+               "render_g1_16_ms_per_8_chunks": render.get("g1_16_device_ms"),
                "render_rays_per_s": render["rays_per_s"],
                "render_dropped_rays": render["dropped_rays"],
                "render_busy_share": render["device_busy_share"],
@@ -217,6 +286,8 @@ def main(argv=None):
     ap.add_argument("--streams", type=Path)
     ap.add_argument("--out", type=Path)
     ap.add_argument("--steps", type=int, default=120)
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="time the kernels only, not the end-to-end runs")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_ab: CUDA is not available")
@@ -238,7 +309,8 @@ def main(argv=None):
               "kernels": kernel_rounds(sides, k1_cases, g1_cases)}
     del k1_cases, g1_cases
     torch.cuda.empty_cache()
-    result["end_to_end"] = end_to_end(trees, args.steps)
+    if not args.kernels_only:
+        result["end_to_end"] = end_to_end(trees, args.steps)
     line = json.dumps(result)
     if args.out:
         args.out.write_text(line + "\n")

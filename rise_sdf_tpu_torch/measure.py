@@ -1,8 +1,10 @@
 """Kernel timing and the training slices' rates on one NVIDIA GPU,
 shared by ``chip_smoke.py`` and ``rise_sdf_tpu_torch.kernel_ab``.
 
-    python -m rise_sdf_tpu_torch.measure [--preset neus|split|test]
-                                         [--steps N]
+    python -m rise_sdf_tpu_torch.measure [--preset neus|split|test|
+                                          determinism|ddp|pbr]
+                                         [--steps N] [--views N]
+                                         [--table-shards N]
 
 ``--preset neus`` (the default) trains ``neus_sphere_full`` (hash grid
 16 x 2^19 x 2, 4096 rays x 1024 samples into a 1,048,576-sample buffer)
@@ -35,8 +37,10 @@ protocol, and its renders alone), the calibrated fractions, the rays
 dropped after escalation, the metrics, G1's and K1's launches during
 each run, the single-light run against the multi-emitter run's view 0
 (the largest difference of each image and of the metrics), and device
-ms per view by kernel (G1's among them) from ``torch.profiler`` over
-view 1 of the multi-emitter run.
+ms per view by kernel (G1's among them, and its 16-byte path's,
+``g1_16_ms``) from ``torch.profiler`` over view 1 of the multi-emitter
+run.  ``--views N`` renders N test views (at least 2: view 1 is
+profiled) in place of 4.
 
 ``--preset determinism`` checks and times torch's scan and
 ``index_add`` against ``volrend.blocked_cumsum`` and
@@ -56,7 +60,8 @@ view of each run and the ops' numbers.
 ``--preset pbr`` measures the spread of ``chip_smoke.py`` phase 15b's
 ``volume-pbr`` shading on a freshly trained stage-1 state: card runs
 against each other (default mode and deterministic) and every chunk of
-test view 0 against the CPU (``_pbr_main``).
+test view 0 against the CPU, which shades it once from its own sampled
+directions and once from the card's (``_pbr_main``).
 
 ``--preset ddp`` runs the flagship's data-parallel window
 (``ddp_window``): a fresh init at stage 1 for ``--steps`` steps (16)
@@ -78,6 +83,7 @@ Without CUDA it raises.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import shutil
@@ -155,20 +161,23 @@ def k1_shapes(gen):
 
 def g1_shapes(gen):
     """G1's uniform shapes, one at a time: ``(name, (table, idx))``.
-    S2/S3's, S4's (w = 2, 8, 32), one render chunk's (the hash encode,
-    49,152 samples x 16 levels x 8 corners into 16 x 2^19 x 2; the
+    S2/S3's, S4's (w = 2, 8, 32, and float64 W = 2: rows of one 16-byte
+    vector), one render chunk's (the hash encode, 49,152 samples x 16
+    levels x 8 corners into 16 x 2^19 x 2; the
     baked-SDF probe, 4096 rays x 64 probes into 129^3 x 8) and the main
     path's."""
     t = 2 ** LOG2_T
 
-    def uniform(n, w, m):
-        table = torch.randn((n, w), generator=gen, device="cuda")
+    def uniform(n, w, m, dtype=torch.float32):
+        table = torch.randn((n, w), generator=gen, device="cuda",
+                            dtype=dtype)
         return table, torch.randint(0, n, (m,), generator=gen, device="cuda",
                                     dtype=torch.int32)
 
     yield "S2/S3 shape", uniform(t, 2, 8388608)
     for w in (2, 8, 32):
         yield f"S4 shape, w={w}", uniform(t, w, 4194304)
+    yield "S4 shape, float64 W=2", uniform(t, 2, 4194304, torch.float64)
     yield "render chunk, hash encode", uniform(LEVELS * t, 2, 49152 * 16 * 8)
     yield "render chunk, baked-SDF probe", uniform(129 ** 3, 8, 4096 * 64)
     idx, n = main_path_rows(gen)
@@ -274,12 +283,13 @@ def train_split(system, steps, seed, on_log=None):
 
 
 def test_system(trained, multi=True, n_images=None, model=None,
-                relights=None):
+                relights=None, img_wh=None):
     """The split-occ system at ``split_mixed_occ_test_full`` (in
     multi-emitter mode or not, with ``n_images`` test views, the
     ``model`` keys over the preset's, the ``relights`` lights in place
-    of the preset's ``warm`` and ``bright``) with the parameters of the
-    ``trained`` system."""
+    of the preset's ``warm`` and ``bright``, the views at ``img_wh`` in
+    place of 800 x 800) with the parameters of the ``trained``
+    system."""
     from . import datasets, systems
     from .presets import split_mixed_occ_test_full
 
@@ -290,6 +300,8 @@ def test_system(trained, multi=True, n_images=None, model=None,
         cfg["dataset"]["n_images"] = n_images
     if relights is not None:
         cfg["dataset"]["relight_list"] = list(relights)
+    if img_wh is not None:
+        cfg["dataset"]["img_wh"] = list(img_wh)
     system = systems.make(cfg["system"]["name"], cfg,
                           datasets.make(cfg["dataset"]["name"],
                                         cfg["dataset"]),
@@ -303,8 +315,10 @@ def run_test(system, state, profile_view=None, log=print):
     """``system.test`` timed on the card: the metrics (``dropped_rays``
     among them), the calibrated fractions, seconds per view of the whole
     protocol (metrics and image files included) and of its renders
-    alone, G1's and K1's launches, the chunks rendered at each buffer
-    size (1x, and 2x and 4x escalations), the rendered images, and with
+    alone, G1's and K1's launches (``g1_16_launches``: G1's on its
+    16-byte path, the baked-SDF sample), the chunks rendered at each
+    buffer size (1x, and 2x and 4x escalations), the rendered images,
+    and with
     ``profile_view`` the device ms by kernel of that view's renders
     (``torch.profiler``, CUDA activity only: a view is some 10^5
     kernels) and their seconds under it, which the per-view rates leave
@@ -349,6 +363,7 @@ def run_test(system, state, profile_view=None, log=print):
 
     system.render_image, system.render_chunk = timed, counted
     g1, k1 = gather_rows.launches, scatter_add.launches
+    g16 = gather_rows.launches16
     residual = system.residual_rays
     _sync(system.device)
     t0 = time.perf_counter()
@@ -365,6 +380,7 @@ def run_test(system, state, profile_view=None, log=print):
            "render_s_per_view": seconds["render"] / timed_views,
            "fractions": dict(system.eval_fractions), "metrics": metrics,
            "g1_launches": gather_rows.launches - g1,
+           "g1_16_launches": gather_rows.launches16 - g16,
            "k1_launches": scatter_add.launches - k1,
            "chunks": {f"{m}x": n for m, n in chunks.items()},
            "residual_rays": system.residual_rays - residual,
@@ -378,18 +394,22 @@ def run_test(system, state, profile_view=None, log=print):
                          if "gather_rows" in k),
             "g1_launches": sum(c for k, (_, c) in times.items()
                                if "gather_rows" in k),
+            "g1_16_ms": sum(t for k, (t, _) in times.items()
+                            if "gather_rows16" in k),
+            "g1_16_launches": sum(c for k, (_, c) in times.items()
+                                  if "gather_rows16" in k),
             "launches": sum(c for _, c in times.values()),
             "top": [[k[:80], t, c] for k, (t, c) in top[:8]]}
     return res
 
 
 def test_protocol(trained, state, views=None, profile_view=None,
-                  log=print, model=None, relights=None):
+                  log=print, model=None, relights=None, img_wh=None):
     """The test protocol on ``state`` of the ``trained`` flagship (with
-    the ``model`` keys over the preset's, and the ``relights`` lights
-    when given): the preset's 4 views (or ``views``) in multi-emitter
-    mode (with
-    ``profile_view`` profiled), then view 0 in single-light mode.  The
+    the ``model`` keys over the preset's, the ``relights`` lights and
+    the ``img_wh`` view size when given): the preset's 4 views (or
+    ``views``) in multi-emitter mode (with ``profile_view`` profiled),
+    then view 0 in single-light mode.  The
     single-light run's images and metrics are held against the
     multi-emitter run's view 0: the largest difference of each image and
     the share of its pixels more than 1e-4 apart, and the largest
@@ -398,12 +418,13 @@ def test_protocol(trained, state, views=None, profile_view=None,
     ``view0_surface`` its rays [H * W, 6] in pixel order, ``depth`` [H *
     W, 1] and ``normal`` [H * W, 3] (host arrays)."""
     multi = run_test(test_system(trained, n_images=views, model=model,
-                                 relights=relights),
+                                 relights=relights, img_wh=img_wh),
                      state, profile_view=profile_view, log=log)
     log(f"  multi-emitter: {multi['s_per_view']:.2f} s/view "
         f"({multi['render_s_per_view']:.2f} s/view rendering)")
     single_system = test_system(trained, multi=False, n_images=1,
-                                model=model, relights=relights)
+                                model=model, relights=relights,
+                                img_wh=img_wh)
     single = run_test(single_system, state, log=log)
     view0 = multi["images"][0]
     names = ["comp_rgb_phys_full"] + [f"relight{j}/comp_rgb_phys_full"
@@ -458,7 +479,7 @@ def _split_main(steps):
             "skipped": system.skipped_updates, **per_step}
 
 
-def _test_main(steps):
+def _test_main(steps, views=None):
     from . import datasets, systems
     from .presets import split_mixed_occ_train_full
 
@@ -473,7 +494,7 @@ def _test_main(steps):
     state["step"] = SPLIT_STAGE1_STEP
     state, _, rate, _ = train(system, steps, seed, state,
                               profile_from=SPLIT_STAGE1_STEP + steps)
-    res = test_protocol(system, state, profile_view=1,
+    res = test_protocol(system, state, views=views, profile_view=1,
                         log=lambda msg: print(msg, file=sys.stderr,
                                               flush=True))
     del res["view0_pair"], res["view0_surface"]
@@ -545,6 +566,27 @@ def _ops_repeat():
 PBR_SEED, PBR_CHUNK = 15, 64000  # chip_smoke.py phase 15b's
 
 
+@contextlib.contextmanager
+def fixed_directions(scatterer, dirs):
+    """Inside the block ``scatterer.sample_from_uniforms`` returns
+    ``dirs`` [N, 3] (on the device of its ``n`` argument, which must be
+    [N, 3]) in place of the directions it would sample: ``VolumePBR``
+    then shades from ``dirs``.  Phase 15b shades on the CPU from the
+    card's directions this way, so that card and CPU are compared on
+    the same input."""
+    def sample(u_spec, u_diff, u_pick, n, wi, alpha_x):
+        if n.shape != dirs.shape:
+            raise ValueError(f"fixed directions {tuple(dirs.shape)} for "
+                             f"normals {tuple(n.shape)}")
+        return dirs.to(n.device)
+
+    scatterer.sample_from_uniforms = sample
+    try:
+        yield
+    finally:
+        del scatterer.sample_from_uniforms
+
+
 def _pbr_main(steps):
     """``--preset pbr``: the spread of ``chip_smoke.py`` phase 15b's
     ``volume-pbr`` shading, card against card and card against CPU.  The
@@ -553,11 +595,14 @@ def _pbr_main(steps):
     points (rays, depth, normals), materials and uniforms drawn as 15b
     draws them; the shading of all ``PBR_CHUNK`` chunks three times in
     the default mode and twice under ``torch.use_deterministic_
-    algorithms(True)``, then every chunk on the CPU.  Returns per
+    algorithms(True)``, then every chunk on the CPU, from its own
+    directions and from the card's (``fixed_directions``).  Returns per
     output (transmittance ``tr``, secondary head ``sec``, ``dirs``,
     ``rgb_phys`` ...) the largest difference between card runs, and per
-    chunk the largest |card - CPU| / max(1, max |CPU|), and the worst
-    point's values on both."""
+    chunk the largest |card - CPU| / max(1, max |CPU|) and the worst
+    point's values on both, from the CPU's own directions (``chunks``,
+    ``worst``) and from the card's (``chunks_same_dirs``,
+    ``worst_same_dirs``)."""
     from . import datasets, models, systems
     from .presets import split_mixed_occ_train_full
 
@@ -651,24 +696,32 @@ def _pbr_main(steps):
            "card_repeats_2": spread(runs[0], runs[2]),
            "deterministic_repeats": spread(det[0], det[1]),
            "deterministic_vs_default": spread(det[0], runs[0]),
-           "chunks": [], "worst": None}
-    for c, sl in enumerate(chunks):
-        cpu = shade(cpu_model, host, u_host, occ.cpu(), host_bake, sl)
-        got = runs[0][c]
-        res["chunks"].append({k: float((got[k] - cpu[k]).abs().max())
-                              / max(1.0, float(cpu[k].abs().max()))
-                              for k in keys})
+           "chunks": [], "worst": None, "chunks_same_dirs": [],
+           "worst_same_dirs": None}
+
+    def compare(c, sl, got, cpu, tag):
+        res["chunks" + tag].append({k: float((got[k] - cpu[k]).abs().max())
+                                    / max(1.0, float(cpu[k].abs().max()))
+                                    for k in keys})
         diff = (got["rgb_phys"] - cpu["rgb_phys"]).abs().amax(-1)
         i = int(diff.argmax())
-        if res["worst"] is None or float(diff[i]) > res["worst"]["err"]:
+        worst = res["worst" + tag]
+        if worst is None or float(diff[i]) > worst["err"]:
             g = sl.start + i
-            res["worst"] = {"err": float(diff[i]), "chunk": c,
-                            "pixel": [g // split.w, g % split.w],
-                            "rough": float(host["rough"][g, 0]),
-                            **{f"{k}_card": got[k][i].tolist()
-                               for k in keys},
-                            **{f"{k}_cpu": cpu[k][i].tolist()
-                               for k in keys}}
+            res["worst" + tag] = {
+                "err": float(diff[i]), "chunk": c,
+                "pixel": [g // split.w, g % split.w],
+                "rough": float(host["rough"][g, 0]),
+                **{f"{k}_card": got[k][i].tolist() for k in keys},
+                **{f"{k}_cpu": cpu[k][i].tolist() for k in keys}}
+
+    for c, sl in enumerate(chunks):
+        got = runs[0][c]
+        compare(c, sl, got, shade(cpu_model, host, u_host, occ.cpu(),
+                                  host_bake, sl), "")
+        with fixed_directions(pbr.scatterer, got["dirs"]):
+            compare(c, sl, got, shade(cpu_model, host, u_host, occ.cpu(),
+                                      host_bake, sl), "_same_dirs")
     shutil.rmtree(save, ignore_errors=True)
     shutil.rmtree(os.path.join("exp", "test_protocol"), ignore_errors=True)
     return res
@@ -1155,6 +1208,8 @@ def main(argv=None):
     ap.add_argument("--steps", type=int, default=None)
     ap.add_argument("--table-shards", type=int, default=1,
                     help="--preset ddp: system.table_shards")
+    ap.add_argument("--views", type=int, default=None,
+                    help="--preset test: test views (at least 2; 4)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("measure: CUDA is not available")
@@ -1163,7 +1218,10 @@ def main(argv=None):
     if args.preset == "split":
         res = _split_main(args.steps or 32)
     elif args.preset == "test":
-        res = _test_main(args.steps or 32)
+        if args.views is not None and args.views < 2:
+            raise SystemExit("measure: --views takes 2 or more (view 1 is "
+                             "profiled)")
+        res = _test_main(args.steps or 32, args.views)
     elif args.preset == "determinism":
         res = _determinism_main(args.steps or 32)
     elif args.preset == "pbr":

@@ -11,7 +11,9 @@ baked-SDF sample (``ops/sdf_bake.py``, 8-wide rows).
   contiguous, rows of 8 bytes or of a multiple of 16, ``idx [M]`` int32
   -> ``[M, W]``.  On CUDA tensors it
   launches G1 or raises; on CPU tensors it runs ``gather_rows_plain``.
-  ``gather_rows.launches`` counts kernel launches.
+  ``gather_rows.launches`` counts kernel launches,
+  ``gather_rows.launches16`` those of them on rows of 16-byte vectors
+  (the baked-SDF sample's path; the rest take 8-byte rows).
 * ``gather_rows_plain``: ``index_select``.
 
 A negative index is an absent row (a row that another shard of a
@@ -104,7 +106,9 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         raise RuntimeError("gather_rows kernel launch failed: "
                            + lib.rise_gather_error_string(rc).decode())
     gather_rows.launches += 1
+    gather_rows.launches16 += int(row_bytes != 8)
     return out
 
 
 gather_rows.launches = 0
+gather_rows.launches16 = 0

@@ -150,6 +150,86 @@ def test_gather_rows_kernel_every_8_row_tail(cuda, tail):
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
+# rows of q 16-byte vectors: (table width, dtype) per q
+ROWS16 = {(1, torch.float32): 4, (1, torch.float64): 2,
+          (2, torch.float32): 8, (2, torch.float64): 4,
+          (8, torch.float32): 32, (8, torch.float64): 16,
+          (3, torch.float32): 12}  # q = 3: the general case, a division
+ROWS16_IDS = [f"q{q}_{str(dt)[6:]}" for q, dt in ROWS16]
+
+
+def _tile_vecs(q):
+    """Output vectors in one warp tile of the 16-byte path."""
+    return 32 if q == 1 else 64
+
+
+def _bit_equal_to_index_select(table, idx):
+    got = gather_rows(table, idx)
+    torch.cuda.synchronize()
+    want = table[idx.long().clamp(min=0)].masked_fill(
+        (idx < 0)[:, None], 0)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("q,dtype", list(ROWS16), ids=ROWS16_IDS)
+def test_gather_rows16_kernel_is_bit_equal(cuda, q, dtype):
+    """G1's 16-byte path at q vectors a row, over many blocks of warp
+    tiles: bit-equal to ``index_select``, one launch on each count."""
+    w = ROWS16[q, dtype]
+    gen = torch.Generator(device=cuda).manual_seed(q + w)
+    table = torch.randn((5000, w), generator=gen, device=cuda, dtype=dtype)
+    idx = torch.randint(0, 5000, (100003,), generator=gen, device=cuda,
+                        dtype=torch.int32)
+    before = gather_rows.launches, gather_rows.launches16
+    _bit_equal_to_index_select(table, idx)
+    assert (gather_rows.launches, gather_rows.launches16) == (
+        before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.parametrize("q,dtype", [k for k in ROWS16
+                                     if k[1] == torch.float32],
+                         ids=[i for i, k in zip(ROWS16_IDS, ROWS16)
+                              if k[1] == torch.float32])
+def test_gather_rows16_kernel_every_tile_tail(cuda, q, dtype):
+    """Every length of the last, partial warp tile (a tile is 32 vectors
+    for q = 1, else 64: 64 / q rows), after 17 whole tiles (more than two
+    blocks of 8 warps) and alone."""
+    w = ROWS16[q, dtype]
+    gen = torch.Generator(device=cuda).manual_seed(40 + q)
+    table = torch.randn((3000, w), generator=gen, device=cuda)
+    tile = _tile_vecs(q)
+    idx = torch.randint(0, 3000, (18 * tile,), generator=gen,
+                        device=cuda, dtype=torch.int32)
+    tile_rows = tile // q
+    tails = range(1, tile_rows) if tile % q == 0 else range(1, tile + 1)
+    for whole in (0, 17):
+        for tail in tails:
+            _bit_equal_to_index_select(table, idx[:whole * tile_rows + tail])
+
+
+@pytest.mark.parametrize("q,dtype", list(ROWS16), ids=ROWS16_IDS)
+def test_gather_rows16_kernel_absent_rows_are_zeros(cuda, q, dtype):
+    """A negative index (another shard's row) gives a row of zeros; its
+    table row is never read (NaN there reaches nothing)."""
+    w = ROWS16[q, dtype]
+    gen = torch.Generator(device=cuda).manual_seed(60 + q)
+    table = torch.randn((4000, w), generator=gen, device=cuda, dtype=dtype)
+    idx = torch.randint(1, 4000, (20000 + q,), generator=gen, device=cuda,
+                        dtype=torch.int32)
+    idx[torch.rand(idx.shape, generator=gen, device=cuda) < 0.3] = -1
+    idx[:_tile_vecs(q)] = -1  # a whole tile (or more) absent
+    table[0] = float("nan")  # no index names row 0
+    _bit_equal_to_index_select(table, idx)
+
+
+def test_gather_rows16_out_of_range_index_raises(cuda):
+    """G1's device-side bound check on its 16-byte path (32-byte
+    rows)."""
+    _raises_in_subprocess(
+        "from rise_sdf_tpu_torch.ops.gather import gather_rows\n"
+        "gather_rows(torch.zeros((64, 8), device='cuda'), idx)")
+
+
 def test_gather_rows_kernel_on_encode_rows(cuda):
     """G1 on ray-ordered [N, 16, 8] rows of the port's encode, the layout
     whose neighbouring threads read x-neighbour corners."""

@@ -80,6 +80,32 @@ def test_gather_rows_on_encode_rows_equals_jax_take(stream):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+@pytest.mark.parametrize("w,dtype", [(4, np.float32), (2, np.float64),
+                                     (8, np.float32), (4, np.float64),
+                                     (32, np.float32), (16, np.float64)],
+                         ids=["q1_f32", "q1_f64", "q2_f32", "q2_f64",
+                              "q8_f32", "q8_f64"])
+def test_gather_rows16_with_absent_rows_equals_masked_take(w, dtype):
+    """Rows of q = 1, 2, 8 16-byte vectors (G1's 16-byte path on the
+    card), some of them absent (-1, another shard's): the port's gather
+    equals JAX's ``where(idx < 0, 0, table[max(idx, 0)])`` (float32;
+    numpy's for float64, which this JAX configuration keeps as float32)
+    bit for bit."""
+    table, idx = _inputs(3000, w, 7001, w)
+    table = table.astype(dtype)
+    idx[np.random.default_rng(w).uniform(size=idx.shape) < 0.25] = -1
+    want = np.where((idx < 0)[:, None], 0, table[np.maximum(idx, 0)])
+    if dtype == np.float32:
+        jt, ji = jnp.asarray(table), jnp.asarray(idx)
+        want_jax = np.asarray(jnp.where((ji < 0)[:, None], 0.0,
+                                        jt[jnp.maximum(ji, 0)]))
+        np.testing.assert_array_equal(want_jax, want)
+    got = gather.gather_rows(torch.from_numpy(table), torch.from_numpy(idx))
+    assert got.dtype == torch.from_numpy(table).dtype
+    np.testing.assert_array_equal(got.numpy().view(np.uint32),
+                                  want.view(np.uint32))
+
+
 def test_gather_rows_float64_and_empty():
     table = torch.arange(12, dtype=torch.float64).view(6, 2)
     idx = torch.tensor([5, 0, 5], dtype=torch.int32)
@@ -138,3 +164,48 @@ def test_baked_sdf_rows_gather_the_packed_table():
     want = np.asarray(jbake.pack_corners(jnp.asarray(verts)))[
         np.asarray(flat)]
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("chunk", [0, 1], ids=["recorded", "past_the_end"])
+def test_recording_bake_reads_the_chunks_bake_rows(chunk):
+    """``chip_smoke.py``'s bake-stream recorder on the tiny bench (one
+    chunk of 256 rays, a 32-cell bake): chunk 0's visibility probe (256
+    rays x 64 probes) and secondary alpha each read the packed table
+    once, through G1's wrapper, and the recorded rows gather what the
+    renderer read; a chunk past the image's last records nothing; the
+    renderer and the bake module are restored after."""
+    import chip_smoke
+    from rise_sdf_tpu_torch import bench
+    from rise_sdf_tpu_torch.models.split_mixed_occ import SplitMixedOccModel
+
+    hooks = (SplitMixedOccModel.forward, sdf_bake.sample_packed,
+             sdf_bake.sample_packed_grad, sdf_bake.gather_rows)
+    read = []
+
+    def reading(table, idx):
+        read.append((table, idx.clone()))
+        return gather.gather_rows(table, idx)
+
+    sdf_bake.gather_rows = reading
+    try:
+        with chip_smoke.recording_bake(chunk) as seen:
+            bench.run("tiny", "cpu")
+    finally:
+        sdf_bake.gather_rows = gather.gather_rows
+    assert (SplitMixedOccModel.forward, sdf_bake.sample_packed,
+            sdf_bake.sample_packed_grad, sdf_bake.gather_rows) == hooks
+    if chunk:
+        assert seen["probe"] == seen["alpha"] == [] and "table" not in seen
+        return
+    assert len(seen["probe"]) == len(seen["alpha"]) == 1
+    probe, alpha = seen["probe"][0], seen["alpha"][0]
+    assert probe.dtype == alpha.dtype == torch.int32
+    assert probe.shape == (256 * 64,) and 0 < alpha.numel() < probe.numel()
+    assert tuple(seen["table"].shape) == (33 ** 3, 8)
+    assert int(torch.cat([probe, alpha]).min()) >= 0
+    assert int(torch.cat([probe, alpha]).max()) < 33 ** 3
+    # the warm-up chunk's two reads, then the recorded chunk's
+    assert [tuple(i.shape) for _, i in read[2:4]] == [
+        tuple(probe.shape), tuple(alpha.shape)]
+    for (table, idx), rec in zip(read[2:4], (probe, alpha)):
+        assert table is seen["table"] and torch.equal(idx, rec)
