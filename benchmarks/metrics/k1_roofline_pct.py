@@ -1,0 +1,7 @@
+"""K1's (``csrc/scatter_add.cu``) share of its byte bound."""
+
+from benchmarks.yardstick import readers
+
+
+def read(t):
+    return readers.roofline_pct(t, "k1")
