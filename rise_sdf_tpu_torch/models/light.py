@@ -32,6 +32,7 @@ import torch
 from torch import nn
 
 from . import register
+from .. import trace
 from ..ops import prefilter
 from ..ops.cubemap import avg_pool_cubemap, blender_latlong_to_cubemap, \
     cubemap_to_latlong, mips_atlas, nmf_latlong_to_cubemap, sample_cubemap, \
@@ -123,6 +124,7 @@ class EnvLightMipCube(nn.Module):
                 [prefilter.to_torch(f, device, dtype) for f in self.filters])
         return self._on_device[key]
 
+    @trace.spanned("eval.build_mips")
     def build_mips(self, base: Optional[torch.Tensor] = None) -> EnvMips:
         """Differentiable mip build (reference ``light.py:169-180``) of
         the learned base, or of ``base`` (a relighting environment)."""

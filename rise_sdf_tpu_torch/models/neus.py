@@ -20,6 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from . import make, register
+from .. import trace
 from .variance import Variance
 from ..ops import march, volrend
 
@@ -148,6 +149,7 @@ class NeuSModel(nn.Module):
         return {"comp_rgb": comp_rgb, "opacity": opacity, "depth": depth,
                 "rays_valid": opacity > 0}
 
+    @trace.spanned("model.forward")
     def forward(self, rays, *, occ_binary, step, generator=None,
                 train: bool = False, capacity: int, background_color,
                 levels=None):
@@ -157,36 +159,47 @@ class NeuSModel(nn.Module):
         n_rays = rays.shape[0]
         rays_o, rays_d = rays[:, 0:3], rays[:, 3:6]
         march_gen = generator if (self.randomized and train) else None
-        rs = march.march_rays(
-            rays_o, rays_d, aabb_min=self.aabb_min, aabb_max=self.aabb_max,
-            step_size=self.render_step_size,
-            num_samples=self.num_samples_per_ray, capacity=capacity,
-            grid_binary=occ_binary, grid_resolution=self.grid_resolution,
-            generator=march_gen, cone_angle=self.cone_angle)
+        with trace.span("model.march"):
+            rs = march.march_rays(
+                rays_o, rays_d, aabb_min=self.aabb_min,
+                aabb_max=self.aabb_max, step_size=self.render_step_size,
+                num_samples=self.num_samples_per_ray, capacity=capacity,
+                grid_binary=occ_binary,
+                grid_resolution=self.grid_resolution, generator=march_gen,
+                cone_angle=self.cone_angle)
+        # what the buffer kept: the march counts the dropped rays' too
+        trace.count("model.samples_kept", rs.num_live, most=capacity)
+        trace.count("model.samples_shaded", rs.num_live, most=capacity)
+        trace.count("model.rays_included", rs.ray_included)
         t_mid = 0.5 * (rs.t_starts + rs.t_ends)
         dists = rs.t_ends - rs.t_starts
         ridx = torch.clamp(rs.ray_indices, 0, n_rays - 1)
         t_dirs = rays_d[ridx]
         positions = rays_o[ridx] + t_dirs * t_mid[:, None]
 
-        geo = self.geometry(positions, step, with_grad=True,
-                            with_feature=True, create_graph=train,
-                            levels=levels)
-        sdf, sdf_grad, feature = geo["sdf"], geo["grad"], geo["feature"]
-        normal = _normalize(sdf_grad)
-        inv_s = self.variance.inv_s(step)
-        true_cos = torch.sum(t_dirs * normal, -1)
-        alpha = neus_alpha(sdf, inv_s, true_cos, dists,
-                           self.cos_anneal_ratio(step))
-        rgb = self.texture(feature, t_dirs, normal, step=step)
+        with trace.span("model.geometry"):
+            geo = self.geometry(positions, step, with_grad=True,
+                                with_feature=True, create_graph=train,
+                                levels=levels)
+            sdf, sdf_grad, feature = geo["sdf"], geo["grad"], geo["feature"]
+            normal = _normalize(sdf_grad)
+        with trace.span("model.texture"):
+            rgb = self.texture(feature, t_dirs, normal, step=step)
 
-        weights, _ = volrend.render_weight_from_alpha(
-            alpha, rs.ray_start, rs.ray_indices, rs.valid, n_rays,
-            deterministic=not train)
-        packed = torch.cat([rgb, normal, t_mid[:, None],
-                            torch.ones_like(t_mid)[:, None]], dim=-1)
-        acc = volrend.accumulate_along_rays(weights, rs.ray_indices, packed,
-                                            n_rays, deterministic=not train)
+        with trace.span("model.weights"):
+            inv_s = self.variance.inv_s(step)
+            true_cos = torch.sum(t_dirs * normal, -1)
+            alpha = neus_alpha(sdf, inv_s, true_cos, dists,
+                               self.cos_anneal_ratio(step))
+            weights, _ = volrend.render_weight_from_alpha(
+                alpha, rs.ray_start, rs.ray_indices, rs.valid, n_rays,
+                deterministic=not train)
+        with trace.span("model.accumulate"):
+            packed = torch.cat([rgb, normal, t_mid[:, None],
+                                torch.ones_like(t_mid)[:, None]], dim=-1)
+            acc = volrend.accumulate_along_rays(weights, rs.ray_indices,
+                                                packed, n_rays,
+                                                deterministic=not train)
         comp_rgb, comp_normal = acc[:, 0:3], acc[:, 3:6]
         depth, opacity = acc[:, 6:7], acc[:, 7:8]
         if self.learned_background:

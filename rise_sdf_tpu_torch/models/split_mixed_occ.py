@@ -52,6 +52,7 @@ import torch
 from torch import nn
 
 from . import make, register
+from .. import trace
 from .neus import _normalize, neus_alpha, occ_eval_alpha
 from .variance import Variance
 from ..ops import march, sdf_bake, volrend
@@ -206,6 +207,7 @@ class SplitMixedOccModel(nn.Module):
         return {"stage": self.stage(step), "prefilter": pf,
                 "banded": banded, "capacity": cap}
 
+    @trace.spanned("eval.bake")
     def bake_eval_sdf(self, step):
         """The full geometry SDF baked onto the eval grid, or None when
         ``eval_sdf_bake`` is "off"; pass it to ``forward`` as ``bake``."""
@@ -425,24 +427,25 @@ class SplitMixedOccModel(nn.Module):
         rays_o, rays_d = rays[:, 0:3], rays[:, 3:6]
         t_cut = t_band_lo = None
         if prefilter and occ_binary is not None:
-            with torch.no_grad():
+            with torch.no_grad(), trace.span("model.visibility"):
                 vc = self.visibility_cut(
                     rays_o, rays_d, occ_binary, step, levels=levels,
                     cos_anneal_ratio=self.cos_anneal_ratio(step),
                     band=banded, bake=bake, deterministic=not train)
             t_band_lo, t_cut = vc if banded else (None, vc)
 
-        rs = march.march_rays(
-            rays_o, rays_d, aabb_min=self.aabb_min, aabb_max=self.aabb_max,
-            step_size=self.render_step_size,
-            num_samples=self.num_samples_per_ray, capacity=capacity,
-            grid_binary=occ_binary, grid_resolution=self.grid_resolution,
-            generator=generator if (self.randomized and train) else None,
-            t_cut=t_cut, t_band_lo=t_band_lo,
-            band_k=(self.eval_band_spr
-                    if (banded and self.eval_band_exact
-                        and self.eval_band_spr > 0) else None),
-            cone_angle=self.cone_angle)
+        with trace.span("model.march"):
+            rs = march.march_rays(
+                rays_o, rays_d, aabb_min=self.aabb_min, aabb_max=self.aabb_max,
+                step_size=self.render_step_size,
+                num_samples=self.num_samples_per_ray, capacity=capacity,
+                grid_binary=occ_binary, grid_resolution=self.grid_resolution,
+                generator=generator if (self.randomized and train) else None,
+                t_cut=t_cut, t_band_lo=t_band_lo,
+                band_k=(self.eval_band_spr
+                        if (banded and self.eval_band_exact
+                            and self.eval_band_spr > 0) else None),
+                cone_angle=self.cone_angle)
         t_mid = 0.5 * (rs.t_starts + rs.t_ends)
         dists = rs.t_ends - rs.t_starts
         ridx = torch.clamp(rs.ray_indices, 0, n_rays - 1)
@@ -454,21 +457,23 @@ class SplitMixedOccModel(nn.Module):
             laplace_dirs = torch.rand(
                 (-(-capacity // self.geometry.laplace_stride), 3),
                 generator=generator, device=rays.device)
-        geo = self.geometry(positions, step, with_grad=True,
-                            with_feature=True, create_graph=train,
-                            levels=levels,
-                            grad_mode=None if train else "analytic",
-                            with_laplace=want_laplace,
-                            laplace_dirs=laplace_dirs)
-        feature = geo["feature"]
-        normal = _normalize(geo["grad"])
-        inv_s = self.variance.inv_s(step)
-        true_cos = torch.sum(t_dirs * normal, -1)
-        alpha = neus_alpha(geo["sdf"], inv_s, true_cos, dists,
-                           self.cos_anneal_ratio(step))
-        weights, _ = volrend.render_weight_from_alpha(
-            alpha, rs.ray_start, rs.ray_indices, rs.valid, n_rays,
-            deterministic=not train)
+        with trace.span("model.geometry"):
+            geo = self.geometry(positions, step, with_grad=True,
+                                with_feature=True, create_graph=train,
+                                levels=levels,
+                                grad_mode=None if train else "analytic",
+                                with_laplace=want_laplace,
+                                laplace_dirs=laplace_dirs)
+            feature = geo["feature"]
+            normal = _normalize(geo["grad"])
+        with trace.span("model.weights"):
+            inv_s = self.variance.inv_s(step)
+            true_cos = torch.sum(t_dirs * normal, -1)
+            alpha = neus_alpha(geo["sdf"], inv_s, true_cos, dists,
+                               self.cos_anneal_ratio(step))
+            weights, _ = volrend.render_weight_from_alpha(
+                alpha, rs.ray_start, rs.ray_indices, rs.valid, n_rays,
+                deterministic=not train)
 
         included = rs.ray_included
         frac = self.eval_visibility_frac if vis_frac is None \
@@ -479,20 +484,22 @@ class SplitMixedOccModel(nn.Module):
         if not train and frac < 1.0:
             # the texture stage runs only on samples of weight > 1e-5
             cap2 = max(int(capacity * frac), 16)
-            src, bv, _ = _compact(vis, cap2)
-            vis_cnt = torch.zeros(n_rays + 1, dtype=torch.int64,
-                                  device=rays.device).index_add_(
-                0, rs.ray_indices, vis.long())[:n_rays]
-            included = included & (torch.cumsum(vis_cnt, 0) <= cap2)
-            mc.update(
-                s_feature=index_select(feature, src),
-                s_dirs=index_select(t_dirs, src),
-                s_normal=index_select(normal, src),
-                s_pos=index_select(positions, src),
-                s_tmid=index_select(t_mid, src),
-                s_weights=torch.where(bv, index_select(weights, src), 0.0),
-                s_ridx=torch.where(bv, rs.ray_indices.index_select(0, src),
-                                   n_rays))
+            mc["shaded_most"] = cap2
+            with trace.span("model.compact"):
+                src, bv, _ = _compact(vis, cap2)
+                vis_cnt = torch.zeros(n_rays + 1, dtype=torch.int64,
+                                      device=rays.device).index_add_(
+                    0, rs.ray_indices, vis.long())[:n_rays]
+                included = included & (torch.cumsum(vis_cnt, 0) <= cap2)
+                mc.update(
+                    s_feature=index_select(feature, src),
+                    s_dirs=index_select(t_dirs, src),
+                    s_normal=index_select(normal, src),
+                    s_pos=index_select(positions, src),
+                    s_tmid=index_select(t_mid, src),
+                    s_weights=torch.where(bv, index_select(weights, src), 0.0),
+                    s_ridx=torch.where(bv, rs.ray_indices.index_select(0, src),
+                                       n_rays))
         else:
             mc.update(s_feature=feature, s_dirs=t_dirs, s_normal=normal,
                       s_pos=positions, s_tmid=t_mid, s_weights=weights,
@@ -510,13 +517,31 @@ class SplitMixedOccModel(nn.Module):
         return maps
 
     def _eval_stats(self, out, mc, sec_live):
-        """Eval-capacity statistics: live samples in the buffer, samples
-        of weight > 1e-5 and live secondary samples (before compaction)."""
+        """Eval-capacity statistics: live samples before the buffer,
+        samples of weight > 1e-5 and live secondary samples (before
+        compaction).  ``stat_live`` is the march's count, which takes in
+        the samples of the rays it dropped; the tracer's
+        ``model.samples_kept`` is what the buffer kept (``_count``)."""
         out["stat_live"] = mc["rs"].num_live
         out["stat_vis"] = mc["vis"].sum()
         if self.indirect_pred:
             out["stat_secondary_live"] = sec_live
 
+    @staticmethod
+    def _count(out, mc, capacity):
+        """The tracer's counters of one forward: the live samples the
+        buffer kept, the rays included and the samples the texture stage
+        shaded (those kept by the eval compaction, when it runs)."""
+        live = mc["rs"].num_live
+        trace.count("model.samples_kept", live, most=capacity)
+        trace.count("model.rays_included", out["ray_included"])
+        if "shaded_most" in mc:
+            trace.count("model.samples_shaded", mc["vis"],
+                        most=mc["shaded_most"])
+        else:
+            trace.count("model.samples_shaded", live, most=capacity)
+
+    @trace.spanned("model.forward")
     def forward(self, rays, *, occ_binary, mips, step, stage: int = 0,
                 train: bool = False, relighting: bool = False,
                 capacity: int, background_color, levels=None,
@@ -549,37 +574,41 @@ class SplitMixedOccModel(nn.Module):
             s_dirs, s_normal = mc["s_dirs"], mc["s_normal"]
             s_tmid = mc["s_tmid"]
 
-            tex = self.texture.apply(mc["s_feature"], s_dirs, s_normal,
-                                     mc["s_pos"], emitter=self.emitter,
-                                     mips=mips, stage=stage, step=step)
+            with trace.span("model.texture"):
+                tex = self.texture.apply(mc["s_feature"], s_dirs, s_normal,
+                                         mc["s_pos"], emitter=self.emitter,
+                                         mips=mips, stage=stage, step=step)
             names = ["diff_rgb", "spec_rgb", "blend"]
             if stage != 0:
                 names += ["diff_rgb_pbr", "spec_rgb_pbr", "spec_ref",
                           "spec_light", "albedo", "metallic", "roughness"]
-            chans = [tex[k] for k in names]
-            norm_orient = torch.clamp(
-                torch.sum(s_dirs * s_normal, -1, keepdim=True), min=0.0)
-            chans += [s_normal, s_tmid[:, None],
-                      torch.ones_like(s_tmid)[:, None], norm_orient]
-            acc = volrend.accumulate_along_rays(
-                mc["s_weights"], mc["s_ridx"], torch.cat(chans, dim=-1),
-                n_rays, deterministic=not train)
-            maps = self._split_maps(
-                acc, names + ["normal", "depth", "acc", "norm_orient"],
-                [c.shape[-1] for c in chans])
+            with trace.span("model.accumulate"):
+                chans = [tex[k] for k in names]
+                norm_orient = torch.clamp(
+                    torch.sum(s_dirs * s_normal, -1, keepdim=True), min=0.0)
+                chans += [s_normal, s_tmid[:, None],
+                          torch.ones_like(s_tmid)[:, None], norm_orient]
+                acc = volrend.accumulate_along_rays(
+                    mc["s_weights"], mc["s_ridx"], torch.cat(chans, dim=-1),
+                    n_rays, deterministic=not train)
+                maps = self._split_maps(
+                    acc, names + ["normal", "depth", "acc", "norm_orient"],
+                    [c.shape[-1] for c in chans])
 
             sec_maps = {"spec_rgb": maps["spec_rgb"]}
             if stage != 0:
                 sec_maps.update({k: maps[k] for k in (
                     "spec_rgb_pbr", "spec_ref", "spec_light", "roughness")})
-            sg = self._secondary_geom(
-                rays_o, rays_d, occ_binary, step, levels=levels,
-                secondary_frac=secondary_frac, normal_map=maps["normal"],
-                depth_map=maps["depth"], acc_map=maps["acc"],
-                included=mc["included"], bake=bake,
-                need_third=stage != 0 and relighting)
-            sec_maps = self._secondary_shade(sg, sec_maps, stage=stage,
-                                             relighting=relighting, mips=mips)
+            with trace.span("model.secondary"):
+                sg = self._secondary_geom(
+                    rays_o, rays_d, occ_binary, step, levels=levels,
+                    secondary_frac=secondary_frac, normal_map=maps["normal"],
+                    depth_map=maps["depth"], acc_map=maps["acc"],
+                    included=mc["included"], bake=bake,
+                    need_third=stage != 0 and relighting)
+                sec_maps = self._secondary_shade(
+                    sg, sec_maps, stage=stage, relighting=relighting,
+                    mips=mips)
             out = self._assemble_out(
                 diff_rgb_map=maps["diff_rgb"], maps=sec_maps,
                 blend_map=maps["blend"], normal_map=maps["normal"],
@@ -589,6 +618,8 @@ class SplitMixedOccModel(nn.Module):
                 stage=stage, diff_rgb_pbr_map=maps.get("diff_rgb_pbr"),
                 albedo_map=maps.get("albedo"),
                 metallic_map=maps.get("metallic"))
+            if trace.on():
+                self._count(out, mc, capacity)
             if not train:
                 self._eval_stats(out, mc, sg["sec_live"])
                 return out

@@ -28,6 +28,8 @@ import ctypes
 
 import torch
 
+from .. import trace
+
 _LIB = None
 
 
@@ -63,6 +65,11 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """table [N, W] float32/float64 contiguous; idx [M] int32 below N
     (a negative index gives a row of zeros) -> [M, W].  Launches on the
     current stream and does not synchronise."""
+    with trace.span("kernel.g1"):
+        return _gather_rows(table, idx)
+
+
+def _gather_rows(table, idx):
     if idx.dtype != torch.int32:
         raise TypeError(f"gather_rows takes int32 idx, got {idx.dtype}")
     if table.dtype not in (torch.float32, torch.float64):

@@ -36,6 +36,7 @@ import ctypes
 import torch
 from torch.autograd.function import once_differentiable
 
+from .. import trace
 from .gather import gather_rows
 from .scatter_sorted import present_entries, scatter_add_sorted
 
@@ -59,6 +60,13 @@ def _lib():
     return _LIB
 
 
+def scatter_bytes(rows: int, features: int, table_size: int) -> int:
+    """The bytes a scatter-add of float32 ``[rows, features]`` values
+    into ``[table_size, features]`` needs: each int32 index and value
+    read once, the table written once."""
+    return rows * (4 + 4 * features) + table_size * features * 4
+
+
 def scatter_add_plain(idx: torch.Tensor, vals: torch.Tensor,
                       table_size: int) -> torch.Tensor:
     """Plain PyTorch version: ``zeros([T, F]).index_add_(0, idx, vals)``
@@ -76,6 +84,11 @@ def scatter_add(idx: torch.Tensor, vals: torch.Tensor, table_size: int,
     of ``idx`` is row ``n``, column ``j`` of the caller's layout (the
     kernel adds the entries past the last whole row one by one).
     Launches on the current stream and does not synchronise."""
+    with trace.span("kernel.k1"):
+        return _scatter_add(idx, vals, table_size, period)
+
+
+def _scatter_add(idx, vals, table_size, period):
     if isinstance(period, bool) or not isinstance(period, int):
         raise TypeError(f"scatter_add takes an int period, got {period!r}")
     if period < 1:
@@ -90,6 +103,9 @@ def scatter_add(idx: torch.Tensor, vals: torch.Tensor, table_size: int,
         raise ValueError("scatter_add takes contiguous idx and vals")
     if idx.device != vals.device:
         raise ValueError(f"idx on {idx.device}, vals on {vals.device}")
+    if trace.on():
+        trace.count("kernel.k1.bytes", scatter_bytes(
+            idx.shape[0], vals.shape[1], table_size))
     if idx.device.type == "cpu":
         return scatter_add_plain(idx, vals, table_size)
     if idx.device.type != "cuda":

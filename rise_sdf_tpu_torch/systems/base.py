@@ -30,7 +30,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from .. import bridge, models
+from .. import bridge, models, trace
 from ..ops.hashgrid import HashGridEncoding
 from ..parallel import sharding
 from .optim import make_optimizer
@@ -310,6 +310,7 @@ class BaseSystem:
 
     # ------------------------------------------------------------------ #
     @torch.no_grad()
+    @trace.spanned("train.occupancy")
     def update_occupancy(self, state, generator, subset_fraction: int = 4):
         """Occupancy-grid EMA sweep over a rotating 1/``subset_fraction``
         of the cells (all cells refresh within 4 updates = 64 steps).

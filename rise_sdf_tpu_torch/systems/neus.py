@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from . import register
+from .. import trace
 from .base import BaseSystem
 from .criterions import psnr
 from ..export import export_mesh
@@ -107,6 +108,7 @@ class NeuSSystem(BaseSystem):
         }
 
     # ------------------------------------------------------------------ #
+    @trace.spanned("train.sample_batch")
     def sample_batch(self, generator, data, num_rays: Optional[int] = None):
         """Random (image, pixel) ray batch drawn on the device."""
         n_img, h, w = data["images"].shape[:3]
@@ -204,6 +206,7 @@ class NeuSSystem(BaseSystem):
         return {"levels": self.model.open_levels(step),
                 "capacity": self.rank_counts(self.capacity)[1]}
 
+    @trace.spanned("train.step")
     def train_step(self, state, batch, generator=None, **kw) -> Dict:
         """One update on ``batch``; advances ``state["step"]``.  ``kw``
         goes on to ``forward_loss`` (the curvature probe's
@@ -215,44 +218,56 @@ class NeuSSystem(BaseSystem):
         every leaf.  Finite-grads guard: a non-finite gradient anywhere
         skips the optimizer step and the LR-schedule step together (the
         JAX step keeps the whole optax state, schedule count included)
-        and counts the skip in ``self.skipped_updates``.
+        and counts the skip in ``self.skipped_updates``.  The guard's
+        host read of its flag is the step's one sync: nothing else in the
+        step waits for the card.
 
         Over ranks, the gradients are averaged (one all-reduce; a table
         shard's over its data group, in a second one) before the guard,
         and the aux scalars, the loss and the guard's flag over the world
         in one more collective, so every rank takes the same update or
-        skips with the others (JAX's ``pmean``)."""
+        skips with the others (JAX's ``pmean``).
+
+        Stages (``trace.span``): ``train.step`` around ``train.forward``,
+        ``train.backward``, ``train.allreduce`` (over ranks),
+        ``train.guard`` and ``train.optimizer``."""
         step = int(state["step"])
         self.optimizer.zero_grad(set_to_none=True)
-        loss, aux = self.forward_loss(batch, state["occ_binary"], step,
-                                      generator, **self.train_options(step),
-                                      **kw)
-        loss.backward()
+        with trace.span("train.forward"):
+            loss, aux = self.forward_loss(batch, state["occ_binary"], step,
+                                          generator,
+                                          **self.train_options(step), **kw)
+        with trace.span("train.backward"):
+            loss.backward()
         params = [p for g in self.optimizer.param_groups for p in g["params"]]
         for p in params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for p in params]
-        shards = {id(p) for p in self.table_shards()}
-        if shards:
-            sharding.all_reduce_mean_([p.grad for p in params
-                                       if id(p) not in shards])
-            sharding.all_reduce_mean_([p.grad for p in params
-                                       if id(p) in shards],
-                                      self.mesh.data_group)
-        else:
-            sharding.all_reduce_mean_(grads)
-        aux["loss"] = loss.detach()
-        aux["finite"] = torch.stack([torch.isfinite(g).all()
-                                     for g in grads]).all()
-        aux = sharding.all_reduce_mean_scalars(aux, self.device)
-        ok = bool(aux.pop("finite") == 1)
-        if ok:
-            self.optimizer.step()
-            self.scheduler.step()
-        else:
-            self.skipped_updates += 1
-        self.model.post_update(step)
+        with (trace.span("train.allreduce") if sharding.world_size() > 1
+              else trace.NO_SPAN):
+            shards = {id(p) for p in self.table_shards()}
+            if shards:
+                sharding.all_reduce_mean_([p.grad for p in params
+                                           if id(p) not in shards])
+                sharding.all_reduce_mean_([p.grad for p in params
+                                           if id(p) in shards],
+                                          self.mesh.data_group)
+            else:
+                sharding.all_reduce_mean_(grads)
+        with trace.span("train.guard"):
+            aux["loss"] = loss.detach()
+            aux["finite"] = torch.stack([torch.isfinite(g).all()
+                                         for g in grads]).all()
+            aux = sharding.all_reduce_mean_scalars(aux, self.device)
+            ok = bool(aux.pop("finite") == 1)
+        with trace.span("train.optimizer"):
+            if ok:
+                self.optimizer.step()
+                self.scheduler.step()
+            else:
+                self.skipped_updates += 1
+            self.model.post_update(step)
         aux["skipped_nonfinite"] = 0.0 if ok else 1.0
         state["step"] = step + 1
         return aux
