@@ -35,15 +35,23 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 6. render slice: ``rise_sdf_tpu_torch.bench`` at 800x800 (the flagship
    ``split_mixed_occ_full`` at full width, the headline protocol of the
    JAX package's ``bench.py``), G1 and K1 counts zeroed just before and
-   read just after: the image must be finite, G1 must launch and K1 must
-   not (the run includes the bench's sphere-traced row, checked in phase
-   16b); G1's 16-byte path (the baked-SDF sample) must launch, its
-   launches in the timed image and its device ms over the profiled
-   chunks are printed.  The band-sample hash encode of one chunk from
-   the middle of the image is recorded (the render stream), and the
-   same chunk's baked-SDF rows, the visibility probe's and the secondary
-   alpha's (the bake stream); G1 is held to and timed against
-   ``index_select`` on their rows;
+   read just after: the image must be finite, G1 and E1 (the eval encode)
+   must launch and K1 must not (the run includes the bench's
+   sphere-traced row, checked in phase 16b); G1's 16-byte path (the
+   baked-SDF sample) must launch, its launches in the timed image and
+   its device ms over the profiled chunks are printed.  The band-sample
+   hash encode of one chunk from the middle of the image is recorded
+   where it enters E1, with the rows the torch chain would gather (the
+   render stream), and the same chunk's baked-SDF rows, the visibility
+   probe's and the secondary alpha's (the bake stream); G1 is held to
+   and timed against ``index_select`` on their rows.  E1 is held to the
+   chain on that chunk's encode (the bench's 4096 rays: 49,152 points)
+   and on a bake chunk's (262,144 points), 16 levels each with the
+   render step's mask closing 2: E1f's
+   features equal to the chain's, E1b's position gradient within
+   ``E1_GRAD_GAP`` (none) of autograd's through the chain;
+   median-of-10 times of E1f, E1b, the chain's forward and its forward
+   and position backward;
 7. training slice: the NeuS system at ``neus_sphere_full`` widths (hash
    grid 16 x 2^19 x 2, 4096 rays x 1024 samples into a 1,048,576-sample
    buffer) on the synthetic sphere at 800x800, trained through
@@ -105,11 +113,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    skipped, the one validation view has a finite PSNR and phys PSNR (its
    dropped rays are printed: the fresh-init field of these steps
    outgrows the 4x eval buffer on some rays); (d) ``export`` at ``isosurface.resolution`` 512, counts zeroed
-   just before and read just after: G1 must launch and K1 must not; the
-   vertex and face counts, the grid-eval, marching and attribute
-   seconds and the peak device memory are printed, and the PLY must read
-   back with the same counts and vertices inside [-r, r]^3, the albedo,
-   metallic and roughness arrays finite in [0, 1]; then
+   just before and read just after: E1 (the eval encode) must launch and
+   K1 must not; the vertex and face counts, the grid-eval, marching and
+   attribute seconds and the peak device memory are printed, and the
+   PLY must read back with the same counts and vertices inside [-r,
+   r]^3, the albedo, metallic and roughness arrays finite in [0, 1]; then
    ``latest.ckpt.npz`` must load back at the step after its last save;
    (e) ``python -m rise_sdf_tpu_torch.launch --preset
    split_mixed_occ_test_full --test --resume <a's file>
@@ -229,7 +237,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    ``volume-color`` head: the 48 geometry features through the radiance
    head's 4 x 128 MLP) from a fresh init for 16 steps, then ``validate``
    on one view: steps/s, peak memory, finite losses, no skipped update,
-   one K1 and at least one G1 launch per step, G1 and no K1 in the
+   one K1 and at least one G1 launch per step, E1 and no K1 in the
    validation; (b) ``volume-pbr`` with ``brdf-ggx`` on phase 9's view 0
    (640,000 shading points: positions and normals from its depth and
    normals, materials from a seed), the phase-8 emitter and
@@ -268,9 +276,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    channel within 1e-6, misses the background within 1e-5, G1 launching
    and K1 not; (b) the bench's sphere row from phase 6's run (the 800x800
    headline scene rendered by ``forward_surface`` in chunks of 4096
-   rays): rays/s, unresolved rays, G1 launches per image and the PSNR
-   against phase 6's volumetric image printed; the image finite, misses
-   the background within 1e-5, G1 launching and K1 not; (c) the test
+   rays): rays/s, unresolved rays, G1 and E1 launches per image and the
+   PSNR against phase 6's volumetric image printed; the image finite,
+   misses the background within 1e-5, E1 launching and K1 not; (c) the test
    protocol of phase 9 with ``eval_mode: sphere_trace`` on phase 8's
    parameters made sharp as the bench's headline makes them (variance
    0.67, inv_s ~ 812, and the bench's solid occupancy grid: the stand-in
@@ -365,7 +373,10 @@ phase 16's three parts; K2's entry carries its times on each stream of
 17a and its launches in each run of 17b; all three carry their records
 on 18a's shard streams and K1's and G1's their launches per rank in
 18b; G1's ``rows16`` its 16-byte path's records: S4's shapes, the
-bake stream, launches per render and per test view) and
+bake stream, launches per render and per test view; E1's entry its
+check and times on the render and bake streams of phase 6 and its
+launches in the timed image, the export, 15a's validation and 16b's
+sphere row) and
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the package
 beside it, the script exits non-zero and prints no result.
 """
@@ -387,6 +398,7 @@ import numpy as np
 SRC_K1 = "rise_sdf_tpu_torch/csrc/scatter_add.cu"
 SRC_G1 = "rise_sdf_tpu_torch/csrc/gather_rows.cu"
 SRC_K2 = "rise_sdf_tpu_torch/csrc/scatter_add_sorted.cu"
+SRC_E1 = "rise_sdf_tpu_torch/csrc/hashgrid_eval.cu"
 REPLACES_K1 = "rise_sdf_tpu/ops/scatter_pallas.py:49"
 REPLACES_S1 = "scripts/scatter_kernel_bench.py:33"
 # K2 replaces no Pallas kernel: the counterpart of the XLA ops of the
@@ -395,6 +407,9 @@ REPLACES_K2 = "rise_sdf_tpu/ops/hashgrid.py:448 (_encode_sorted_vjp)"
 REPLACES_G1 = ("scripts/pallas_gather_bench.py:79 (S2), "
                "scripts/pallas_gather_bench.py:128 (S3), "
                "scripts/r5_gather_width_bench.py:52 (S4)")
+# E1 replaces no Pallas kernel: the counterpart of the XLA ops of the
+# plain encode and autograd's position gradient through it
+REPLACES_E1 = "rise_sdf_tpu/ops/hashgrid.py:277 (_encode_plain)"
 F = 2
 # the relight lights of phases 9 and 16c's test protocols: one of the
 # preset's two (cut for time: each light is a full render in
@@ -402,6 +417,11 @@ F = 2
 TEST_LIGHTS = ("warm",)
 # the render chunk whose hash encode is recorded (of 157)
 RENDER_CHUNK = 78
+# the bake's points a chunk (``ops/sdf_bake.py``)
+BAKE_CHUNK = 1 << 18
+# the largest gap of E1b's position gradient to the chain's, as a share
+# of the largest |gradient|: none (bit-equal)
+E1_GRAD_GAP = 0.0
 # the card's memory rate for the bounds (H100 SXM, 3.35 TB/s); scatter
 # adds count against float32 outside the tensor cores (67 TFLOP/s)
 HBM_BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12
@@ -437,6 +457,74 @@ def gather_bound_ms(m, w, rows, elem=4):
     distinct table rows it names read once, the output written once (a
     gather does no arithmetic); ``elem`` bytes per table entry."""
     return (m * 4 + (rows + m) * w * elem) / HBM_BYTES_PER_S * 1e3
+
+
+def eval_encode_bound_ms(n, width, rows):
+    """Least times of E1f and E1b on ``n`` points with ``width`` feature
+    columns: x read once (12 B a point), the features written or the
+    cotangent read once, E1b's gradient written once (12 B a point), and
+    each of the ``rows`` distinct 8-byte table rows read once."""
+    feats = n * 12 + n * width * 4 + rows * 8
+    grad = n * 12 + n * width * 4 + n * 12 + rows * 8
+    return feats / HBM_BYTES_PER_S * 1e3, grad / HBM_BYTES_PER_S * 1e3
+
+
+def check_eval_encode(torch, enc, x, step, levels, what):
+    """E1f equal to the chain's features and E1b to autograd's position
+    gradient through the chain (within ``E1_GRAD_GAP``) on the card
+    tensors of one eval encode; median-of-10 times of E1f, E1b, the
+    chain's forward (under ``no_grad``) and the chain's forward and
+    position backward (what the analytic eval ran before E1)."""
+    from rise_sdf_tpu_torch.measure import median_ms
+    from rise_sdf_tpu_torch.ops import hashgrid_eval
+
+    table, lo, hi = enc.table.detach(), levels.lo, levels.hi
+    n, width = x.shape[0], enc.n_output_dims
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    cot = torch.randn((n, width), generator=gen, device="cuda")
+    with torch.no_grad():
+        want = enc._chain(x, step, lo, hi)
+    got = hashgrid_eval.encode_features(x, table, levels)
+    equal = torch.equal(got, want)
+    del got, want
+    xg = x.detach().requires_grad_(True)
+    want, = torch.autograd.grad(enc._chain(xg, step, lo, hi), xg, cot)
+    got = hashgrid_eval.encode_position_grad(x, table, cot, levels)
+    gap = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    grad_equal = torch.equal(got, want)
+    del got, want
+
+    def chain_features():
+        with torch.no_grad():
+            return enc._chain(x, step, lo, hi)
+
+    ms_f = median_ms(lambda: hashgrid_eval.encode_features(x, table, levels))
+    ms_b = median_ms(lambda: hashgrid_eval.encode_position_grad(
+        x, table, cot, levels))
+    plain_f = median_ms(chain_features)
+    plain = median_ms(lambda: torch.autograd.grad(
+        enc._chain(xg, step, lo, hi), xg, cot))
+    rows = int(torch.unique(chain_rows(torch, enc, x, levels)).numel())
+    bound_f, bound_b = eval_encode_bound_ms(n, width, rows)
+    open_levels = int(sum(levels.mask[lo:hi]))
+    log(f"  {what}: {n} points, levels [{lo}, {hi}) ({open_levels} open), "
+        f"{rows} distinct rows: features equal {equal}, gradient "
+        f"bit-equal {grad_equal} (max gap {gap:.3e} of max |grad| "
+        f"{scale:.3e}); E1f {ms_f:.4f} ms (bound {bound_f:.4f}), E1b "
+        f"{ms_b:.4f} ms (bound {bound_b:.4f}); the chain's forward "
+        f"{plain_f:.4f} ms, forward and position backward {plain:.4f} ms "
+        f"(bytes; median of 10)")
+    if not equal:
+        fail(f"E1f differs from the chain's features at {what}")
+    if gap > E1_GRAD_GAP * scale:
+        fail(f"E1b is {gap:.3e} off the chain's position gradient at {what}")
+    return {"max_abs_err": gap, "ms": ms_f + ms_b, "features_ms": ms_f,
+            "grad_ms": ms_b, "plain_ms": plain, "plain_features_ms": plain_f,
+            "bound_ms": bound_f + bound_b, "features_bound_ms": bound_f,
+            "grad_bound_ms": bound_b, "bound_by": "bytes",
+            "library_ms": None, "points": n, "levels": [lo, hi],
+            "open_levels": open_levels, "distinct_rows": rows}
 
 
 def check_scatter(torch, got, idx, vals, table_size, what):
@@ -734,6 +822,26 @@ def split_train_reference_phase(torch, gather, scatter):
                  f"{launches[0]}, K1 {launches[1]} times")
 
 
+def e1_launches():
+    """E1's launches so far (the eval encode: features and position
+    gradient), where eval paths keep no graph through the encode."""
+    from rise_sdf_tpu_torch.ops import hashgrid_eval
+
+    return hashgrid_eval.encode_features.launches \
+        + hashgrid_eval.encode_position_grad.launches
+
+
+def chain_rows(torch, enc, x, levels):
+    """The ``[N, L_open, 8]`` int32 rows of the flattened ``[L T, F]``
+    table that the chain would gather for E1's encode of ``x`` over
+    ``levels`` (``hashgrid_eval.Levels``)."""
+    with torch.no_grad():
+        flat = enc._corner_rows(enc._cell(x, levels.lo, levels.hi)[0],
+                                levels.lo, levels.hi)
+        offs = torch.arange(levels.lo, levels.hi, device=x.device)
+        return (flat + offs[None, :, None] * enc.table_size).to(torch.int32)
+
+
 @contextlib.contextmanager
 def recording_bake(chunk):
     """Records the baked-SDF rows that the flagship model's forward call
@@ -787,11 +895,13 @@ def recording_bake(chunk):
 def render_phase(torch, gather, scatter):
     """The flagship render through its entry point, at 800x800.  The
     hash encode of the band samples of chunk ``RENDER_CHUNK`` of the
-    timed image (call 0 is the warm-up chunk) is recorded: its table and
-    its ``[N, 16, 8]`` rows (the eval encode gathers every level and
-    masks the closed ones after); so are the same chunk's baked-SDF rows
-    (the bake stream, ``recording_bake``), which G1's 16-byte path
-    reads."""
+    timed image (call 0 is the warm-up chunk) is recorded where it
+    enters the eval encode (E1): its points, its table and the ``[N,
+    16, 8]`` rows the torch chain would gather (the eval encode takes
+    every level and masks the closed ones after); so is the first bake
+    chunk's encode, and the same render chunk's baked-SDF rows (the bake
+    stream, ``recording_bake``), which G1's 16-byte path reads.  E1 is
+    held to the chain and timed on both encodes."""
     from rise_sdf_tpu_torch import bench, presets
     from rise_sdf_tpu_torch.ops import hashgrid
 
@@ -799,17 +909,27 @@ def render_phase(torch, gather, scatter):
     band_slots = int(mcfg["ray_chunk"]) \
         * int(mcfg["eval_banded_samples_per_ray"]) \
         + int(mcfg["eval_band_reserve"])
-    lookup = hashgrid.table_grad_lookup
+    forward = hashgrid.HashGridEncoding.forward
     seen = {"calls": 0}
 
-    def recording_lookup(table, rows, *rest):
-        if rows.shape[0] == band_slots:
-            if seen["calls"] == 1 + RENDER_CHUNK:
-                seen.update(table=table.detach(), rows=rows.clone())
-            seen["calls"] += 1
-        return lookup(table, rows, *rest)
+    def recording_forward(enc, x, step=None, levels=None, **kw):
+        """The eval encodes of the render chunk and of a bake chunk, as
+        E1 takes them."""
+        if kw.get("eval_encode") and x.shape[0] in (band_slots, BAKE_CHUNK):
+            lv = enc.eval_levels(*enc._level_range(levels, enc.n_levels),
+                                 step)
+            if x.shape[0] == BAKE_CHUNK and "bake" not in seen:
+                seen["bake"] = (enc, x.clone(), step, lv)
+            if x.shape[0] == band_slots:
+                if seen["calls"] == 1 + RENDER_CHUNK:
+                    seen["render"] = (enc, x.clone(), step, lv)
+                    seen.update(table=enc.table.detach().reshape(
+                        -1, enc.n_features_per_level),
+                        rows=chain_rows(torch, enc, x, lv))
+                seen["calls"] += 1
+        return forward(enc, x, step, levels, **kw)
 
-    hashgrid.table_grad_lookup = recording_lookup
+    hashgrid.HashGridEncoding.forward = recording_forward
     gather.gather_rows.launches = 0
     scatter.scatter_add.launches = 0
     try:
@@ -817,7 +937,7 @@ def render_phase(torch, gather, scatter):
             res = bench.run("full", "cuda", profile_chunks=8,
                             log=lambda msg: log(f"  {msg}"))
     finally:
-        hashgrid.table_grad_lookup = lookup
+        hashgrid.HashGridEncoding.forward = forward
     g1, k1 = gather.gather_rows.launches, scatter.scatter_add.launches
     img = res.pop("image")
     res.pop("included")
@@ -833,7 +953,8 @@ def render_phase(torch, gather, scatter):
         f"({res.get('dropped_rays_zero_padded')} counted as the JAX bench "
         f"counts, last chunk padded with zero rays); peak device memory "
         f"{res['peak_memory_gib']:.2f} GiB")
-    log(f"  G1 launches {g1}, K1 launches {k1} (the whole run); G1 "
+    log(f"  G1 launches {g1}, K1 launches {k1} (the whole run), E1 "
+        f"{res['e1_launches']} (the timed image); G1 "
         f"{res['g1_device_ms']:.2f} of {res['profile_device_ms']:.2f} ms of "
         f"device time over {res['profile_chunks']} chunks "
         f"(share {res['g1_share']}), device busy "
@@ -851,8 +972,8 @@ def render_phase(torch, gather, scatter):
     if tuple(img.shape) != (800, 800, 3) or not bool(
             torch.isfinite(img).all()):
         fail("the 800x800 render is not a finite 800x800x3 image")
-    if g1 == 0 or res["g1_launches"] == 0:
-        fail("G1 never launched during the render")
+    if g1 == 0 or res["g1_launches"] == 0 or res["e1_launches"] == 0:
+        fail("G1 or E1 never launched during the render")
     if k1 != 0:
         fail(f"K1 launched {k1} times during the render")
     if "rows" not in seen:
@@ -880,7 +1001,15 @@ def render_phase(torch, gather, scatter):
             f"bake stream, {name} (chunk {RENDER_CHUNK}, "
             f"{len(baked[part])} gather(s))")
         saved[f"bake_{part}_rows"] = idx.cpu()
-    return g1, stream, saved, sphere, rows16
+    if "bake" not in seen:
+        fail(f"no bake encode of {BAKE_CHUNK} points")
+    e1 = check_eval_encode(torch, *seen.pop("render"),
+                           f"eval encode, render stream (chunk "
+                           f"{RENDER_CHUNK}'s band samples)")
+    e1["bake_stream"] = check_eval_encode(
+        torch, *seen.pop("bake"), "eval encode, bake stream (one chunk)")
+    e1["launches"] = res["e1_launches"]
+    return g1, stream, saved, sphere, rows16, e1
 
 
 def slice_phase(torch, scatter, steps, cfg, device="cuda"):
@@ -1368,6 +1497,7 @@ def lifecycle_phase(torch, gather, scatter, trained, state, steps):
     torch.cuda.reset_peak_memory_stats()
     scatter.scatter_add.launches = 0
     gather.gather_rows.launches = 0
+    e1 = e1_launches()
     times = {}
     t0 = time.perf_counter()
     mesh = system.export(final, times)
@@ -1375,6 +1505,7 @@ def lifecycle_phase(torch, gather, scatter, trained, state, steps):
     peak = torch.cuda.max_memory_allocated()
     g1_export, k1_export = (gather.gather_rows.launches,
                             scatter.scatter_add.launches)
+    e1_export = e1_launches() - e1
     if mesh is None:
         fail("export found no surface")
     iso = cfg["model"]["geometry"]["isosurface"]
@@ -1385,10 +1516,10 @@ def lifecycle_phase(torch, gather, scatter, trained, state, steps):
         f"{len(verts)} vertices, {len(faces)} faces; grid eval "
         f"{times['grid']:.2f} s, marching {times['march']:.2f} s, "
         f"attributes {times['attributes']:.2f} s; peak device memory "
-        f"{peak / 2 ** 30:.2f} GiB; G1 launches {g1_export}, K1 launches "
-        f"{k1_export}")
-    if g1_export == 0 or k1_export != 0:
-        fail(f"export launched G1 {g1_export}, K1 {k1_export} times")
+        f"{peak / 2 ** 30:.2f} GiB; G1 launches {g1_export}, E1 launches "
+        f"{e1_export}, K1 launches {k1_export}")
+    if e1_export == 0 or k1_export != 0:
+        fail(f"export launched E1 {e1_export}, K1 {k1_export} times")
     radius = float(cfg["model"]["radius"])
     if (len(verts), len(faces)) != (len(mesh["v_pos"]),
                                     len(mesh["t_pos_idx"])) \
@@ -1438,6 +1569,7 @@ def lifecycle_phase(torch, gather, scatter, trained, state, steps):
         fail("the launch CLI left no test PNGs or no PLY")
     shutil.rmtree(root, ignore_errors=True)
     return {"k1": k1, "g1": g1, "g1_export": g1_export,
+            "e1_export": e1_export,
             "k1_per_step": k1_step, "g1_per_step": g1_step}
 
 
@@ -3028,33 +3160,36 @@ def color_phase(torch, scatter, gather):
     torch.cuda.synchronize()
     scatter.scatter_add.launches = 0
     gather.gather_rows.launches = 0
+    e1 = e1_launches()
     t0 = time.perf_counter()
     val = system.validate(state, n_images=1)
     torch.cuda.synchronize()
     val_s = time.perf_counter() - t0
     val_k1, val_g1 = scatter.scatter_add.launches, gather.gather_rows.launches
+    val_e1 = e1_launches() - e1
     rec = {"steps_per_s": rate, "peak_gib": peak,
            "k1": sum(d[0] for d in deltas), "g1": sum(d[1] for d in deltas),
            "k1_per_step": sorted({d[0] for d in deltas}),
            "g1_per_step": sorted({d[1] for d in deltas}),
            "psnr": val["psnr"], "validate_s": val_s, "validate_g1": val_g1,
-           "validate_k1": val_k1}
+           "validate_e1": val_e1, "validate_k1": val_k1}
     log(f"  a. neus_sphere_color_full (volume-color on the 48 features, "
         f"4 x 128 hidden): built in {built:.1f} s; {COLOR_STEPS} steps at "
         f"{rate:.3f} steps/s, peak {peak:.2f} GiB, losses {losses[0]:.5f} "
         f"-> {losses[-1]:.5f}, skipped {system.skipped_updates}; K1 "
         f"launches {rec['k1']} ({rec['k1_per_step']} per step), G1 "
         f"{rec['g1']} ({rec['g1_per_step']} per step); validate 1 view "
-        f"800x800 in {val_s:.1f} s: PSNR {val['psnr']:.3f} dB, G1/K1 "
-        f"launches {val_g1}/{val_k1}")
+        f"800x800 in {val_s:.1f} s: PSNR {val['psnr']:.3f} dB, G1/E1/K1 "
+        f"launches {val_g1}/{val_e1}/{val_k1}")
     if len(losses) != COLOR_STEPS or not np.all(np.isfinite(losses)) \
             or system.skipped_updates:
         fail(f"volume-color NeuS: losses {losses}, skipped "
              f"{system.skipped_updates}")
     if any(d[0] != 1 or d[1] < 1 for d in deltas):
         fail(f"a volume-color step without one K1 and a G1 launch: {deltas}")
-    if not np.isfinite(val["psnr"]) or val_g1 == 0 or val_k1:
-        fail(f"volume-color validation {val}, G1/K1 {val_g1}/{val_k1}")
+    if not np.isfinite(val["psnr"]) or val_e1 == 0 or val_k1:
+        fail(f"volume-color validation {val}, G1/E1/K1 "
+             f"{val_g1}/{val_e1}/{val_k1}")
     del system, state
     torch.cuda.empty_cache()
     shutil.rmtree(out_dir, ignore_errors=True)
@@ -3501,6 +3636,7 @@ def surface_render_check(torch, sphere):
            "unresolved_rays": sphere["sphere_trace_unresolved_rays"],
            "seconds": sphere["sphere_trace_s"],
            "g1_launches": sphere["sphere_trace_g1_launches"],
+           "e1_launches": sphere["sphere_trace_e1_launches"],
            "k1_launches": sphere["sphere_trace_k1_launches"],
            "hits": int((~miss).sum()),
            "profile": {k[len("sphere_"):]: sphere[k] for k in (
@@ -3520,8 +3656,8 @@ def surface_render_check(torch, sphere):
         fail("16b: the sphere-traced 800x800 image is not finite")
     if bg > 1e-5:
         fail(f"16b: misses are {bg:.2e} off the background")
-    if rec["g1_launches"] == 0 or rec["k1_launches"] != 0:
-        fail(f"16b: the sphere row launched G1 {rec['g1_launches']}, K1 "
+    if rec["e1_launches"] == 0 or rec["k1_launches"] != 0:
+        fail(f"16b: the sphere row launched E1 {rec['e1_launches']}, K1 "
              f"{rec['k1_launches']} times")
     return rec
 
@@ -4377,7 +4513,7 @@ def main():
     split_train_reference_phase(torch, gather, scatter)
     log("render slice: rise_sdf_tpu_torch.bench, split_mixed_occ_full, "
         "800x800:")
-    g1["launches"], g1["render_stream"], streams, sphere, render16 = \
+    g1["launches"], g1["render_stream"], streams, sphere, render16, e1 = \
         render_phase(torch, gather, scatter)
     rows16.update(render16)
     from rise_sdf_tpu_torch import bench, measure
@@ -4555,6 +4691,9 @@ def main():
     k1["resume_launches"] = life["k1"]
     g1["resume_launches"] = life["g1"]
     g1["export_launches"] = life["g1_export"]
+    e1["export_launches"] = life["e1_export"]
+    e1["phase15"] = {"color_validate": color["validate_e1"]}
+    e1["phase16"] = {"sphere_row": p16["bench"]["e1_launches"]}
     k1["resume_launches_per_step"] = life["k1_per_step"]
     g1["resume_launches_per_step"] = life["g1_per_step"]
     s1["launches"] = k1["launches"]
@@ -4589,6 +4728,9 @@ def main():
          **{k: k2[k] for k in keys},
          **{k: k2[k] for k in ("streams", "launches_per_run", "pass_ms",
                                 "library_det_ms", "k1_ms", "phase18")}},
+        {"name": "eval encode (E1f/E1b)", "route": "cuda", "source": SRC_E1,
+         "replaces": REPLACES_E1, **{k: e1[k] for k in keys},
+         **{k: e1[k] for k in e1 if k not in keys}},
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -22,7 +22,8 @@ as a real eval of one checkpoint does; rays/s is the image's rays over
 that time.  The script prints one JSON line: rays/s, dropped rays, the
 mip-build, bake and render seconds, the kernels' launches in the timed
 image (``g1_16_launches``: those of G1's 16-byte path, the baked-SDF
-sample), peak device memory and the image's largest opacity (above 1 by
+sample; ``e1_launches``: E1's features kernel, the eval encode), peak
+device memory and the image's largest opacity (above 1 by
 the float32 error of the transmittance scan); with ``--profile-chunks
 N``, the device time of ``N`` chunks by kernel under ``torch.profiler``,
 G1's share of it and its 16-byte path's ms and launches, and the same
@@ -34,7 +35,7 @@ same model, sharp variance and solid occupancy rendered by sphere tracing
 in row-major order, the mips built inside the timed image;
 ``sphere_trace_rays_per_sec`` and ``sphere_trace_unresolved_rays`` (the
 rays the trace or its guard leaves to a volumetric re-render, which the
-row does not run) join the JSON line, with the row's G1 and K1
+row does not run) join the JSON line, with the row's G1, E1 and K1
 launches.  The JAX bench pads its last chunk with zero rays; here it is
 shorter.
 
@@ -58,6 +59,7 @@ from . import models, presets
 from .datasets.synthetic import look_at
 from .ops import prefilter
 from .ops.gather import gather_rows
+from .ops.hashgrid_eval import encode_features
 from .ops.scatter import scatter_add
 from .utils.misc import interleave_order
 from .utils.rays import get_ray_directions, get_rays
@@ -180,7 +182,7 @@ def run(preset: str = "full", device="cuda", profile_chunks: int = 0,
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     g1, k1 = gather_rows.launches, scatter_add.launches
-    g16 = gather_rows.launches16
+    g16, e1 = gather_rows.launches16, encode_features.launches
     rgb = torch.empty((n, 3), device=device)
     included = torch.empty((n,), dtype=torch.bool, device=device)
     # opacity above 1 measures the float32 error of the transmittance
@@ -208,6 +210,7 @@ def run(preset: str = "full", device="cuda", profile_chunks: int = 0,
         opacity_max=float(opacity_max),
         g1_launches=gather_rows.launches - g1,
         g1_16_launches=gather_rows.launches16 - g16,
+        e1_launches=encode_features.launches - e1,
         k1_launches=scatter_add.launches - k1)
     if device.type == "cuda":
         res["peak_memory_gib"] = torch.cuda.max_memory_allocated(device) \
@@ -253,7 +256,7 @@ SPHERE_CHUNK = 4096  # the JAX bench's continuity chunk
 def sphere_row(model, rays, occ, step, log) -> dict:
     """The sphere-traced image of ``rays`` (row-major): one warm-up
     chunk, then the mips and every chunk timed.  Returns rays/s, the
-    unresolved rays, the seconds, G1's and K1's launches in the timed
+    unresolved rays, the seconds, G1's, E1's and K1's launches in the timed
     image and (on the device) the image ``sphere_image`` [N, 3] and its
     opacity ``sphere_opacity`` [N]."""
     device, n = rays.device, rays.shape[0]
@@ -263,6 +266,7 @@ def sphere_row(model, rays, occ, step, log) -> dict:
                           mips=model.emitter.build_mips(), **kw)
     _sync(device)
     g1, k1 = gather_rows.launches, scatter_add.launches
+    e1 = encode_features.launches
     rgb = torch.empty((n, 3), device=device)
     opacity = torch.empty((n,), device=device)
     unresolved = torch.zeros((), dtype=torch.int64, device=device)
@@ -280,6 +284,7 @@ def sphere_row(model, rays, occ, step, log) -> dict:
            "sphere_trace_unresolved_rays": int(unresolved),
            "sphere_trace_s": dt,
            "sphere_trace_g1_launches": gather_rows.launches - g1,
+           "sphere_trace_e1_launches": encode_features.launches - e1,
            "sphere_trace_k1_launches": scatter_add.launches - k1,
            "sphere_image": rgb, "sphere_opacity": opacity}
     log(f"sphere trace: {res['sphere_trace_rays_per_sec']:.0f} rays/s, "

@@ -86,12 +86,18 @@ class VolumeSDF(nn.Module):
         """-> [N, feature_dim]; channel 0 is the SDF.  ``grad_impl``: the
         hash table's gradient, ``'plain'`` (K1) or ``'sorted'`` (K2,
         deterministic), as JAX's ``raw``; the curvature probe and the
-        analytic gradient call it with the default, as JAX's do."""
+        analytic gradient call it with the default, as JAX's do.  With
+        grad disabled the encode keeps no graph (``eval_encode``)."""
+        return self._raw(x_world, step, levels, grad_impl,
+                         not torch.is_grad_enabled())
+
+    def _raw(self, x_world, step, levels, grad_impl, eval_encode):
         # clamp into the unit cube: dead sample slots may lie outside the
         # AABB, where trilinear extrapolation weights blow up
         u = torch.clamp(self.contract(x_world), 0.0, 1.0)
         return self._head(self.encoding(u, step, levels=levels,
-                                        grad_impl=grad_impl))
+                                        grad_impl=grad_impl,
+                                        eval_encode=eval_encode))
 
     def _head(self, enc):
         """The MLP, with ``sdf_activation(sdf + sdf_bias)`` on channel 0
@@ -279,7 +285,10 @@ class VolumeSDF(nn.Module):
         the curvature probe's uniform [0, 1)^3 draws.  The analytic
         gradient needs autograd even under ``torch.no_grad()`` (eval), so
         it is taken under ``enable_grad``; an ``x_world`` that does not
-        require grad is replaced by a detached copy that does."""
+        require grad is replaced by a detached copy that does.  Entered
+        with grad disabled, the analytic branch's encode keeps no graph
+        but the positions' (``HashGridEncoding``'s ``eval_encode``)."""
+        eval_encode = not torch.is_grad_enabled()
         grad_type = grad_mode or self.grad_type
         if grad_type not in ("analytic", "finite_difference"):
             raise ValueError(f"unknown grad_mode '{grad_type}'")
@@ -299,7 +308,7 @@ class VolumeSDF(nn.Module):
             with torch.enable_grad():
                 x = x_world if x_world.requires_grad \
                     else x_world.detach().requires_grad_(True)
-                raw = self.raw(x, step, levels)
+                raw = self._raw(x, step, levels, "plain", eval_encode)
                 out["grad"], = torch.autograd.grad(
                     raw[:, 0].sum(), x, create_graph=create_graph)
         else:

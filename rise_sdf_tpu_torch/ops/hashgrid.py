@@ -38,6 +38,14 @@ normals, the secondary pass' alpha) is the whole one, and its own
 gradient reaches the tables and the MLP whole.  A sharded encode takes
 the plain table gradient for ``grad_impl='sorted'``, as JAX's ``apply``
 does (the deterministic switch still takes K2).
+
+Where no graph through the encode is kept (``forward(...,
+eval_encode=True)``: ``VolumeSDF`` entered with grad disabled), the
+features on the card come from ``EvalEncode``, the pair E1
+(``ops/hashgrid_eval.py``): one launch for the features and one for
+their position gradient, with no table gradient.  On the CPU the chain
+above is their plain counterpart and runs as it is.  Every encode with
+grad enabled keeps the chain, G1 and K1.
 """
 
 from __future__ import annotations
@@ -49,7 +57,10 @@ from typing import Any, Dict, Optional
 import torch
 import torch.distributed as dist
 from torch import nn
+from torch.autograd.function import once_differentiable
 
+from .. import trace
+from . import hashgrid_eval
 from .scatter import table_grad_lookup
 
 # instant-ngp spatial hash primes
@@ -286,14 +297,46 @@ class HashGridEncoding(nn.Module):
         return feats.flatten(-2)
 
     def forward(self, x: torch.Tensor, step=None, levels=None,
-                grad_impl: str = "plain") -> torch.Tensor:
+                grad_impl: str = "plain",
+                eval_encode: bool = False) -> torch.Tensor:
         """Encode ``x`` [N, 3] in [0,1]^3 -> [N, L*F] features
         (level-major).  ``levels`` (count or (lo, hi)) skips the gathers
         of levels outside the range; their feature slots are zeros.
-        ``grad_impl``: the table gradient, ``'plain'`` or ``'sorted'``."""
+        ``grad_impl``: the table gradient, ``'plain'`` or ``'sorted'``.
+        ``eval_encode``: the caller keeps no graph through the encode
+        (``VolumeSDF`` entered with grad disabled), so the features come
+        from ``EvalEncode``, with no table gradient and a position
+        gradient that cannot be differentiated again.  E1 runs on the
+        card and is written for float32 points and tables of 2 features
+        a level (every shipped configuration); other encodes, CPU
+        tensors (where the chain is E1's plain counterpart) and a
+        row-sharded table take the chain all the same."""
         lo, hi = self._level_range(levels, self.n_levels)
         if hi <= lo:
             return x.new_zeros((x.shape[0], self.n_output_dims))
+        table = self.table if self._full is None else self._full
+        if (eval_encode and x.is_cuda and not self._sharded()
+                and self.n_features_per_level == 2
+                and x.dtype == table.dtype == torch.float32):
+            trace.count("encode.eval_points", x.shape[0])
+            return EvalEncode.apply(x, table.detach(),
+                                    self.eval_levels(lo, hi, step))
+        trace.count("encode.chain_points", x.shape[0])
+        return self._chain(x, step, lo, hi, grad_impl)
+
+    def eval_levels(self, lo: int, hi: int, step) -> hashgrid_eval.Levels:
+        """The level constants of ``EvalEncode`` over [lo, hi) at
+        ``step`` (the progressive mask as the chain's)."""
+        cur = self.current_level(step if step is not None else 10 ** 9)
+        return hashgrid_eval.Levels(
+            res=[float(r) for r in self.resolutions],
+            stride=[r + 1 for r in self.resolutions],
+            mask=[1.0 if l < cur else 0.0 for l in range(self.n_levels)],
+            lo=lo, hi=hi, n_dense=self.n_dense, table_size=self.table_size)
+
+    def _chain(self, x, step, lo: int, hi: int, grad_impl: str = "plain"):
+        """The encode of levels [lo, hi) as torch ops around G1, whose
+        table gradient is K1 (or K2)."""
         i0, w = self._cell(self._enter(x), lo, hi)
         vals = self._lookup(self._corner_rows(i0, lo, hi), lo, grad_impl)
         feats = self._reduce((_outer8(*_axis_pairs(w))[..., None]
@@ -310,6 +353,7 @@ class HashGridEncoding(nn.Module):
         if hi <= lo:
             z = x.new_zeros((x.shape[0], self.n_output_dims))
             return z, (z, z, z)
+        trace.count("encode.chain_points", x.shape[0])
         i0, w = self._cell(self._enter(x), lo, hi)
         vals = self._lookup(self._corner_rows(i0, lo, hi), lo, grad_impl)
         pairs = _axis_pairs(w)
@@ -346,6 +390,7 @@ class HashGridEncoding(nn.Module):
             raise ValueError(f"{u_probes.shape[0]} probes for {p_n} axes")
         if hi <= lo:
             return u.new_zeros((p_n + 1, n, self.n_output_dims))
+        trace.count("encode.chain_points", n * (p_n + 1))
         u, u_probes = self._enter(u, u_probes)
         i0, f = self._cell(u, lo, hi)
         res = self.level_res[lo:hi].to(u.dtype)
@@ -382,6 +427,29 @@ class HashGridEncoding(nn.Module):
                             grad_impl)
         feats = self._reduce(torch.einsum("pnlk,nlkf->pnlf", w32, vals))
         return self._level_out(feats, lo, hi, step)
+
+
+class EvalEncode(torch.autograd.Function):
+    """``HashGridEncoding``'s features where no graph through the encode
+    is kept: ``apply(x [N, 3], table [L, T, F] detached, levels)`` ->
+    [N, L*F] on the card.  The forward is E1f and the backward E1b
+    (``ops/hashgrid_eval.py``), one launch each; the table takes no
+    gradient (no K1), and the position gradient is once-differentiable.
+    Its plain counterpart is the chain (``HashGridEncoding._chain``)."""
+
+    @staticmethod
+    def forward(ctx, x, table, levels):
+        x = x.contiguous()
+        ctx.save_for_backward(x, table)
+        ctx.levels = levels
+        return hashgrid_eval.encode_features(x, table, levels)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad):
+        x, table = ctx.saved_tensors
+        return (hashgrid_eval.encode_position_grad(x, table, grad,
+                                                   ctx.levels), None, None)
 
 
 class ReduceFrom(torch.autograd.Function):
